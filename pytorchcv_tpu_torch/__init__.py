@@ -1,0 +1,16 @@
+"""pytorchcv_tpu_torch: the PyTorch/CUDA port of pytorchcv_tpu.
+
+Models are NCHW ``nn.Module``s whose ``state_dict`` names are the reference
+pytorchcv names; the int8 serving path runs on hand-written CUDA kernels
+for Hopper (``kernels/``, sources in ``csrc/``), with plain PyTorch versions
+on CPU tensors. The package imports torch and numpy only.
+"""
+
+__version__ = "0.1.0"
+
+from .model_provider import get_model
+from .models import registered_models
+from .serve import make_serving_fn
+
+__all__ = ["get_model", "make_serving_fn", "registered_models",
+           "__version__"]

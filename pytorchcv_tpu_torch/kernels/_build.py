@@ -1,0 +1,137 @@
+"""Build, load and launch-count the port's CUDA kernels.
+
+At first use, ``nvcc`` compiles every source under ``csrc/`` into one shared
+library with a plain C interface, keyed by a hash of those sources, under
+``pytorchcv_tpu_torch/_build/`` (git-ignored). ``ctypes`` loads it: pointers
+and the stream go as ``c_void_p``, and every entry point returns
+``cudaGetLastError()``, which :func:`check` turns into an exception.
+Nothing here imports or builds at module import, so CPU-only hosts import
+the package freely.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+_BUILD = _PKG / "_build"
+_LIB_NAME = "libpytorchcv_kernels.so"
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+# Kernel launches per wrapper; a wrapper adds one where it launches its
+# kernel (never on its CPU path).
+LAUNCHES: Dict[str, int] = {"preprocess": 0, "int8_conv": 0, "stem": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "pcv_preprocess": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "pcv_int8_conv": [_P, _P, _P, _P, _P, _F, _I, _I, _F, _I, _P]
+    + [_I] * 11 + [_P],
+    "pcv_stem": [_P, _P, _P, _F, _P, _P] + [_I] * 8 + [_P],
+}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built from ``csrc/`` on first call."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out_dir = _BUILD / digest.hexdigest()[:16]
+    lib_path = out_dir / _LIB_NAME
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f".{_LIB_NAME}.{os.getpid()}"
+        cmd = [_nvcc(), *_ARCH, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", f"-I{_CSRC}", "-o", str(tmp),
+               *[str(s) for s in sorted(_CSRC.glob("*.cu"))]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib_path)
+    lib =ctypes.CDLL(str(lib_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.pcv_error_string.argtypes = [ctypes.c_int]
+    lib.pcv_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a ``pcv_*`` entry point reported a CUDA error."""
+    if err != 0:
+        msg = _lib.pcv_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed: {msg} ({err})")
+
+
+def stream_of(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Full-f32 matmuls and cuDNN convolutions (the plain versions' and the
+    reference forward's precision; cuDNN defaults to TF32 for f32 convs)."""
+    import torch
+    old_mm = torch.backends.cuda.matmul.allow_tf32
+    old_cudnn = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old_mm
+        torch.backends.cudnn.allow_tf32 = old_cudnn
+
+
+def require_cuda_or_cpu(name: str, *tensors) -> bool:
+    """True when every tensor lies on one CUDA device, False when all lie on
+    the CPU; raise otherwise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices: {devices}")
+    dev = devices.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {dev}")

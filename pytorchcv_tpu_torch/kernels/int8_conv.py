@@ -1,0 +1,134 @@
+"""int8 NHWC convolution with the serving pipeline's fused epilogue (K2).
+
+One call is one int8 conv of the int8 ResNet pipeline, with its epilogue:
+
+* ``q`` given, no residual: ``clip(rint(max?(acc*A + B) * q), +-127)`` int8
+  (``_cell`` with ``s_out``; the max only with ``relu``);
+* no ``q``, no residual: ``acc*A + B`` (max with ``relu``) as bf16
+  (``_cell`` without ``s_out``);
+* residual given (the unit tail): ``t = bf16(acc*A + B)``, ``r`` the
+  residual term, ``y = max(t + r, 0)``, int8 via ``q`` or bf16 without it.
+  An int8 residual enters as ``f32(res) * res_scale``, rounded to bf16 when
+  ``round_res``; a bf16 residual enters as it is.
+
+``acc`` is the exact int32 sum, ``A`` and ``B`` are f32 per output channel
+and every step follows the JAX reference's f32 op order, so the kernel
+(``csrc/int8_conv.cu``) and the plain version are bit-exact against it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ._build import LAUNCHES, check, library, require_cuda_or_cpu, stream_of
+
+__all__ = ["int8_conv", "int8_conv_reference"]
+
+_RES_NONE, _RES_I8, _RES_I8_BF16, _RES_BF16 = 0, 1, 2, 3
+
+
+def _quant_i8(y: torch.Tensor, q: float) -> torch.Tensor:
+    return torch.clamp(torch.round(y * q), -127.0, 127.0).to(torch.int8)
+
+
+def int8_conv_reference(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
+                        bias_b: torch.Tensor, stride: int = 1,
+                        relu: bool = True, q: Optional[float] = None,
+                        residual: Optional[torch.Tensor] = None,
+                        res_scale: Optional[float] = None,
+                        round_res: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K2. The conv runs in float64, which is exact
+    (int8 sums stay far below 2**53; float32 is not: they pass 2**24)."""
+    k = w.shape[1]
+    acc = F.conv2d(x.permute(0, 3, 1, 2).to(torch.float64),
+                   w.permute(0, 3, 1, 2).to(torch.float64),
+                   stride=stride, padding=k // 2)
+    acc = acc.to(torch.int32).permute(0, 2, 3, 1).contiguous()
+    y = acc.to(torch.float32) * gain_a + bias_b
+    if residual is None:
+        if relu:
+            y = torch.clamp_min(y, 0.0)
+        return y.to(torch.bfloat16) if q is None else _quant_i8(y, q)
+    t = y.to(torch.bfloat16).to(torch.float32)
+    if residual.dtype == torch.int8:
+        r = residual.to(torch.float32) * res_scale
+        if round_res:
+            r = r.to(torch.bfloat16).to(torch.float32)
+    else:
+        r = residual.to(torch.float32)
+    y = torch.clamp_min(t + r, 0.0)
+    return y.to(torch.bfloat16) if q is None else _quant_i8(y, q)
+
+
+def int8_conv(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
+              bias_b: torch.Tensor, stride: int = 1, relu: bool = True,
+              q: Optional[float] = None,
+              residual: Optional[torch.Tensor] = None,
+              res_scale: Optional[float] = None, round_res: bool = False,
+              groups: int = 1, dilation: int = 1) -> torch.Tensor:
+    """K2: ``x`` int8 (B, H, W, Cin) conv ``w`` int8 (Cout, k, k, Cin),
+    stride ``stride``, pad ``k // 2``, then the epilogue in the module
+    docstring. ``gain_a``/``bias_b``: f32 (Cout,). ``q``/``res_scale`` are
+    float32 values. CUDA tensors run the kernel, CPU tensors the plain
+    version."""
+    if groups != 1:
+        raise ValueError("int8_conv: grouped convs are not supported")
+    if dilation != 1:
+        raise ValueError("int8_conv: dilation other than 1 is not supported")
+    if x.dtype != torch.int8 or x.dim() != 4:
+        raise ValueError(f"int8_conv: x must be int8 NHWC, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if w.dtype != torch.int8 or w.dim() != 4 or w.shape[1] != w.shape[2]:
+        raise ValueError(f"int8_conv: w must be int8 (Cout,k,k,Cin), got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    bsz, h, wd, cin = x.shape
+    cout, k = w.shape[0], w.shape[1]
+    if w.shape[3] != cin:
+        raise ValueError(f"int8_conv: Cin mismatch x {cin} vs w {w.shape[3]}"
+                         " (grouped convs are not supported)")
+    if cin % 4 != 0:
+        raise ValueError(f"int8_conv: Cin={cin} is not a multiple of 4")
+    if k % 2 != 1:
+        raise ValueError(f"int8_conv: kernel size {k} must be odd")
+    for v in (gain_a, bias_b):
+        if v.dtype != torch.float32 or tuple(v.shape) != (cout,):
+            raise ValueError(f"int8_conv: gain/bias must be f32 ({cout},)")
+    pad = k // 2
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (wd + 2 * pad - k) // stride + 1
+    tensors = [x, w, gain_a, bias_b]
+    res_mode = _RES_NONE
+    if residual is not None:
+        if tuple(residual.shape) != (bsz, ho, wo, cout):
+            raise ValueError(f"int8_conv: residual shape {tuple(residual.shape)}"
+                             f" != output {(bsz, ho, wo, cout)}")
+        if residual.dtype == torch.int8:
+            if res_scale is None:
+                raise ValueError("int8_conv: int8 residual needs res_scale")
+            res_mode = _RES_I8_BF16 if round_res else _RES_I8
+        elif residual.dtype == torch.bfloat16:
+            res_mode = _RES_BF16
+        else:
+            raise ValueError(f"int8_conv: residual dtype {residual.dtype}")
+        tensors.append(residual)
+    if not require_cuda_or_cpu("int8_conv", *tensors):
+        return int8_conv_reference(x, w, gain_a, bias_b, stride, relu, q,
+                                   residual, res_scale, round_res)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("int8_conv: inputs must be contiguous")
+    out = torch.empty((bsz, ho, wo, cout),
+                      dtype=torch.int8 if q is not None else torch.bfloat16,
+                      device=x.device)
+    lib = library()
+    with torch.cuda.device(x.device):
+        check(lib.pcv_int8_conv(
+            x.data_ptr(), w.data_ptr(), gain_a.data_ptr(), bias_b.data_ptr(),
+            residual.data_ptr() if residual is not None else None,
+            float(res_scale or 0.0), res_mode, int(relu), float(q or 0.0),
+            int(q is not None), out.data_ptr(), bsz, h, wd, cin, ho, wo,
+            cout, k, k, stride, pad, stream_of(x)), "int8_conv")
+    LAUNCHES["int8_conv"] += 1
+    return out

@@ -1,0 +1,44 @@
+"""Public entry point: ``get_model(name, ...)``."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from .models import get_constructor, registered_models
+
+__all__ = ["get_model", "registered_models"]
+
+
+def _init_weights(module: nn.Module, rng: int) -> None:
+    """Seeded init with the JAX package's distributions: convs
+    U(+-sqrt(6/fan_in)), linear weights U(+-sqrt(1/fan_in)), biases 0,
+    BatchNorm at its defaults. Draws come from a CPU ``torch.Generator``
+    in module order, so a seed gives the same weights on every device."""
+    g = torch.Generator().manual_seed(rng)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                gain = 6.0 if isinstance(m, nn.Conv2d) else 1.0
+                bound = math.sqrt(gain / fan_in)
+                m.weight.copy_(torch.empty(m.weight.shape).uniform_(
+                    -bound, bound, generator=g))
+                if m.bias is not None:
+                    m.bias.zero_()
+
+
+def get_model(name: str, pretrained: bool = False, rng: int = 0,
+              device=None, **kwargs) -> nn.Module:
+    """Build a zoo model by registered name, initialized from seed ``rng``,
+    on ``device`` (default: the CPU), in eval mode."""
+    if pretrained:
+        raise NotImplementedError(
+            "pretrained weights are not yet ported to pytorchcv_tpu_torch; "
+            "build with pretrained=False and load weights with "
+            "zoo.convert.load_jax_variables")
+    module = get_constructor(name)(**kwargs)
+    _init_weights(module, rng)
+    return module.to(device).eval()

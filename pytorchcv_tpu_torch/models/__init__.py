@@ -1,0 +1,8 @@
+"""Model families of the port; importing this registers their names."""
+
+from . import resnet  # noqa: F401  (registers the ResNet names)
+from .registry import get_constructor, register_model, registered_models
+from .shell import ImageClassifier
+
+__all__ = ["get_constructor", "register_model", "registered_models",
+           "ImageClassifier"]

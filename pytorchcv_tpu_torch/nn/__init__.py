@@ -1,0 +1,7 @@
+"""Building blocks of the port's models (NCHW, reference pytorchcv names)."""
+
+from .conv import ConvBlock, conv1x1_block, conv3x3_block, conv7x7_block
+from .arch import Sequential
+
+__all__ = ["ConvBlock", "conv1x1_block", "conv3x3_block", "conv7x7_block",
+           "Sequential"]

@@ -1,0 +1,48 @@
+"""Convolution blocks: conv + BatchNorm + ReLU, with the reference pytorchcv
+child names (``conv``, ``bn``, ``activ``) so ``state_dict`` keys match the
+released checkpoints and the JAX package's parameter tree."""
+
+from __future__ import annotations
+
+from torch import nn
+
+__all__ = ["ConvBlock", "conv1x1_block", "conv3x3_block", "conv7x7_block"]
+
+BN_EPS = 1e-5
+
+
+class ConvBlock(nn.Module):
+    """conv + BatchNorm2d(eps=1e-5) + optional ReLU (NCHW)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, bias: bool = False,
+                 activation: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
+                              stride=stride, padding=padding, bias=bias)
+        self.bn = nn.BatchNorm2d(out_channels, eps=BN_EPS)
+        self.activ = nn.ReLU(inplace=True) if activation else None
+
+    def forward(self, x):
+        x = self.bn(self.conv(x))
+        if self.activ is not None:
+            x = self.activ(x)
+        return x
+
+
+def conv1x1_block(in_channels: int, out_channels: int, stride: int = 1,
+                  **kwargs) -> ConvBlock:
+    return ConvBlock(in_channels, out_channels, 1, stride=stride, padding=0,
+                     **kwargs)
+
+
+def conv3x3_block(in_channels: int, out_channels: int, stride: int = 1,
+                  **kwargs) -> ConvBlock:
+    return ConvBlock(in_channels, out_channels, 3, stride=stride, padding=1,
+                     **kwargs)
+
+
+def conv7x7_block(in_channels: int, out_channels: int, stride: int = 1,
+                  **kwargs) -> ConvBlock:
+    return ConvBlock(in_channels, out_channels, 7, stride=stride, padding=3,
+                     **kwargs)

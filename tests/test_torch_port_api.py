@@ -1,0 +1,64 @@
+"""The port's public surface: import hygiene, registry, get_model, and the
+serving entry point end to end on CPU tensors."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from pytorchcv_tpu.models import registry as jax_registry
+import pytorchcv_tpu_torch as pt
+
+torch.set_num_threads(1)
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, pytorchcv_tpu_torch, pytorchcv_tpu_torch.serve; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'pytorchcv_tpu')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_registry_holds_every_jax_resnet_name():
+    jax_names = {n for n in jax_registry.registered_models()
+                 if jax_registry.get_constructor(n).__module__.endswith(
+                     ".models.resnet")}
+    assert set(pt.registered_models()) == jax_names
+    assert len(jax_names) == 21
+
+
+def test_get_model_is_seeded_and_named():
+    a = pt.get_model("resnet18_wd4", rng=3)
+    b = pt.get_model("resnet18_wd4", rng=3)
+    c = pt.get_model("resnet18_wd4", rng=4)
+    sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
+    key = "features.stage1.unit1.body.conv1.conv.weight"
+    assert torch.equal(sa[key], sb[key]) and not torch.equal(sa[key], sc[key])
+    r50 = pt.get_model("resnet50").state_dict()
+    for k in ("features.init_block.conv.conv.weight",
+              "features.init_block.conv.bn.running_var",
+              "features.stage2.unit1.identity_conv.conv.weight",
+              "features.stage4.unit3.body.conv3.bn.weight", "output.weight"):
+        assert k in r50, k
+    assert tuple(r50["output.weight"].shape) == (1000, 2048)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        pt.get_model("resnet50", pretrained=True)
+
+
+def test_serving_end_to_end_matches_reference_forward():
+    serve = pt.make_serving_fn("resnet10", source_hw=(74, 74), device="cpu")
+    raw = np.random.default_rng(0).integers(0, 256, (2, 74, 74, 3),
+                                            dtype=np.uint8)
+    logits = serve(raw)
+    ref = serve.make_reference_forward()(raw)
+    assert logits.shape == (2, 1000) and logits.dtype == torch.bfloat16
+    y = logits.to(torch.float32)
+    assert bool(torch.isfinite(y).all())
+    cos = float(torch.nn.functional.cosine_similarity(
+        y.flatten(), ref.flatten(), dim=0))
+    assert cos >= 0.995, cos
+    with pytest.raises(NotImplementedError):
+        pt.make_serving_fn("resnet10", (74, 74), mode="bf16")

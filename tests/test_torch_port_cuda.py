@@ -1,0 +1,135 @@
+"""The port's CUDA kernels against their plain PyTorch versions on shapes
+the ResNet-50 serving path does not give them: partial output tiles,
+reduction tails, odd image sizes, narrow models and the bf16 residual of a
+last unit with an identity conv.
+
+Each test carries the ``cuda`` marker, needs a CUDA card and nvcc, and
+skips without a card. On a machine without JAX, run them without the
+suite's conftest:
+
+    python -m pytest -p no:cacheprovider --noconftest tests/test_torch_port_cuda.py
+"""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+import pytorchcv_tpu_torch as pt
+from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+from pytorchcv_tpu_torch.kernels.int8_conv import (int8_conv,
+                                                   int8_conv_reference)
+from pytorchcv_tpu_torch.kernels.preprocess import (
+    bf16_ulp_distance, classification_preprocess, preprocess,
+    preprocess_reference, resize_matrices)
+from pytorchcv_tpu_torch.kernels.stem import (stem_conv_pool,
+                                              stem_conv_pool_reference)
+from pytorchcv_tpu_torch.quant import calibrate_int8, prepare_int8_resnet
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _i8(rng, shape, dev):
+    return torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)
+                            ).to(dev)
+
+
+@pytest.mark.parametrize("k,stride,cin,cout,hw", [
+    (3, 2, 12, 24, 9), (1, 1, 36, 72, 5), (3, 1, 260, 20, 6),
+    (1, 2, 4, 130, 11)])
+def test_int8_conv_kernel_matches_plain(k, stride, cin, cout, hw):
+    dev = _cuda()
+    rng = np.random.default_rng(k * 1000 + cin)
+    x = _i8(rng, (3, hw, hw, cin), dev)
+    w = _i8(rng, (cout, k, k, cin), dev)
+    a = torch.from_numpy(rng.uniform(2e-5, 2e-4, cout).astype(np.float32)
+                         ).to(dev)
+    b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(dev)
+    ho = (hw + 2 * (k // 2) - k) // stride + 1
+    res_i8 = _i8(rng, (3, ho, ho, cout), dev)
+    res_bf = torch.from_numpy(rng.standard_normal((3, ho, ho, cout)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    cases = [dict(relu=True, q=0.7), dict(relu=False, q=0.7),
+             dict(relu=True), dict(relu=False),
+             dict(relu=False, q=0.7, residual=res_i8, res_scale=0.01,
+                  round_res=True),
+             dict(relu=False, q=0.7, residual=res_i8, res_scale=0.01),
+             dict(relu=False, residual=res_bf)]
+    for kw in cases:
+        got = int8_conv(x, w, a, b, stride, **kw)
+        ref = int8_conv_reference(x, w, a, b, stride, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (kw.keys(), (got.float() - ref.float())
+                                       .abs().max())
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+def test_preprocess_kernel_matches_plain(layout):
+    dev = _cuda()
+    rng = np.random.default_rng(1)
+    imgs = torch.from_numpy(rng.integers(0, 256, (3, 50, 70, 3),
+                                         dtype=np.uint8)).to(dev)
+    r, c = resize_matrices((50, 70), 33)
+    r_t = torch.from_numpy(r).to(dev)
+    ct_t = torch.from_numpy(np.ascontiguousarray(c.T)).to(dev)
+    a = torch.tensor([0.017, 0.018, 0.019], device=dev)
+    b = torch.tensor([-2.1, -2.0, -1.8], device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = preprocess(imgs, r_t, ct_t, a, b, dtype, layout)
+        ref = preprocess_reference(imgs, r_t, ct_t, a, b, dtype, layout)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+        else:
+            assert int(bf16_ulp_distance(got, ref).max()) <= 1
+
+
+def test_stem_kernel_matches_plain():
+    dev = _cuda()
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 50, 46)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    kf = torch.from_numpy((rng.standard_normal((3, 7, 7, 16)) * 0.1).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    bias = torch.from_numpy(rng.standard_normal(16).astype(np.float32)
+                            ).to(dev)
+    got = stem_conv_pool(x, kf, bias, 40.0)
+    ref = stem_conv_pool_reference(x, kf, bias, 40.0)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (2, 13, 12, 16)
+    diff = (got.int() - ref.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff != 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("name,kw,n_convs", [
+    ("resnet10", {}, 11), ("resnet50", {"width_scale": 0.25}, 53)])
+def test_int8_pipeline_on_cuda_matches_cpu(name, kw, n_convs):
+    """Narrow and basic-block models end in a unit with an identity conv,
+    the bf16-residual tail. The CUDA pipeline matches the CPU one on the
+    same weights and scales."""
+    dev = _cuda()
+    model = pt.get_model(name, in_size=(64, 64), **kw)
+    raw = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (4, 74, 74, 3), dtype=np.uint8))
+    pre_cpu, pre_gpu = (classification_preprocess(
+        name, (74, 74), layout="nchw", device=d) for d in ("cpu", dev))
+    scales = calibrate_int8(model, [pre_cpu(raw).float()])
+    infer, plan_cpu = prepare_int8_resnet(model, scales)
+    _, plan_gpu = prepare_int8_resnet(copy.deepcopy(model).to(dev), scales)
+    y_cpu = infer(plan_cpu, pre_cpu(raw)).float()
+    reset_launch_counts()
+    y_gpu = infer(plan_gpu, pre_gpu(raw.to(dev))).float().cpu()
+    assert LAUNCHES == {"preprocess": 1, "stem": 1, "int8_conv": n_convs}
+    cos = float(torch.nn.functional.cosine_similarity(
+        y_gpu.flatten(), y_cpu.flatten(), dim=0))
+    assert cos >= 0.9999, cos
