@@ -1,9 +1,11 @@
 """pytorchcv_tpu_torch: the PyTorch/CUDA port of pytorchcv_tpu.
 
 Models are NCHW ``nn.Module``s whose ``state_dict`` names are the reference
-pytorchcv names; the int8 serving path runs on hand-written CUDA kernels
-for Hopper (``kernels/``, sources in ``csrc/``), with plain PyTorch versions
-on CPU tensors. The package imports torch and numpy only.
+pytorchcv names; the int8 serving paths (ResNet classification, DANet
+segmentation) run on hand-written CUDA kernels for Hopper (``kernels/``,
+sources in ``csrc/``), with plain PyTorch versions on CPU tensors. The entry
+points run on the CUDA card unless the caller asks for the CPU. The package
+imports torch and numpy only.
 """
 
 __version__ = "0.1.0"

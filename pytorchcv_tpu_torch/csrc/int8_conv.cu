@@ -5,7 +5,11 @@
 //   _forward included), and the per-conv stage of the Pallas kernel
 //   pytorchcv_tpu/kernels/fused_bottleneck.py:_kernel (_requant and the
 //   unit tail at :106-115). It serves every int8 conv of ResNet-50:
-//   1x1 and 3x3, stride 1 and 2, pad k//2, and the downsample identity conv.
+//   1x1 and 3x3, stride 1 and 2, pad k//2, and the downsample identity conv;
+//   and every int8 conv of the dilated segmentation backbone
+//   (pytorchcv_tpu/quant/seg_backbone_int8.py:_forward): 3x3 at dilation
+//   2 and 4 with pad dilation*(k//2), and the stage-3 "bend", the bf16 tail
+//   value that the last stage-3 unit writes beside its int8 output.
 //
 // Bound on the H100: integer multiply-adds. ResNet-50 spends ~4.1 GMAC per
 //   224x224 image in these convs; with CUDA-core __dp4a (4 int8 MACs per
@@ -18,9 +22,9 @@
 //   (gathered on the fly from the padded window, zero outside the image) and
 //   of weights in shared memory; each thread accumulates a 4x4 int32
 //   sub-tile with __dp4a, which is exact. The epilogue runs in registers and
-//   writes int8 or bf16 straight to the NHWC output, so no int32 or float
-//   tensor reaches device memory. Tensor cores (mma.sync / wgmma int8) are
-//   the next step for speed.
+//   writes int8 or bf16 straight to the NHWC output (and the optional bf16
+//   second output), so no int32 or float tensor reaches device memory.
+//   Tensor cores (mma.sync / wgmma int8) are the next step for speed.
 #include "common.cuh"
 
 namespace {
@@ -33,12 +37,17 @@ constexpr int kThreads = 256;
 // Residual operand of the unit tail (mode 3).
 enum ResMode { kNoRes = 0, kResI8 = 1, kResI8RoundBf16 = 2, kResBf16 = 3 };
 
+// kDilated = false fixes the tap spacing at 1 and kBend = false drops the
+// second output at compile time, so the convs that need neither (every
+// ResNet conv) run the kernel without their arithmetic and registers.
+template <bool kDilated, bool kBend>
 __global__ void __launch_bounds__(kThreads) int8_conv_kernel(
     const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     const float* __restrict__ gain_a, const float* __restrict__ bias_b,
     const void* __restrict__ res, float res_scale, int res_mode, int relu,
     float q, int out_i8, void* __restrict__ out, int N, int H, int W,
-    int Cin, int Ho, int Wo, int Cout, int KH, int KW, int stride, int pad) {
+    int Cin, int Ho, int Wo, int Cout, int KH, int KW, int stride, int pad,
+    int dil, __nv_bfloat16* __restrict__ out_bf16) {
   __shared__ __align__(16) int sA[kBKW][kBM];
   __shared__ __align__(16) int sB[kBKW][kBN];
 
@@ -81,8 +90,8 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(
     const int s = tap - r * KW;
     for (int l = 0; l < 2; ++l) {
       const int row = tid / kBKW + l * (kThreads / kBKW);
-      const int ih = a_h[l] + r;
-      const int iw = a_w[l] + s;
+      const int ih = a_h[l] + (kDilated ? r * dil : r);
+      const int iw = a_w[l] + (kDilated ? s * dil : s);
       int v = 0;
       if (a_ok[l] && k_ok && ih >= 0 && ih < H && iw >= 0 && iw < W)
         v = xw[((static_cast<size_t>(a_img[l]) * H + ih) * W + iw) * cin4 +
@@ -133,6 +142,8 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(
         }
         y = fmaxf(__fadd_rn(t, rv), 0.f);
       }
+      // The bend: the bf16 value before requantization.
+      if (kBend) out_bf16[idx] = __float2bfloat16_rn(y);
       if (out_i8)
         static_cast<int8_t*>(out)[idx] = pcv::quant_i8(y, q);
       else
@@ -148,14 +159,21 @@ extern "C" int pcv_int8_conv(const void* x, const void* w, const void* gain_a,
                              float res_scale, int res_mode, int relu, float q,
                              int out_i8, void* out, int N, int H, int W,
                              int Cin, int Ho, int Wo, int Cout, int KH, int KW,
-                             int stride, int pad, void* stream) {
+                             int stride, int pad, int dilation, void* out_bf16,
+                             void* stream) {
   const int M = N * Ho * Wo;
   dim3 grid((M + kBM - 1) / kBM, (Cout + kBN - 1) / kBN);
-  int8_conv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const bool bend = out_bf16 != nullptr;
+  auto* kernel = dilation == 1 ? (bend ? int8_conv_kernel<false, true>
+                                       : int8_conv_kernel<false, false>)
+                               : (bend ? int8_conv_kernel<true, true>
+                                       : int8_conv_kernel<true, false>);
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(gain_a), static_cast<const float*>(bias_b),
       res, res_scale, res_mode, relu, q, out_i8, out, N, H, W, Cin, Ho, Wo,
-      Cout, KH, KW, stride, pad);
+      Cout, KH, KW, stride, pad, dilation,
+      static_cast<__nv_bfloat16*>(out_bf16));
   return static_cast<int>(cudaGetLastError());
 }
 

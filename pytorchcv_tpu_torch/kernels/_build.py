@@ -1,7 +1,8 @@
 """Build, load and launch-count the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles every source under ``csrc/`` into one shared
-library with a plain C interface, keyed by a hash of those sources, under
+At first use, ``nvcc`` compiles every source under ``csrc/`` (one process per
+source, in parallel) and links them into one shared library with a plain C
+interface, keyed by a hash of those sources, under
 ``pytorchcv_tpu_torch/_build/`` (git-ignored). ``ctypes`` loads it: pointers
 and the stream go as ``c_void_p``, and every entry point returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
@@ -28,7 +29,8 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # Kernel launches per wrapper; a wrapper adds one where it launches its
 # kernel (never on its CPU path).
-LAUNCHES: Dict[str, int] = {"preprocess": 0, "int8_conv": 0, "stem": 0}
+LAUNCHES: Dict[str, int] = {"preprocess": 0, "int8_conv": 0, "stem": 0,
+                            "maxpool_i8": 0, "flash_attention": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -36,8 +38,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "pcv_preprocess": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
     "pcv_int8_conv": [_P, _P, _P, _P, _P, _F, _I, _I, _F, _I, _P]
-    + [_I] * 11 + [_P],
-    "pcv_stem": [_P, _P, _P, _F, _P, _P] + [_I] * 8 + [_P],
+    + [_I] * 12 + [_P, _P],
+    "pcv_stem": [_P, _P, _P, _F, _I, _P] + [_I] * 6 + [_P],
+    "pcv_maxpool_i8": [_P, _P] + [_I] * 6 + [_P],
+    "pcv_flash_attention": [_P, _P, _P, _P] + [_I] * 5 + [_F, _I, _P],
 }
 
 
@@ -75,16 +79,35 @@ def library() -> ctypes.CDLL:
     lib_path = out_dir / _LIB_NAME
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f".{_LIB_NAME}.{os.getpid()}"
-        cmd = [_nvcc(), *_ARCH, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", f"-I{_CSRC}", "-o", str(tmp),
-               *[str(s) for s in sorted(_CSRC.glob("*.cu"))]]
+        tag = f"{os.getpid()}"
+        flags = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 f"-I{_CSRC}"]
+        # One nvcc per source, all started together, then one link.
+        jobs = []
+        for src in sorted(_CSRC.glob("*.cu")):
+            obj = out_dir / f".{src.stem}.{tag}.o"
+            cmd = [_nvcc(), *flags, "-c", str(src), "-o", str(obj)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = out_dir / f".{_LIB_NAME}.{tag}"
+        cmd = [_nvcc(), *_ARCH, "-shared", "-o", str(tmp),
+               *[str(obj) for _, obj, _ in jobs]]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, lib_path)
-    lib =ctypes.CDLL(str(lib_path))
+        for _, obj, _ in jobs:
+            obj.unlink()
+    lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -11,6 +11,11 @@ One call is one int8 conv of the int8 ResNet pipeline, with its epilogue:
   An int8 residual enters as ``f32(res) * res_scale``, rounded to bf16 when
   ``round_res``; a bf16 residual enters as it is.
 
+With ``bend`` the call also returns the bf16 value of ``y`` before the
+int8 requantization (the stage-3 tap of the segmentation backbone), written
+in the same launch. ``dilation`` spreads the taps (pad ``dilation * (k //
+2)``).
+
 ``acc`` is the exact int32 sum, ``A`` and ``B`` are f32 per output channel
 and every step follows the JAX reference's f32 op order, so the kernel
 (``csrc/int8_conv.cu``) and the plain version are bit-exact against it.
@@ -18,7 +23,7 @@ and every step follows the JAX reference's f32 op order, so the kernel
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -39,19 +44,22 @@ def int8_conv_reference(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
                         relu: bool = True, q: Optional[float] = None,
                         residual: Optional[torch.Tensor] = None,
                         res_scale: Optional[float] = None,
-                        round_res: bool = False) -> torch.Tensor:
+                        round_res: bool = False, dilation: int = 1,
+                        bend: bool = False
+                        ) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """Plain PyTorch version of K2. The conv runs in float64, which is exact
     (int8 sums stay far below 2**53; float32 is not: they pass 2**24)."""
     k = w.shape[1]
     acc = F.conv2d(x.permute(0, 3, 1, 2).to(torch.float64),
                    w.permute(0, 3, 1, 2).to(torch.float64),
-                   stride=stride, padding=k // 2)
+                   stride=stride, padding=dilation * (k // 2),
+                   dilation=dilation)
     acc = acc.to(torch.int32).permute(0, 2, 3, 1).contiguous()
     y = acc.to(torch.float32) * gain_a + bias_b
     if residual is None:
         if relu:
             y = torch.clamp_min(y, 0.0)
-        return y.to(torch.bfloat16) if q is None else _quant_i8(y, q)
+        return _outputs(y, q, bend)
     t = y.to(torch.bfloat16).to(torch.float32)
     if residual.dtype == torch.int8:
         r = residual.to(torch.float32) * res_scale
@@ -60,7 +68,12 @@ def int8_conv_reference(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
     else:
         r = residual.to(torch.float32)
     y = torch.clamp_min(t + r, 0.0)
-    return y.to(torch.bfloat16) if q is None else _quant_i8(y, q)
+    return _outputs(y, q, bend)
+
+
+def _outputs(y: torch.Tensor, q: Optional[float], bend: bool):
+    out = y.to(torch.bfloat16) if q is None else _quant_i8(y, q)
+    return (out, y.to(torch.bfloat16)) if bend else out
 
 
 def int8_conv(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
@@ -68,16 +81,18 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
               q: Optional[float] = None,
               residual: Optional[torch.Tensor] = None,
               res_scale: Optional[float] = None, round_res: bool = False,
-              groups: int = 1, dilation: int = 1) -> torch.Tensor:
+              groups: int = 1, dilation: int = 1, bend: bool = False
+              ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """K2: ``x`` int8 (B, H, W, Cin) conv ``w`` int8 (Cout, k, k, Cin),
-    stride ``stride``, pad ``k // 2``, then the epilogue in the module
-    docstring. ``gain_a``/``bias_b``: f32 (Cout,). ``q``/``res_scale`` are
-    float32 values. CUDA tensors run the kernel, CPU tensors the plain
+    stride ``stride``, dilation ``dilation``, pad ``dilation * (k // 2)``,
+    then the epilogue in the module docstring. ``gain_a``/``bias_b``: f32
+    (Cout,). ``q``/``res_scale`` are float32 values. With ``bend``, returns
+    ``(out, y_bf16)``. CUDA tensors run the kernel, CPU tensors the plain
     version."""
     if groups != 1:
         raise ValueError("int8_conv: grouped convs are not supported")
-    if dilation != 1:
-        raise ValueError("int8_conv: dilation other than 1 is not supported")
+    if dilation < 1:
+        raise ValueError(f"int8_conv: dilation {dilation} must be >= 1")
     if x.dtype != torch.int8 or x.dim() != 4:
         raise ValueError(f"int8_conv: x must be int8 NHWC, got {x.dtype} "
                          f"{tuple(x.shape)}")
@@ -96,9 +111,9 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
     for v in (gain_a, bias_b):
         if v.dtype != torch.float32 or tuple(v.shape) != (cout,):
             raise ValueError(f"int8_conv: gain/bias must be f32 ({cout},)")
-    pad = k // 2
-    ho = (h + 2 * pad - k) // stride + 1
-    wo = (wd + 2 * pad - k) // stride + 1
+    pad = dilation * (k // 2)
+    ho = (h + 2 * pad - dilation * (k - 1) - 1) // stride + 1
+    wo = (wd + 2 * pad - dilation * (k - 1) - 1) // stride + 1
     tensors = [x, w, gain_a, bias_b]
     res_mode = _RES_NONE
     if residual is not None:
@@ -116,12 +131,15 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
         tensors.append(residual)
     if not require_cuda_or_cpu("int8_conv", *tensors):
         return int8_conv_reference(x, w, gain_a, bias_b, stride, relu, q,
-                                   residual, res_scale, round_res)
+                                   residual, res_scale, round_res, dilation,
+                                   bend)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("int8_conv: inputs must be contiguous")
     out = torch.empty((bsz, ho, wo, cout),
                       dtype=torch.int8 if q is not None else torch.bfloat16,
                       device=x.device)
+    out_bf16 = torch.empty((bsz, ho, wo, cout), dtype=torch.bfloat16,
+                           device=x.device) if bend else None
     lib = library()
     with torch.cuda.device(x.device):
         check(lib.pcv_int8_conv(
@@ -129,6 +147,7 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
             residual.data_ptr() if residual is not None else None,
             float(res_scale or 0.0), res_mode, int(relu), float(q or 0.0),
             int(q is not None), out.data_ptr(), bsz, h, wd, cin, ho, wo,
-            cout, k, k, stride, pad, stream_of(x)), "int8_conv")
+            cout, k, k, stride, pad, dilation,
+            out_bf16.data_ptr() if bend else None, stream_of(x)), "int8_conv")
     LAUNCHES["int8_conv"] += 1
-    return out
+    return (out, out_bf16) if bend else out

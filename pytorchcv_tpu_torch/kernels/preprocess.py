@@ -22,7 +22,8 @@ from ._build import (LAUNCHES, check, library, no_tf32, require_cuda_or_cpu,
 __all__ = ["IMAGENET_MEAN", "IMAGENET_STD", "CIFAR_MEAN", "CIFAR_STD",
            "resize_matrices", "eval_protocol", "preprocess",
            "preprocess_reference", "preprocess_batch",
-           "classification_preprocess", "bf16_ulp_distance"]
+           "classification_preprocess", "segmentation_preprocess",
+           "bf16_ulp_distance", "bf16_ulp_error"]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -217,6 +218,27 @@ def classification_preprocess(model_name_or_size, in_hw: Tuple[int, int],
     return run
 
 
+def segmentation_preprocess(out_hw: Tuple[int, int], in_hw: Tuple[int, int],
+                            mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                            out_dtype=torch.bfloat16, layout: str = "nhwc",
+                            device=None):
+    """``batch_u8 -> model input`` closure of the dense-prediction protocol:
+    PIL-bilinear resize straight to the model's fixed size (no aspect crop)
+    and normalize, as K1's two interpolation products (JAX
+    ``kernels/preprocess.py:segmentation_preprocess``)."""
+    r = _pil_bilinear_matrix(in_hw[0], out_hw[0])
+    c = _pil_bilinear_matrix(in_hw[1], out_hw[1])
+    a, b = _affine(mean, std)
+    r_t = torch.from_numpy(np.ascontiguousarray(r)).to(device)
+    ct_t = torch.from_numpy(np.ascontiguousarray(c.T)).to(device)
+    a_t, b_t = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+
+    def run(images_u8: torch.Tensor) -> torch.Tensor:
+        return preprocess(images_u8, r_t, ct_t, a_t, b_t, out_dtype, layout)
+
+    return run
+
+
 def bf16_ulp_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Per-element distance in bf16 units in the last place (0 = equal,
     1 = neighbouring representable values; +0 and -0 are equal)."""
@@ -224,3 +246,17 @@ def bf16_ulp_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         bits = t.to(torch.bfloat16).view(torch.int16).to(torch.int32)
         return torch.where(bits < 0, -(bits & 0x7FFF), bits)
     return (ordered(x) - ordered(y)).abs()
+
+
+def bf16_ulp_error(x: torch.Tensor, ref: torch.Tensor,
+                   floor: float = 2.0 ** -8) -> torch.Tensor:
+    """Per-element ``|x - ref|`` in bf16 units in the last place of ``ref``,
+    the unit taken no finer than at ``floor * max|ref|``. Two f32 results
+    that differ only in summation order round to the same or neighbouring
+    bf16 values (error <= 1), except where a sum cancels to near zero:
+    there the f32 rounding of either exceeds a bf16 ulp of the tiny result,
+    and ``bf16_ulp_distance`` is unbounded."""
+    r = ref.to(torch.float32)
+    mag = torch.maximum(r.abs(), floor * r.abs().max()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return (x.to(torch.float32) - r).abs() / ulp

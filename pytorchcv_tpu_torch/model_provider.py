@@ -9,7 +9,19 @@ from torch import nn
 
 from .models import get_constructor, registered_models
 
-__all__ = ["get_model", "registered_models"]
+__all__ = ["get_model", "registered_models", "resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The entry points' device: the card unless the caller asks for
+    another. Without a card, only an explicit CPU request runs."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "pytorchcv_tpu_torch runs on a CUDA card by default and "
+            "torch.cuda.is_available() is False; pass device='cpu' to run "
+            "on the CPU")
+    return dev
 
 
 def _init_weights(module: nn.Module, rng: int) -> None:
@@ -33,12 +45,14 @@ def _init_weights(module: nn.Module, rng: int) -> None:
 def get_model(name: str, pretrained: bool = False, rng: int = 0,
               device=None, **kwargs) -> nn.Module:
     """Build a zoo model by registered name, initialized from seed ``rng``,
-    on ``device`` (default: the CPU), in eval mode."""
+    on ``device`` (default: the CUDA card; ``"cpu"`` must be asked for), in
+    eval mode."""
     if pretrained:
         raise NotImplementedError(
             "pretrained weights are not yet ported to pytorchcv_tpu_torch; "
             "build with pretrained=False and load weights with "
             "zoo.convert.load_jax_variables")
+    device = resolve_device(device)
     module = get_constructor(name)(**kwargs)
     _init_weights(module, rng)
     return module.to(device).eval()

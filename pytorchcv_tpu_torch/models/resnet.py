@@ -32,17 +32,20 @@ class ResBlock(nn.Module):
 
 class ResBottleneck(nn.Module):
     """1x1 down, 3x3, 1x1 up. The stride sits on conv1 when
-    ``conv1_stride`` (pytorchcv resnet50), else on conv2 (resnet50b)."""
+    ``conv1_stride`` (pytorchcv resnet50), else on conv2 (resnet50b); the
+    3x3 takes ``padding`` and ``dilation`` (the dilated ResNet(D))."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int,
-                 conv1_stride: bool, bottleneck_factor: int = 4):
+                 conv1_stride: bool, bottleneck_factor: int = 4,
+                 padding: int = 1, dilation: int = 1):
         super().__init__()
         mid = out_channels // bottleneck_factor
         self.conv1_stride = conv1_stride
         self.conv1 = conv1x1_block(in_channels, mid,
                                    stride=stride if conv1_stride else 1)
         self.conv2 = conv3x3_block(mid, mid,
-                                   stride=1 if conv1_stride else stride)
+                                   stride=1 if conv1_stride else stride,
+                                   padding=padding, dilation=dilation)
         self.conv3 = conv1x1_block(mid, out_channels, activation=False)
 
     def forward(self, x):
@@ -53,11 +56,13 @@ class ResUnit(nn.Module):
     """body + identity (a 1x1 conv block when the shape changes) + ReLU."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int,
-                 bottleneck: bool, conv1_stride: bool):
+                 bottleneck: bool, conv1_stride: bool, padding: int = 1,
+                 dilation: int = 1):
         super().__init__()
         if bottleneck:
             self.body = ResBottleneck(in_channels, out_channels, stride,
-                                      conv1_stride)
+                                      conv1_stride, padding=padding,
+                                      dilation=dilation)
         else:
             self.body = ResBlock(in_channels, out_channels, stride)
         if in_channels != out_channels or stride != 1:

@@ -6,20 +6,24 @@ from __future__ import annotations
 
 from torch import nn
 
-__all__ = ["ConvBlock", "conv1x1_block", "conv3x3_block", "conv7x7_block"]
+__all__ = ["ConvBlock", "conv1x1", "conv1x1_block", "conv3x3_block",
+           "conv7x7_block"]
 
 BN_EPS = 1e-5
 
 
 class ConvBlock(nn.Module):
-    """conv + BatchNorm2d(eps=1e-5) + optional ReLU (NCHW)."""
+    """conv + BatchNorm2d(eps=1e-5) + optional ReLU (NCHW). The padding is
+    the caller's, as in the reference (a dilated 3x3 passes
+    ``padding=dilation``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, bias: bool = False,
-                 activation: bool = True):
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 bias: bool = False, activation: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
-                              stride=stride, padding=padding, bias=bias)
+                              stride=stride, padding=padding,
+                              dilation=dilation, bias=bias)
         self.bn = nn.BatchNorm2d(out_channels, eps=BN_EPS)
         self.activ = nn.ReLU(inplace=True) if activation else None
 
@@ -30,6 +34,13 @@ class ConvBlock(nn.Module):
         return x
 
 
+def conv1x1(in_channels: int, out_channels: int,
+            bias: bool = False) -> nn.Conv2d:
+    """Plain 1x1 convolution (no BN): the DANet head's projections and
+    classifiers."""
+    return nn.Conv2d(in_channels, out_channels, 1, bias=bias)
+
+
 def conv1x1_block(in_channels: int, out_channels: int, stride: int = 1,
                   **kwargs) -> ConvBlock:
     return ConvBlock(in_channels, out_channels, 1, stride=stride, padding=0,
@@ -37,9 +48,10 @@ def conv1x1_block(in_channels: int, out_channels: int, stride: int = 1,
 
 
 def conv3x3_block(in_channels: int, out_channels: int, stride: int = 1,
+                  padding: int = 1, dilation: int = 1,
                   **kwargs) -> ConvBlock:
-    return ConvBlock(in_channels, out_channels, 3, stride=stride, padding=1,
-                     **kwargs)
+    return ConvBlock(in_channels, out_channels, 3, stride=stride,
+                     padding=padding, dilation=dilation, **kwargs)
 
 
 def conv7x7_block(in_channels: int, out_channels: int, stride: int = 1,

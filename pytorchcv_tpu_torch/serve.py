@@ -1,15 +1,27 @@
-"""Serving entry point: raw uint8 frames -> logits.
+"""Serving entry point: raw uint8 frames -> predictions.
 
-    serve = make_serving_fn("resnet50", source_hw=(256, 256), device="cuda")
+    serve = make_serving_fn("resnet50", source_hw=(256, 256))
     logits = serve(batch_u8)        # (B, 256, 256, 3) uint8 -> (B, 1000) bf16
 
-The ``resnet`` route of the JAX package's ``make_serving_fn``: the eval
-preprocess (kernel K1, planar bf16 out), calibration in the preprocessed
-domain, and the int8 ResNet pipeline (kernels K3 and K2).
+    serve = make_serving_fn("danet_resnetd50b_cityscapes", (1024, 2048),
+                            task="segmentation")
+    maps = serve(batch_u8)          # -> 3 x (B, 19, 480, 480) bf16 (aux)
+
+Two routes of the JAX package's ``make_serving_fn``, both on the card by
+default:
+
+* ``resnet`` (classification): the eval preprocess (kernel K1, planar bf16
+  out), calibration in the preprocessed domain, and the int8 ResNet
+  pipeline (kernels K3 and K2);
+* ``seg_backbone`` (segmentation): the resize-only preprocess (K1),
+  calibration over the whole f32 model, the int8 dilated backbone (K3,
+  ``maxpool_i8``, K2) and the model's own head on a bf16 copy, fed through
+  ``from_features=True`` (DANet's position attention on K4).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -17,12 +29,48 @@ import torch
 from torch import nn
 
 from .kernels._build import no_tf32
-from .kernels.preprocess import classification_preprocess
-from .model_provider import get_model
+from .kernels.preprocess import (classification_preprocess,
+                                 segmentation_preprocess)
+from .model_provider import get_model, resolve_device
 from .models.registry import get_constructor
-from .quant import calibrate_int8, prepare_int8_resnet
+from .quant import (calibrate_int8, is_seg_resnetd_backbone,
+                    prepare_int8_resnet, prepare_int8_seg_backbone)
 
-__all__ = ["make_serving_fn"]
+__all__ = ["make_serving_fn", "declared_int8_route"]
+
+# The int8 pipeline each model family (the constructor's module) may use,
+# copied from the JAX package's table (serve.py:43-69), where every entry
+# rests on an A/B measurement; a trailing '!' marks pipelines used only when
+# the caller forces mode='int8'. The port has the "resnet" and
+# "seg_backbone" pipelines; the others raise NotImplementedError.
+_INT8_ROUTES = {
+    "resnet": "resnet", "seresnet": "resnet", "resnext": "resnet",
+    "seresnext": "resnet", "senet": "resnet", "wrn": "resnet",
+    "resnet_cifar": "resnet", "seresnet_cifar": "resnet",
+    "resnext_cifar": "resnet", "wrn_cifar": "resnet",
+    "preresnet": "preresnet", "sepreresnet": "preresnet",
+    "preresnet_cifar": "preresnet", "sepreresnet_cifar": "preresnet",
+    "mobilenet": "mobilenet_v1", "mobilenetv2": "mobilenetv2",
+    "vgg": "vgg", "darknet53": "darknet",
+    "pspnet": "seg_backbone", "deeplabv3": "seg_backbone",
+    "fcn8sd": "seg_backbone", "danet": "seg_backbone",
+    "simplepose_coco": "plain_trunk", "alphapose_coco": "plain_trunk",
+    "centernet": "plain_trunk",
+    "mobilenetv3": "mobilenetv3!", "efficientnet": "efficientnet!",
+}
+_TASK_ROUTES = {"classification": "resnet", "segmentation": "seg_backbone"}
+
+
+def declared_int8_route(model_name: str, mode: str = "auto") -> Optional[str]:
+    """The int8 pipeline declared for ``model_name``'s family, or None.
+    ``mode='int8'`` also unlocks the '!'-suffixed pipelines."""
+    module = get_constructor(model_name).__module__.rsplit(".", 1)[-1]
+    route = _INT8_ROUTES.get(module)
+    if route is None:
+        return None
+    if route.endswith("!"):
+        return route[:-1] if mode == "int8" else None
+    return route
 
 
 def _as_input(raw, device) -> torch.Tensor:
@@ -45,54 +93,105 @@ def _calibrate(model: nn.Module, calib_batches: Optional[Sequence], pre,
         return calibrate_int8(model, calib_batches)
 
 
+def as_bfloat16(model: nn.Module) -> nn.Module:
+    """A bf16 copy for inference (JAX ``Model.as_bfloat16``): parameters are
+    rounded to bf16; BN statistics stay f32, and BN's own scale and shift
+    keep f32 storage of their bf16-rounded values (PyTorch's BN takes a
+    bf16 input only beside f32 parameters)."""
+    bf = copy.deepcopy(model)
+    with torch.no_grad():
+        for m in bf.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                for p in (m.weight, m.bias):
+                    p.copy_(p.to(torch.bfloat16).to(torch.float32))
+            else:
+                for p in m.parameters(recurse=False):
+                    p.data = p.data.to(torch.bfloat16)
+    return bf
+
+
 def make_serving_fn(model_name: str, source_hw: Tuple[int, int],
                     mode: str = "auto", task: str = "classification",
                     calib_batches: Optional[Sequence] = None, device=None,
                     model: Optional[nn.Module] = None,
                     **model_kwargs) -> Callable:
-    """Build a ``uint8 (B, H, W, 3) -> bf16 logits (B, classes)`` closure
-    for a ResNet on ``device`` (default: the CPU).
+    """Build a ``uint8 (B, H, W, 3) -> prediction`` closure on ``device``
+    (default: the CUDA card; ``"cpu"`` must be asked for).
 
+    ``task="classification"`` (a ResNet): bf16 logits (B, classes).
+    ``task="segmentation"`` (DANet): bf16 class maps (B, classes, H, W) at
+    the model's ``in_size``, three of them with ``aux``.
     ``mode``: 'auto' and 'int8' both serve the int8 pipeline (the measured
-    choice for ResNets); other modes and tasks are not yet ported.
-    ``calib_batches``: preprocessed NCHW f32 batches for calibration.
-    ``model``: a built module to serve instead of a fresh
-    ``get_model(model_name, device=device, **model_kwargs)``. The closure
-    carries ``make_reference_forward()``, the f32 oracle: f32 preprocess and
-    the unquantized model, without TF32."""
-    if task != "classification":
+    choice for both routes); other modes, families and tasks are not yet
+    ported. ``calib_batches``: preprocessed NCHW f32 batches for
+    calibration. ``model``: a built module on ``device`` to serve instead of
+    a fresh ``get_model(model_name, device=device, **model_kwargs)``. The
+    closure carries ``make_reference_forward()``, the f32 oracle: f32
+    preprocess and the unquantized model, without TF32; and ``head``, the
+    bf16 copy of the model that runs the segmentation head (None for
+    classification)."""
+    if task not in _TASK_ROUTES:
         raise NotImplementedError(f"task {task!r} is not yet ported")
     if mode not in ("auto", "int8"):
         raise NotImplementedError(f"mode {mode!r} is not yet ported")
-    family = get_constructor(model_name).__module__.rsplit(".", 1)[-1]
-    if family != "resnet":
-        raise NotImplementedError(f"{model_name!r}: only the resnet route is "
-                                  f"ported")
+    route = declared_int8_route(model_name, mode)
+    if route != _TASK_ROUTES[task]:
+        raise NotImplementedError(
+            f"{model_name!r}, task {task!r}: int8 route {route!r} is not "
+            f"ported (ported: {_TASK_ROUTES[task]!r})")
+    device = resolve_device(device)
     if model is None:
         model = get_model(model_name, device=device, **model_kwargs)
-    device = next(model.parameters()).device
+    own = next(model.parameters()).device
+    if own.type != device.type:
+        raise ValueError(f"model is on {own}, the serving device is {device}")
+    device = own
 
-    def cls_pre(**kw):
-        return classification_preprocess(model_name, source_hw,
-                                         model_in_size=model.in_size,
-                                         layout="nchw", device=device, **kw)
+    if task == "classification":
+        def make_pre(**kw):
+            return classification_preprocess(
+                model_name, source_hw, model_in_size=model.in_size,
+                layout="nchw", device=device, **kw)
+    else:
+        if not (is_seg_resnetd_backbone(model) and hasattr(model, "head")):
+            raise NotImplementedError(
+                f"{model_name!r}: only a ResNet(D)-b backbone under a "
+                f"from_features head is ported")
 
-    pre = cls_pre()
+        def make_pre(**kw):
+            return segmentation_preprocess(tuple(model.in_size), source_hw,
+                                           layout="nchw", device=device,
+                                           **kw)
+
+    pre = make_pre()
     scales = _calibrate(model, calib_batches, pre, source_hw, device)
-    infer, plan = prepare_int8_resnet(model, scales)
+    if task == "classification":
+        infer, plan = prepare_int8_resnet(model, scales)
+        head = None
+    else:
+        backbone, plan = prepare_int8_seg_backbone(
+            model, scales, bend=getattr(model, "reads_bend", True))
+        head = as_bfloat16(model)
+        head.backbone = None
 
-    def pipeline(raw_u8) -> torch.Tensor:
+        def infer(plan, x):
+            outs = backbone(plan, x)
+            return head(tuple(None if o is None else o.permute(0, 3, 1, 2)
+                              for o in outs), from_features=True)
+
+    def pipeline(raw_u8):
         with torch.inference_mode():
             return infer(plan, pre(_as_input(raw_u8, device)))
 
     def make_reference_forward() -> Callable:
-        pre32 = cls_pre(out_dtype=torch.float32)
+        pre32 = make_pre(out_dtype=torch.float32)
 
-        def reference(raw_u8) -> torch.Tensor:
+        def reference(raw_u8):
             with torch.inference_mode(), no_tf32():
                 return model(pre32(_as_input(raw_u8, device)))
 
         return reference
 
     pipeline.make_reference_forward = make_reference_forward
+    pipeline.head = head
     return pipeline

@@ -8,6 +8,7 @@ rule set maps every leaf (the inverse of ``pytorchcv_tpu/zoo/convert.py``):
   params .../kernel (I,O)        .weight (O,I)         transpose
   params .../scale               .weight               copy
   params .../bias                .bias                 copy
+  params .../alpha               .alpha                copy  (ScaleBlock)
   batch_stats .../mean           .running_mean         copy
   batch_stats .../var            .running_var          copy
 """
@@ -22,7 +23,8 @@ from torch import nn
 
 __all__ = ["load_jax_variables", "ConversionError"]
 
-_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                 "alpha": "alpha"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 

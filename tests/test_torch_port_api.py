@@ -23,21 +23,31 @@ def test_import_leaves_jax_out():
 
 
 def test_registry_holds_every_jax_resnet_name():
-    jax_names = {n for n in jax_registry.registered_models()
-                 if jax_registry.get_constructor(n).__module__.endswith(
-                     ".models.resnet")}
-    assert set(pt.registered_models()) == jax_names
-    assert len(jax_names) == 21
+    """Each ported family (resnet, resnetd, danet) registers exactly the
+    JAX package's names of that family, and nothing else."""
+    def family(names, registry, fam):
+        return {n for n in names if registry.get_constructor(
+            n).__module__.rsplit(".", 1)[-1] == fam}
+    port_names = set(pt.registered_models())
+    from pytorchcv_tpu_torch.models import registry as port_registry
+    counts = {}
+    for fam in ("resnet", "resnetd", "danet"):
+        jax_names = family(jax_registry.registered_models(), jax_registry,
+                           fam)
+        assert family(port_names, port_registry, fam) == jax_names, fam
+        counts[fam] = len(jax_names)
+    assert counts == {"resnet": 21, "resnetd": 3, "danet": 2}
+    assert len(port_names) == 26
 
 
 def test_get_model_is_seeded_and_named():
-    a = pt.get_model("resnet18_wd4", rng=3)
-    b = pt.get_model("resnet18_wd4", rng=3)
-    c = pt.get_model("resnet18_wd4", rng=4)
+    a = pt.get_model("resnet18_wd4", rng=3, device="cpu")
+    b = pt.get_model("resnet18_wd4", rng=3, device="cpu")
+    c = pt.get_model("resnet18_wd4", rng=4, device="cpu")
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     key = "features.stage1.unit1.body.conv1.conv.weight"
     assert torch.equal(sa[key], sb[key]) and not torch.equal(sa[key], sc[key])
-    r50 = pt.get_model("resnet50").state_dict()
+    r50 = pt.get_model("resnet50", device="cpu").state_dict()
     for k in ("features.init_block.conv.conv.weight",
               "features.init_block.conv.bn.running_var",
               "features.stage2.unit1.identity_conv.conv.weight",
@@ -61,4 +71,21 @@ def test_serving_end_to_end_matches_reference_forward():
         y.flatten(), ref.flatten(), dim=0))
     assert cos >= 0.995, cos
     with pytest.raises(NotImplementedError):
-        pt.make_serving_fn("resnet10", (74, 74), mode="bf16")
+        pt.make_serving_fn("resnet10", (74, 74), mode="bf16", device="cpu")
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a card, get_model and make_serving_fn raise unless the CPU
+    is asked for; they never fall back to it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.get_model("resnet10")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.make_serving_fn("resnet10", (74, 74))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.make_serving_fn("danet_resnetd50b_cityscapes", (72, 96),
+                           task="segmentation", device="cuda")
+    cpu_model = pt.get_model("resnet10", device="cpu")
+    assert next(cpu_model.parameters()).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.make_serving_fn("resnet10", (74, 74), model=cpu_model)

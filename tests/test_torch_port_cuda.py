@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on shapes
-the ResNet-50 serving path does not give them: partial output tiles,
-reduction tails, odd image sizes, narrow models and the bf16 residual of a
-last unit with an identity conv.
+the serving paths do not give them: partial output tiles, reduction tails,
+odd image sizes, dilations on odd sizes, narrow models, the bf16 residual
+of a last unit with an identity conv, and attention at sequence lengths
+and widths no tile divides.
 
 Each test carries the ``cuda`` marker, needs a CUDA card and nvcc, and
 skips without a card. On a machine without JAX, run them without the
@@ -18,13 +19,15 @@ import torch
 
 import pytorchcv_tpu_torch as pt
 from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+from pytorchcv_tpu_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_reference)
 from pytorchcv_tpu_torch.kernels.int8_conv import (int8_conv,
                                                    int8_conv_reference)
 from pytorchcv_tpu_torch.kernels.preprocess import (
-    bf16_ulp_distance, classification_preprocess, preprocess,
+    bf16_ulp_distance, bf16_ulp_error, classification_preprocess, preprocess,
     preprocess_reference, resize_matrices)
-from pytorchcv_tpu_torch.kernels.stem import (stem_conv_pool,
-                                              stem_conv_pool_reference)
+from pytorchcv_tpu_torch.kernels.stem import (maxpool_i8, maxpool_i8_reference,
+                                              stem_conv, stem_conv_reference)
 from pytorchcv_tpu_torch.quant import calibrate_int8, prepare_int8_resnet
 
 torch.set_num_threads(1)
@@ -72,6 +75,53 @@ def test_int8_conv_kernel_matches_plain(k, stride, cin, cout, hw):
                                        .abs().max())
 
 
+@pytest.mark.parametrize("dilation,hw", [(2, 9), (4, 13), (2, 7)])
+def test_int8_conv_dilated_kernel_matches_plain(dilation, hw):
+    dev = _cuda()
+    rng = np.random.default_rng(dilation * 100 + hw)
+    x = _i8(rng, (2, hw, hw + 2, 20), dev)
+    w = _i8(rng, (70, 3, 3, 20), dev)
+    a = torch.from_numpy(rng.uniform(2e-5, 2e-4, 70).astype(np.float32)
+                         ).to(dev)
+    b = torch.from_numpy(rng.standard_normal(70).astype(np.float32)).to(dev)
+    res = _i8(rng, (2, hw, hw + 2, 70), dev)
+    for kw in (dict(relu=True, q=0.7), dict(relu=False),
+               dict(relu=False, q=0.7, residual=res, res_scale=0.01,
+                    round_res=True, bend=True)):
+        got = int8_conv(x, w, a, b, 1, dilation=dilation, **kw)
+        ref = int8_conv_reference(x, w, a, b, 1, dilation=dilation, **kw)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for g_, r_ in zip(got, ref):
+            assert torch.equal(g_, r_), (kw.keys(), (g_.float() - r_.float())
+                                         .abs().max())
+
+
+@pytest.mark.parametrize("lq", [63, 401, 3600])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain(lq, dtype):
+    """bf16 within 1 ulp (``bf16_ulp_error``: outputs that average to near
+    zero round apart in f32); f32 within 1e-4 of the largest plain
+    value."""
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(lq)
+    for d, dv in ((32, 96), (64, 512)):
+        q, k = (torch.randn((2, lq, d), generator=g).mul_(0.3).to(dev, dt)
+                for _ in range(2))
+        v = torch.randn((2, lq, dv), generator=g).to(dev, dt)
+        got = flash_attention(q, k, v, 0.9)
+        ref = flash_attention_reference(q, k, v, 0.9)
+        torch.cuda.synchronize()
+        assert got.dtype == dt and got.shape == ref.shape == (2, lq, dv)
+        if dt == torch.bfloat16:
+            assert float(bf16_ulp_error(got, ref).max()) <= 1, (d, dv)
+        else:
+            err = float((got - ref).abs().max() / ref.abs().max())
+            assert err <= 1e-4, (d, dv, err)
+
+
 @pytest.mark.parametrize("layout", ["nhwc", "nchw"])
 def test_preprocess_kernel_matches_plain(layout):
     dev = _cuda()
@@ -94,21 +144,33 @@ def test_preprocess_kernel_matches_plain(layout):
             assert int(bf16_ulp_distance(got, ref).max()) <= 1
 
 
-def test_stem_kernel_matches_plain():
+@pytest.mark.parametrize("k,shape", [(7, (2, 25, 23, 16)),
+                                     (3, (2, 25, 23, 16))])
+def test_stem_kernel_matches_plain(k, shape):
     dev = _cuda()
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.standard_normal((2, 3, 50, 46)).astype(
         np.float32)).to(dev, torch.bfloat16)
-    kf = torch.from_numpy((rng.standard_normal((3, 7, 7, 16)) * 0.1).astype(
+    kf = torch.from_numpy((rng.standard_normal((3, k, k, 16)) * 0.1).astype(
         np.float32)).to(dev, torch.bfloat16)
     bias = torch.from_numpy(rng.standard_normal(16).astype(np.float32)
                             ).to(dev)
-    got = stem_conv_pool(x, kf, bias, 40.0)
-    ref = stem_conv_pool_reference(x, kf, bias, 40.0)
+    got = stem_conv(x, kf, bias, 40.0)
+    ref = stem_conv_reference(x, kf, bias, 40.0)
     torch.cuda.synchronize()
-    assert got.shape == ref.shape == (2, 13, 12, 16)
+    assert got.shape == ref.shape == shape
     diff = (got.int() - ref.int()).abs()
     assert int(diff.max()) <= 1 and float((diff != 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("hw", [(7, 9), (240, 240)])
+def test_maxpool_i8_kernel_matches_plain(hw):
+    dev = _cuda()
+    x = _i8(np.random.default_rng(hw[0]), (2, *hw, 24), dev)
+    got = maxpool_i8(x)
+    ref = maxpool_i8_reference(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("name,kw,n_convs", [
@@ -118,7 +180,7 @@ def test_int8_pipeline_on_cuda_matches_cpu(name, kw, n_convs):
     the bf16-residual tail. The CUDA pipeline matches the CPU one on the
     same weights and scales."""
     dev = _cuda()
-    model = pt.get_model(name, in_size=(64, 64), **kw)
+    model = pt.get_model(name, in_size=(64, 64), device="cpu", **kw)
     raw = torch.from_numpy(np.random.default_rng(3).integers(
         0, 256, (4, 74, 74, 3), dtype=np.uint8))
     pre_cpu, pre_gpu = (classification_preprocess(
@@ -129,7 +191,8 @@ def test_int8_pipeline_on_cuda_matches_cpu(name, kw, n_convs):
     y_cpu = infer(plan_cpu, pre_cpu(raw)).float()
     reset_launch_counts()
     y_gpu = infer(plan_gpu, pre_gpu(raw.to(dev))).float().cpu()
-    assert LAUNCHES == {"preprocess": 1, "stem": 1, "int8_conv": n_convs}
+    assert LAUNCHES == {"preprocess": 1, "stem": 1, "int8_conv": n_convs,
+                        "maxpool_i8": 1, "flash_attention": 0}
     cos = float(torch.nn.functional.cosine_similarity(
         y_gpu.flatten(), y_cpu.flatten(), dim=0))
     assert cos >= 0.9999, cos

@@ -19,7 +19,7 @@ from pytorchcv_tpu.kernels.preprocess import preprocess_batch as jax_pre
 from pytorchcv_tpu.kernels.preprocess import resize_matrices
 from pytorchcv_tpu.quant import resnet_int8 as jq
 from pytorchcv_tpu_torch.kernels.int8_conv import int8_conv
-from pytorchcv_tpu_torch.kernels.stem import stem_conv_pool
+from pytorchcv_tpu_torch.kernels.stem import maxpool_i8, stem_conv
 from pytorchcv_tpu_torch.kernels.preprocess import (bf16_ulp_distance,
                                                     preprocess_batch)
 from pytorchcv_tpu_torch.quant.resnet_int8 import _cell, _f32
@@ -183,7 +183,7 @@ def test_int8_conv_rejects_what_the_kernel_does_not_take():
         int8_conv(x4, torch.zeros((8, 3, 3, 4), dtype=torch.int8), ab, ab)
     w8 = torch.zeros((8, 3, 3, 8), dtype=torch.int8)
     with pytest.raises(ValueError, match="dilation"):
-        int8_conv(x4, w8, ab, ab, dilation=2)
+        int8_conv(x4, w8, ab, ab, dilation=0)
     with pytest.raises(ValueError, match="int8"):
         int8_conv(x4.float(), w8, ab, ab)
 
@@ -206,8 +206,8 @@ def test_stem_matches_jax_planar_kf_stem():
     p = jax.lax.reduce_window(q, jnp.int8(-128), jax.lax.max, (1, 1, 3, 3),
                               (1, 1, 2, 2), [(0, 0), (0, 0), (1, 1), (1, 1)])
     ref = np.asarray(jnp.transpose(p, (0, 2, 3, 1))).astype(np.int32)
-    got = stem_conv_pool(_t(x), _t(kf).permute(2, 0, 1, 3).contiguous(),
-                         _t(bias), _f32(127.0 / s_u1))
+    got = maxpool_i8(stem_conv(_t(x), _t(kf).permute(2, 0, 1, 3)
+                               .contiguous(), _t(bias), _f32(127.0 / s_u1)))
     assert tuple(got.shape) == ref.shape == (2, 16, 16, 64)
     diff = np.abs(got.numpy().astype(np.int32) - ref)
     assert diff.max() <= 1

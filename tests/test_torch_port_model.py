@@ -22,6 +22,7 @@ from pytorchcv_tpu.kernels.preprocess import \
 from pytorchcv_tpu.quant import calibrate_int8 as jax_calibrate
 from pytorchcv_tpu.quant.resnet_int8 import \
     prepare_int8_resnet as jax_prepare
+from pytorchcv_tpu.zoo.convert import convert_state_dict
 import pytorchcv_tpu_torch as pt
 from pytorchcv_tpu_torch.kernels.preprocess import classification_preprocess
 from pytorchcv_tpu_torch.quant import calibrate_int8, prepare_int8_resnet
@@ -54,11 +55,16 @@ def _randomize_bn(variables, seed):
 
 
 def _pair(name, seed, **kw):
-    jm = ptc.get_model(name, in_size=_SIZE, **kw)
-    variables = _randomize_bn(jm.variables, seed)
+    """The JAX model and the port's on the same variables: the port's
+    seeded init, converted by the JAX package's ``convert_state_dict``
+    (the JAX model's own init is an XLA compile of the whole model), BN
+    randomized, and carried back by ``load_jax_variables``."""
+    tm = pt.get_model(name, in_size=_SIZE, device="cpu", **kw)
+    jm = ptc.get_model(name, in_size=_SIZE, init=False, **kw)
+    variables = _randomize_bn(convert_state_dict(
+        tm.state_dict(), jm.shape_variables()), seed)
     jm = dataclasses.replace(jm, variables=jax.tree_util.tree_map(
         jnp.asarray, variables))
-    tm = pt.get_model(name, in_size=_SIZE, **kw)
     load_jax_variables(tm, variables)
     return jm, tm
 
@@ -98,7 +104,8 @@ def test_f32_model_matches_jax(name, r50):
 def test_converter_is_strict(r50):
     jm, _ = r50
     variables = jax.tree_util.tree_map(np.asarray, jm.variables)
-    tm = pt.get_model("resnet50", in_size=_SIZE, width_scale=0.25)
+    tm = pt.get_model("resnet50", in_size=_SIZE, width_scale=0.25,
+                      device="cpu")
     del variables["batch_stats"]["features"]["init_block"]["conv"]["bn"]["var"]
     with pytest.raises(ConversionError, match="left unset"):
         load_jax_variables(tm, variables)
@@ -138,7 +145,9 @@ def test_int8_slice_matches_jax_pipeline(r50):
     scales = jax_calibrate(jm, [jax_cls_pre(56, (64, 64))(jnp.asarray(
         _images(6, n=4))).astype(jnp.float32)])
     fn, qtree = jax_prepare(jm, scales)
-    ref = np.asarray(fn(qtree, jpre(jnp.asarray(raw))).astype(jnp.float32))
+    # Jitted: op by op the JAX pipeline compiles every op alone (~8 s).
+    ref = np.asarray(jax.jit(fn)(qtree, jpre(jnp.asarray(raw)))
+                     .astype(jnp.float32))
     tpre = classification_preprocess(56, (64, 64), layout="nchw")
     infer, plan = prepare_int8_resnet(tm, scales)
     x = tpre(torch.from_numpy(raw))
@@ -154,15 +163,15 @@ def test_int8_slice_matches_jax_pipeline(r50):
 def test_prepare_raises_on_trees_it_does_not_walk(r50):
     _, tm = r50
     scales = {}
-    bad = pt.get_model("resnet10", in_size=_SIZE)
+    bad = pt.get_model("resnet10", in_size=_SIZE, device="cpu")
     bad.features.stage1.unit1.body.conv1.bn = None
     with pytest.raises(UnsupportedTreeError, match="BN-less"):
         prepare_int8_resnet(bad, scales)
-    bad = pt.get_model("resnet10", in_size=_SIZE)
+    bad = pt.get_model("resnet10", in_size=_SIZE, device="cpu")
     bad.features.stage2.unit1.se = torch.nn.Identity()
     with pytest.raises(UnsupportedTreeError, match="SE"):
         prepare_int8_resnet(bad, scales)
-    bad = pt.get_model("resnet10", in_size=_SIZE)
+    bad = pt.get_model("resnet10", in_size=_SIZE, device="cpu")
     bad.features.stage3.unit1.identity_conv.bn.running_var = None
     with pytest.raises(ValueError, match="stage3/unit1/identity_conv.*"
                                          "running statistics"):
