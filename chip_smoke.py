@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""GPU smoke test of pytorchcv_tpu_torch: int8 ResNet-50 classification and
-int8 DANet (ResNet-D50b) Cityscapes segmentation serving on the port's
-hand-written CUDA kernels.
+"""GPU smoke test of pytorchcv_tpu_torch: int8 ResNet-50 classification,
+int8 DANet (ResNet-D50b) Cityscapes segmentation serving and ProPainter
+recurrent flow completion (RFC) streaming, on the port's hand-written CUDA
+kernels.
 
     python3 chip_smoke.py
 
@@ -41,7 +42,28 @@ use (one nvcc per source, in parallel). Phases, each ending in
    agreement >= 0.97 against the f32 reference forward (no TF32);
 7. DANet timing at batch 8: serving images/s, each kernel beside its plain
    version and its library call (SDPA beside K4), and the cuDNN bf16 head
-   convs (recorded through the closure's ``head``).
+   convs (recorded through the closure's ``head``);
+8. the RFC slice: ``get_model("propainter_rfc", device="cuda")`` on seed-0
+   weights completes the flows of a synthetic 160-frame 240x432 clip
+   (smooth sinusoidal flows up to 10 px, a moving ellipse masking ~10 % of
+   each frame) through ``ProPainterRFCSequencer`` (window 80, padding 5:
+   two windows, printed); launch counts K5 = sum over windows of
+   4 (T_w - 1) and no other kernel; finite (159, 4, 240, 432) flows, equal
+   to the input outside the masks;
+9. K5 (deformable sampling) against its plain version at every distinct
+   shape of the path (f32, within 1e-5 of max|x|) and at the flow-guided
+   shape (1, 128, 60, 108), G 16, residue bound 3, centers of std 6
+   (f32 as above, bf16 within 1 bf16 ulp at the tensor's scale);
+10. end to end: the completed flows against the same model with
+   ``deform_conv2d`` patched here to its general route, max |delta| <= 1e-3
+   of max |flow| (f32, no TF32); and the card against a CPU copy of the
+   model (plain sampler) on the clip's first 3 flows, within 1e-4 of max
+   |flow| (on random weights the recurrence grows over the clip: the
+   window's flows reach ~6e11, and the JAX model grows alike);
+11. RFC timing with CUDA events: completed-flow frames/s over the clip and
+   per window, K5 a call beside its plain version and ``F.grid_sample``
+   times the mask, and one RFC call split into its 3-D and 2-D convs and
+   K5.
 
 Any failure raises. The last lines are the card, the kernels' JSON record
 (one entry per kernel and path) and ``{"ok": true, "device": {...}}``.
@@ -50,6 +72,7 @@ Any failure raises. The last lines are the card, the kernels' JSON record
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import subprocess
 import sys
@@ -67,8 +90,17 @@ SEG_SOURCE_HW = (1024, 2048)   # native Cityscapes frames
 SEG_BATCH_CHECK = 2
 SEG_BATCH_TIME = 8
 SEG_LAUNCHES = {"preprocess": 1, "stem": 1, "maxpool_i8": 1, "int8_conv": 54,
-                "flash_attention": 1}
+                "flash_attention": 1, "deform_sample": 0}
 ATTN_F32_RTOL = 1e-4           # K4 f32: max |err| / max |plain|
+
+RFC_HW = (240, 432)            # ProPainter's default input
+RFC_FRAMES = 160               # two windows of 80 frames
+RFC_WINDOW, RFC_PADDING = 80, 5
+RFC_FLOW_GUIDED = ((1, 128, 60, 108), 16, 3.0)   # x shape, G, residue bound
+RFC_F32_TOL = 1e-5             # K5 f32: max |err| / max |x|
+RFC_E2E_TOL = 1e-3             # completed flows: max |delta| / max |flow|
+RFC_SHORT = 3                  # flows of the card-vs-CPU check
+RFC_CPU_TOL = 1e-4             # its max |delta| / max |flow|
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): HBM bytes/s and
 # operations/s by operand type.
@@ -403,7 +435,8 @@ def _resnet(card, record) -> None:
     launches = dict(LAUNCHES)
     print(f"resnet50 launches in one forward: {launches}")
     _require(launches == {"preprocess": 1, "stem": 1, "int8_conv": 52,
-                          "maxpool_i8": 1, "flash_attention": 0}, launches)
+                          "maxpool_i8": 1, "flash_attention": 0,
+                          "deform_sample": 0}, launches)
     _require(tuple(logits.shape) == (BATCH_CHECK, 1000), logits.shape)
     y = logits.float()
     _require(bool(torch.isfinite(y).all()), "non-finite logits")
@@ -649,6 +682,309 @@ def _danet(card, record) -> None:
                                     bound, lib))
 
 
+def _rfc_video(seed: int):
+    """A synthetic RFC_FRAMES-frame clip at RFC_HW on the card: forward and
+    backward flows (T-1, 4, H, W), each component a sum of four
+    low-frequency sinusoids drifting in time (|flow| <= 10 px), and masks
+    (T, 1, H, W) of an ellipse covering ~10 % of the frame that moves
+    across it."""
+    g = torch.Generator().manual_seed(seed)
+    (h, w), t = RFC_HW, RFC_FRAMES
+    ys = torch.linspace(0.0, 1.0, h, device="cuda")[:, None]
+    xs = torch.linspace(0.0, 1.0, w, device="cuda")[None, :]
+    tt = torch.arange(t - 1, device="cuda", dtype=torch.float32)[:, None,
+                                                                  None]
+    comps = []
+    for _ in range(4):
+        field = torch.zeros(t - 1, h, w, device="cuda")
+        for _ in range(4):
+            fy, fx = torch.randint(0, 4, (2,), generator=g).tolist()
+            amp, phase, drift = (torch.rand(3, generator=g)
+                                 * torch.tensor([1.5, 6.2832, 0.1])).tolist()
+            field += (amp + 1.0) * torch.sin(
+                6.2832 * (fy * ys + fx * xs) + phase + drift * tt)
+        comps.append(field)
+    flows = torch.stack(comps, dim=1)
+    ft = torch.arange(t, device="cuda", dtype=torch.float32)[:, None, None]
+    cy = 0.5 + 0.25 * torch.cos(6.2832 * ft / t)
+    cx = 0.5 + 0.3 * torch.sin(6.2832 * ft / t)
+    inside = ((xs - cx) / 0.2) ** 2 + ((ys - cy) / 0.16) ** 2 <= 1.0
+    return flows, inside.to(torch.float32)[:, None]
+
+
+@contextlib.contextmanager
+def _first_calls(mod, attr):
+    """Count the calls of ``mod.attr`` and keep (args, kwargs, output) of
+    its first call at each distinct input shape."""
+    seen, count = {}, [0]
+    orig = getattr(mod, attr)
+
+    def rec(*a, **k):
+        out = orig(*a, **k)
+        count[0] += 1
+        seen.setdefault(tuple(tuple(x.shape) for x in a[:3]) + (a[3],),
+                        (a, k, out))
+        return out
+    setattr(mod, attr, rec)
+    try:
+        yield seen, count
+    finally:
+        setattr(mod, attr, orig)
+
+
+def _deform_case(shape, groups, rb, dtype, seed):
+    """K5 inputs at ``shape`` with offsets = center + U(-rb, rb), centers
+    of std 6 (windows across the borders), masks U(0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    _, c, h, w = shape
+    x = torch.randn(shape, generator=g).to(dtype).cuda()
+    center = torch.randn((1, 1, 1, 2, h, w), generator=g) * 6.0
+    resid = (torch.rand((1, groups, 9, 2, h, w), generator=g) * 2 - 1) * rb
+    offset = (center + resid).reshape(1, 18 * groups, h, w).cuda()
+    mask = torch.rand((1, 9 * groups, h, w), generator=g).cuda()
+    return x, offset, mask
+
+
+def _check_deform(a, out, what) -> float:
+    """K5 against its plain version: f32 within RFC_F32_TOL of max|x|, bf16
+    within 1 bf16 ulp at the tensor's scale. Returns the max abs error."""
+    from pytorchcv_tpu_torch.kernels.deform_patch import \
+        deform_sample_reference
+    from pytorchcv_tpu_torch.kernels.preprocess import bf16_ulp_error
+    x, offset, mask, groups = a[:4]
+    ref = deform_sample_reference(x, offset, mask, groups)
+    err = float((out.float() - ref.float()).abs().max())
+    if x.dtype == torch.bfloat16:
+        ulp = float(bf16_ulp_error(out, ref).max())
+        print(f"K5 {what} bf16 x {tuple(x.shape)} G {groups}: max {ulp} bf16 "
+              f"ulp (scaled), max abs err {err}")
+        _require(ulp <= 1, f"K5 {what} differs by {ulp} bf16 ulp")
+    else:
+        rel = err / float(x.abs().max())
+        print(f"K5 {what} f32 x {tuple(x.shape)} G {groups}: max abs err "
+              f"{err}, {rel:.3e} of max|x|")
+        _require(rel <= RFC_F32_TOL, f"K5 {what} f32 error {rel} of max|x|")
+    return err
+
+
+def _work_deform(a, out):
+    """Bytes: x, offsets, mask read once and the taps written once.
+    Operations: 10 f32 a tap element (three lerps, the mask)."""
+    return _bound(_nbytes(*a[:3], out), 10 * out.numel(), "f32")
+
+
+def _device_kernels(fn, reps: int):
+    """Device time a call of every kernel ``fn`` launches, by name (ms),
+    from ``torch.profiler``'s CUDA activity after one warm-up call; empty
+    when the profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def _rfc(card, record) -> None:
+    import pytorchcv_tpu_torch as pt
+    import pytorchcv_tpu_torch.models.propainter_rfc as rfc_mod
+    import pytorchcv_tpu_torch.nn.deform as deform_mod
+    import torch.nn.functional as F
+    from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from pytorchcv_tpu_torch.kernels.deform_patch import (
+        deform_sample, deform_sample_reference)
+    from pytorchcv_tpu_torch.models.propainter_rfc_stream import \
+        ProPainterRFCSequencer
+
+    # -- 8. the RFC slice through the streaming engine, with launch counts
+    model = pt.get_model("propainter_rfc", rng=0, device="cuda")
+    flows, masks = _rfc_video(seed=5)
+    n_out = RFC_FRAMES - 1
+
+    def stream():
+        return ProPainterRFCSequencer(flows, masks, model,
+                                      window_size=RFC_WINDOW,
+                                      padding=RFC_PADDING)
+    seq = stream()
+    per_window = [4 * (m.sources[0].stop - m.sources[0].start - 1)
+                  for m in seq.window_index]
+    print(f"rfc windows (target:offset <- flows/masks): {seq.window_index}, "
+          f"K5 launches per window {per_window}")
+    torch.cuda.synchronize()
+    with _first_calls(deform_mod, "deform_sample") as (seen, _):
+        reset_launch_counts()
+        comp = seq[0:n_out]
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    print(f"rfc launches over {RFC_FRAMES} frames: {launches}")
+    _require(launches == {k: sum(per_window) if k == "deform_sample" else 0
+                          for k in LAUNCHES}, launches)
+    _require(tuple(comp.shape) == (n_out, 4, *RFC_HW), comp.shape)
+    _require(bool(torch.isfinite(comp).all()), "non-finite completed flows")
+    # combine_flows: outside the masks the input flows come back unchanged
+    known = torch.cat([masks[:-1], masks[1:]], dim=1).repeat_interleave(
+        2, dim=1) == 0
+    _require(torch.equal(comp[known], flows[known]),
+             "flows outside the masks changed")
+    max_flow = float(comp.abs().max())
+    print(f"rfc completed flows {tuple(comp.shape)}: finite, max |flow| "
+          f"{max_flow:.4f} (input {float(flows.abs().max()):.4f}), "
+          f"{float(masks.mean()):.4f} of pixels masked")
+    torch.cuda.synchronize()
+
+    # -- 9. K5 against its plain version
+    errs = []
+    with torch.inference_mode():
+        for key, (a, k, out) in sorted(seen.items()):
+            errs.append(_check_deform(a, out, "path"))
+        fg_shape, fg_groups, fg_rb = RFC_FLOW_GUIDED
+        for dtype in (torch.float32, torch.bfloat16):
+            a = (*_deform_case(fg_shape, fg_groups, fg_rb, dtype, 6),
+                 fg_groups, fg_rb)
+            errs.append(_check_deform(a, deform_sample(*a),
+                                      "flow-guided, centers std 6"))
+    torch.cuda.synchronize()
+
+    # -- 10. end to end: the same model with deform_conv2d routed to its
+    # general formulation (no center), patched here and only here
+    def general(*a, **k):
+        k.pop("center", None)
+        return deform_mod.deform_conv2d(*a, **k)
+    rfc_mod.deform_conv2d = general
+    try:
+        reset_launch_counts()
+        comp_general = stream()[0:n_out]
+        torch.cuda.synchronize()
+        _require(LAUNCHES["deform_sample"] == 0, "general route launched K5")
+    finally:
+        rfc_mod.deform_conv2d = deform_mod.deform_conv2d
+    delta = float((comp - comp_general).abs().max())
+    print(f"rfc K5 vs the general route: max |delta| {delta} = "
+          f"{delta / max_flow:.3e} of max |flow| (gate {RFC_E2E_TOL})")
+    _require(delta <= RFC_E2E_TOL * max_flow,
+             f"rfc end to end delta {delta} > {RFC_E2E_TOL} * {max_flow}")
+    del comp_general
+    # the card against the CPU (the plain sampler, CPU convs) on the clip's
+    # first RFC_SHORT flows, before the random recurrence has grown
+    fm = torch.cat([masks[:-1], masks[1:]], dim=1)[:RFC_SHORT]
+    with torch.inference_mode():
+        card_f, _ = rfc_mod.calc_bidirectional_opt_flow_completion_by_pprfc(
+            model, flows[:RFC_SHORT], fm)
+        cpu_f, _ = rfc_mod.calc_bidirectional_opt_flow_completion_by_pprfc(
+            copy.deepcopy(model).cpu(), flows[:RFC_SHORT].cpu(), fm.cpu())
+    rel = float((card_f.cpu() - cpu_f).abs().max() / cpu_f.abs().max())
+    print(f"rfc card vs CPU on {RFC_SHORT} flows: max |delta| {rel:.3e} of "
+          f"max |flow| {float(cpu_f.abs().max()):.4f} (gate {RFC_CPU_TOL})")
+    _require(rel <= RFC_CPU_TOL, f"rfc card vs CPU: {rel} of max |flow|")
+
+    # -- 11. timing: one pass over the clip after the passes above
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    seq = stream()
+    first_stop = seq.window_index[0].target.stop
+    ev[0].record()
+    seq[0:first_stop]
+    ev[1].record()
+    seq[first_stop:n_out]
+    ev[2].record()
+    torch.cuda.synchronize()
+    win_ms = [ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])]
+    ms_pass = sum(win_ms)
+    print(f"[{card}] rfc {RFC_FRAMES} frames at {RFC_HW[0]}x{RFC_HW[1]}, "
+          f"window {RFC_WINDOW}, padding {RFC_PADDING} (f32, no TF32): "
+          f"{ms_pass:.3f} ms, {n_out * 1000.0 / ms_pass:.2f} completed-flow "
+          f"frames/s; windows {win_ms[0]:.3f} and {win_ms[1]:.3f} ms")
+    (key, (a, k, out)), = seen.items()
+    x, offset, mask, groups = a[:4]
+    with torch.inference_mode():
+        ms = _cuda_ms(lambda: deform_sample(*a, **k), 50)
+        plain = _cuda_ms(lambda: deform_sample_reference(*a[:4]), 20)
+        # library yardstick: grid_sample over x as (G, C/G, H, W) at the
+        # same (y, x) positions (align_corners=True, zeros), times the mask
+        from pytorchcv_tpu_torch.kernels.deform_patch import tap_positions
+        _, c, h, w = x.shape
+        py, px, m = tap_positions(offset, mask, groups, (3, 3), 1, 1,
+                                  x.dtype)
+        grid = torch.stack([px / (w - 1) * 2 - 1, py / (h - 1) * 2 - 1],
+                           dim=-1)[0].permute(2, 0, 1, 3).contiguous()
+        xg = x.view(groups, c // groups, h, w)
+        mg = m[0].permute(2, 0, 1)[:, None]
+        lib = _cuda_ms(lambda: F.grid_sample(
+            xg, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True) * mg, 50)
+        lib_err = float((F.grid_sample(xg, grid, align_corners=True) * mg
+                         - out.view(h * w, 9, groups, c // groups)
+                         .permute(2, 3, 0, 1)).abs().max())
+        bound = _work_deform(a, out)
+        # the 3-D encoder and every 2-D conv of one RFC call (one direction
+        # of the first window), replayed
+        t_w = seq.window_index[0].sources[0]
+        f1 = flows[t_w.start:t_w.stop, :2][None]
+        m1 = masks[t_w.start:t_w.stop][None]
+        ms_call = _cuda_ms(lambda: model(f1, m1), 3, warmup=1)
+        convs = []
+        hooks = [mod.register_forward_pre_hook(
+                     lambda m_, a_: convs.append((m_, a_[0])))
+                 for mod in model.modules()
+                 if type(mod) in (torch.nn.Conv2d, torch.nn.Conv3d)]
+        model(f1, m1)
+        for hk in hooks:
+            hk.remove()
+        conv3 = [c_ for c_ in convs if isinstance(c_[0], torch.nn.Conv3d)]
+        conv2 = [c_ for c_ in convs if not isinstance(c_[0], torch.nn.Conv3d)]
+        prop = {id(m_) for m_ in
+                model.hg.skip_seq.skip4.feat_prop_module.modules()}
+        conv2r = [c_ for c_ in conv2 if id(c_[0]) in prop]
+        conv2d = [c_ for c_ in conv2 if id(c_[0]) not in prop]
+        ms3 = _cuda_ms(lambda: [m_(x_) for m_, x_ in conv3], 3, warmup=1)
+        ms2r = _cuda_ms(lambda: [m_(x_) for m_, x_ in conv2r], 3, warmup=1)
+        ms2d = _cuda_ms(lambda: [m_(x_) for m_, x_ in conv2d], 3, warmup=1)
+        n_conv = (len(conv3), len(conv2r), len(conv2d))
+        del convs, conv3, conv2, conv2r, conv2d
+        # device time (profiler): K5's kernel alone, and every kernel of
+        # one RFC call against its wall time
+        k5_dev = [v for n_, v in _device_kernels(
+            lambda: deform_sample(*a, **k), 20).items()
+            if "deform_sample" in n_]
+        call_dev = _device_kernels(lambda: model(f1, m1), 1)
+    n_k5 = per_window[0] // 2
+    print(f"[{card}] rfc K5 at x {tuple(x.shape)} G {groups}: wrapper "
+          f"{ms:.4f} ms a call (CUDA events, back to back; the kernel alone "
+          f"on the device: "
+          f"{f'{sum(k5_dev):.4f} ms' if k5_dev else 'not measured'}, "
+          f"profiler), plain {plain:.4f} ms, "
+          f"grid_sample x mask {lib:.4f} ms (max |diff| to K5 "
+          f"{lib_err:.2e}), bound {bound[0]:.4f} ms ({bound[1]}); per "
+          f"window {per_window[0]} x {ms:.4f} = {per_window[0] * ms:.3f} ms")
+    print(f"[{card}] rfc one call (T = {t_w.stop - t_w.start}, one "
+          f"direction): {ms_call:.3f} ms; replayed alone: 3-D convs "
+          f"({n_conv[0]}) {ms3:.3f} ms ({100.0 * ms3 / ms_call:.1f} %), "
+          f"2-D convs of the propagation ({n_conv[1]}) {ms2r:.3f} ms "
+          f"({100.0 * ms2r / ms_call:.1f} %), other 2-D convs "
+          f"({n_conv[2]}) {ms2d:.3f} ms ({100.0 * ms2d / ms_call:.1f} %), "
+          f"K5 {n_k5} x {ms:.4f} = {n_k5 * ms:.3f} ms "
+          f"({100.0 * n_k5 * ms / ms_call:.1f} %)")
+    if call_dev:
+        busy = sum(call_dev.values())
+        top = sorted(call_dev.items(), key=lambda kv: -kv[1])[:6]
+        print(f"[{card}] rfc one call on the device (profiler): kernels busy "
+              f"{busy:.3f} ms of {ms_call:.3f} ms wall, idle share "
+              f"{100.0 * (1 - busy / ms_call):.1f} %; largest: " + "; ".join(
+                  f"{n_[:60]} {v:.3f} ms" for n_, v in top))
+    else:
+        print(f"[{card}] rfc device busy and idle share: not measured (the "
+              f"profiler saw no device activity)")
+    record.append(_record_entry(
+        "deform_sample", "propainter_rfc", "deform_sample.cu",
+        "pytorchcv_tpu/kernels/deform_patch.py:81",
+        launches["deform_sample"], max(errs), ms, plain, bound, lib))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is False; "
@@ -677,6 +1013,9 @@ def main() -> None:
     t0 = time.perf_counter()
     _danet(card, record)
     print(f"danet phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _rfc(card, record)
+    print(f"rfc phases: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": record}))

@@ -2,7 +2,8 @@
 
 Models are NCHW ``nn.Module``s whose ``state_dict`` names are the reference
 pytorchcv names; the int8 serving paths (ResNet classification, DANet
-segmentation) run on hand-written CUDA kernels for Hopper (``kernels/``,
+segmentation) and ProPainter's recurrent flow completion (streamed by
+``streaming``) run on hand-written CUDA kernels for Hopper (``kernels/``,
 sources in ``csrc/``), with plain PyTorch versions on CPU tensors. The entry
 points run on the CUDA card unless the caller asks for the CPU. The package
 imports torch and numpy only.

@@ -30,7 +30,8 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # Kernel launches per wrapper; a wrapper adds one where it launches its
 # kernel (never on its CPU path).
 LAUNCHES: Dict[str, int] = {"preprocess": 0, "int8_conv": 0, "stem": 0,
-                            "maxpool_i8": 0, "flash_attention": 0}
+                            "maxpool_i8": 0, "flash_attention": 0,
+                            "deform_sample": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -42,6 +43,7 @@ _SIGNATURES = {
     "pcv_stem": [_P, _P, _P, _F, _I, _P] + [_I] * 6 + [_P],
     "pcv_maxpool_i8": [_P, _P] + [_I] * 6 + [_P],
     "pcv_flash_attention": [_P, _P, _P, _P] + [_I] * 5 + [_F, _I, _P],
+    "pcv_deform_sample": [_P, _P, _P, _P] + [_I] * 5 + [_P],
 }
 
 

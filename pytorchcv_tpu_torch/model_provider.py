@@ -25,16 +25,16 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _init_weights(module: nn.Module, rng: int) -> None:
-    """Seeded init with the JAX package's distributions: convs
+    """Seeded init with the JAX package's distributions: 2-D and 3-D convs
     U(+-sqrt(6/fan_in)), linear weights U(+-sqrt(1/fan_in)), biases 0,
     BatchNorm at its defaults. Draws come from a CPU ``torch.Generator``
     in module order, so a seed gives the same weights on every device."""
     g = torch.Generator().manual_seed(rng)
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
                 fan_in = m.weight[0].numel()
-                gain = 6.0 if isinstance(m, nn.Conv2d) else 1.0
+                gain = 1.0 if isinstance(m, nn.Linear) else 6.0
                 bound = math.sqrt(gain / fan_in)
                 m.weight.copy_(torch.empty(m.weight.shape).uniform_(
                     -bound, bound, generator=g))

@@ -1,6 +1,6 @@
 """Model families of the port; importing this registers their names."""
 
-from . import danet, resnet, resnetd  # noqa: F401  (register the names)
+from . import danet, propainter_rfc, resnet, resnetd  # noqa: F401
 from .registry import get_constructor, register_model, registered_models
 from .shell import ImageClassifier
 

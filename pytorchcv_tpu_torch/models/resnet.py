@@ -10,6 +10,7 @@ from typing import Optional, Sequence, Tuple
 from torch import nn
 
 from ..nn import Sequential, conv1x1_block, conv3x3_block, conv7x7_block
+from ..nn.activ import Activation, create_activation
 from .registry import register_model
 from .shell import ImageClassifier
 
@@ -18,13 +19,18 @@ __all__ = ["ResBlock", "ResBottleneck", "ResUnit", "ResInitBlock",
 
 
 class ResBlock(nn.Module):
-    """Two 3x3 conv blocks; no activation after the second."""
+    """Two 3x3 conv blocks; no activation after the second. ProPainter's
+    take ``bias``, no BN and LeakyReLU (JAX ``models/resnet.py:32``)."""
 
-    def __init__(self, in_channels: int, out_channels: int, stride: int):
+    def __init__(self, in_channels: int, out_channels: int, stride: int,
+                 bias: bool = False, normalization: bool = True,
+                 activation: Activation = True):
         super().__init__()
-        self.conv1 = conv3x3_block(in_channels, out_channels, stride=stride)
+        cell = dict(bias=bias, normalization=normalization)
+        self.conv1 = conv3x3_block(in_channels, out_channels, stride=stride,
+                                   activation=activation, **cell)
         self.conv2 = conv3x3_block(out_channels, out_channels,
-                                   activation=False)
+                                   activation=False, **cell)
 
     def forward(self, x):
         return self.conv2(self.conv1(x))
@@ -53,28 +59,36 @@ class ResBottleneck(nn.Module):
 
 
 class ResUnit(nn.Module):
-    """body + identity (a 1x1 conv block when the shape changes) + ReLU."""
+    """body + identity (a 1x1 conv block when the shape changes) +
+    ``final_activation`` (ReLU by default). The simple body takes ``bias``,
+    ``normalization`` and ``activation`` (JAX ``models/resnet.py:90``)."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int,
                  bottleneck: bool, conv1_stride: bool, padding: int = 1,
-                 dilation: int = 1):
+                 dilation: int = 1, bias: bool = False,
+                 normalization: bool = True, activation: Activation = True,
+                 final_activation: Activation = True):
         super().__init__()
         if bottleneck:
             self.body = ResBottleneck(in_channels, out_channels, stride,
                                       conv1_stride, padding=padding,
                                       dilation=dilation)
         else:
-            self.body = ResBlock(in_channels, out_channels, stride)
+            self.body = ResBlock(in_channels, out_channels, stride,
+                                 bias=bias, normalization=normalization,
+                                 activation=activation)
         if in_channels != out_channels or stride != 1:
             self.identity_conv = conv1x1_block(
-                in_channels, out_channels, stride=stride, activation=False)
+                in_channels, out_channels, stride=stride, bias=bias,
+                normalization=normalization, activation=False)
         else:
             self.identity_conv = None
-        self.activ = nn.ReLU(inplace=True)
+        self.activ = create_activation(final_activation)
 
     def forward(self, x):
         identity = x if self.identity_conv is None else self.identity_conv(x)
-        return self.activ(self.body(x) + identity)
+        x = self.body(x) + identity
+        return x if self.activ is None else self.activ(x)
 
 
 class ResInitBlock(nn.Module):

@@ -7,7 +7,8 @@ from typing import List, Sequence, Tuple
 
 from torch import nn
 
-__all__ = ["Sequential", "MultiOutputSequential", "positional_layers"]
+__all__ = ["Sequential", "MultiOutputSequential", "positional_layers",
+           "IndexedSeq", "Hourglass"]
 
 
 def Sequential(layers: Sequence[Tuple[str, nn.Module]]) -> nn.Sequential:
@@ -41,3 +42,48 @@ class MultiOutputSequential(nn.Sequential):
             if i in self.output_idx:
                 outs.append(x)
         return [x] + outs
+
+
+class IndexedSeq(nn.Sequential):
+    """Named children applied by index: ``seq(x, i)`` is ``seq[i](x)``
+    (JAX ``nn/arch.py:246``; the ``down_seq``/``up_seq``/``skip_seq``
+    scopes of :class:`Hourglass`)."""
+
+    def __init__(self, layers: Sequence[Tuple[str, nn.Module]]):
+        super().__init__(OrderedDict(layers))
+
+    def forward(self, x, i: int):
+        return self[i](x)
+
+
+class Hourglass(nn.Module):
+    """Down path, up path and skip connections merged by addition (JAX
+    ``nn/arch.py:257`` with ``merge_type="add"``, reference arch.py:168).
+    A skip that returns None (``BreakBlock``) is cut. With one skip more
+    than the depth, the extra one runs on the deepest output before the
+    first up block."""
+
+    def __init__(self, down_seq: Sequence[Tuple[str, nn.Module]],
+                 up_seq: Sequence[Tuple[str, nn.Module]],
+                 skip_seq: Sequence[Tuple[str, nn.Module]]):
+        super().__init__()
+        self.down_seq = IndexedSeq(down_seq)
+        self.up_seq = IndexedSeq(up_seq)
+        self.skip_seq = IndexedSeq(skip_seq)
+
+    def forward(self, x):
+        depth = len(self.down_seq)
+        down_outs = [x]
+        for i in range(depth):
+            x = self.down_seq(x, i)
+            down_outs.append(x)
+        for i in range(depth + 1):
+            if i != 0:
+                y = self.skip_seq(down_outs[depth - i], depth - i)
+                if y is not None:
+                    x = x + y
+            if i != depth:
+                if i == 0 and len(self.skip_seq) > depth:
+                    x = self.skip_seq(x, depth)
+                x = self.up_seq(x, depth - 1 - i)
+        return x

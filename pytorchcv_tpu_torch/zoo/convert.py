@@ -5,6 +5,7 @@ rule set maps every leaf (the inverse of ``pytorchcv_tpu/zoo/convert.py``):
 
   JAX leaf                       torch tensor          transform
   params .../kernel (kh,kw,I,O)  .weight (O,I,kh,kw)   transpose (3,2,0,1)
+  params .../kernel DHWIO (5-D)  .weight OIDHW         transpose (4,3,0,1,2)
   params .../kernel (I,O)        .weight (O,I)         transpose
   params .../scale               .weight               copy
   params .../bias                .bias                 copy
@@ -42,6 +43,8 @@ def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
 
 
 def _torch_value(leaf: str, arr: np.ndarray) -> np.ndarray:
+    if leaf == "kernel" and arr.ndim == 5:
+        return arr.transpose(4, 3, 0, 1, 2)
     if leaf == "kernel" and arr.ndim == 4:
         return arr.transpose(3, 2, 0, 1)
     if leaf == "kernel" and arr.ndim == 2:

@@ -10,12 +10,17 @@ import torch
 
 from pytorchcv_tpu.models import registry as jax_registry
 import pytorchcv_tpu_torch as pt
+from pytorchcv_tpu_torch.models.propainter_rfc_stream import \
+    ProPainterRFCSequencer
 
 torch.set_num_threads(1)
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, pytorchcv_tpu_torch, pytorchcv_tpu_torch.serve; "
+    code = ("import sys, pytorchcv_tpu_torch, pytorchcv_tpu_torch.serve, "
+            "pytorchcv_tpu_torch.nn.deform, pytorchcv_tpu_torch.streaming, "
+            "pytorchcv_tpu_torch.models.propainter_rfc, "
+            "pytorchcv_tpu_torch.models.propainter_rfc_stream; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'pytorchcv_tpu')]; "
             "assert not bad, bad")
@@ -23,21 +28,23 @@ def test_import_leaves_jax_out():
 
 
 def test_registry_holds_every_jax_resnet_name():
-    """Each ported family (resnet, resnetd, danet) registers exactly the
-    JAX package's names of that family, and nothing else."""
+    """Each ported family (resnet, resnetd, danet, propainter_rfc)
+    registers exactly the JAX package's names of that family, and nothing
+    else."""
     def family(names, registry, fam):
         return {n for n in names if registry.get_constructor(
             n).__module__.rsplit(".", 1)[-1] == fam}
     port_names = set(pt.registered_models())
     from pytorchcv_tpu_torch.models import registry as port_registry
     counts = {}
-    for fam in ("resnet", "resnetd", "danet"):
+    for fam in ("resnet", "resnetd", "danet", "propainter_rfc"):
         jax_names = family(jax_registry.registered_models(), jax_registry,
                            fam)
         assert family(port_names, port_registry, fam) == jax_names, fam
         counts[fam] = len(jax_names)
-    assert counts == {"resnet": 21, "resnetd": 3, "danet": 2}
-    assert len(port_names) == 26
+    assert counts == {"resnet": 21, "resnetd": 3, "danet": 2,
+                      "propainter_rfc": 1}
+    assert len(port_names) == 27
 
 
 def test_get_model_is_seeded_and_named():
@@ -75,8 +82,9 @@ def test_serving_end_to_end_matches_reference_forward():
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """Without a card, get_model and make_serving_fn raise unless the CPU
-    is asked for; they never fall back to it."""
+    """Without a card, get_model, make_serving_fn and the RFC sequencer
+    without a model raise unless the CPU is asked for; they never fall
+    back to it."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pt.get_model("resnet10")
@@ -85,6 +93,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pt.make_serving_fn("danet_resnetd50b_cityscapes", (72, 96),
                            task="segmentation", device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.get_model("propainter_rfc")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ProPainterRFCSequencer(torch.zeros(2, 4, 8, 8),
+                               torch.zeros(3, 1, 8, 8))
     cpu_model = pt.get_model("resnet10", device="cpu")
     assert next(cpu_model.parameters()).device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):

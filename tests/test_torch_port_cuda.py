@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on shapes
 the serving paths do not give them: partial output tiles, reduction tails,
 odd image sizes, dilations on odd sizes, narrow models, the bf16 residual
-of a last unit with an identity conv, and attention at sequence lengths
-and widths no tile divides.
+of a last unit with an identity conv, attention at sequence lengths and
+widths no tile divides, and the deformable sampler at widths that are not
+multiples of 8, with windows across every border and element counts no
+block divides.
 
 Each test carries the ``cuda`` marker, needs a CUDA card and nvcc, and
 skips without a card. On a machine without JAX, run them without the
@@ -19,6 +21,8 @@ import torch
 
 import pytorchcv_tpu_torch as pt
 from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+from pytorchcv_tpu_torch.kernels.deform_patch import (deform_sample,
+                                                      deform_sample_reference)
 from pytorchcv_tpu_torch.kernels.flash_attention import (
     flash_attention, flash_attention_reference)
 from pytorchcv_tpu_torch.kernels.int8_conv import (int8_conv,
@@ -28,6 +32,7 @@ from pytorchcv_tpu_torch.kernels.preprocess import (
     preprocess_reference, resize_matrices)
 from pytorchcv_tpu_torch.kernels.stem import (maxpool_i8, maxpool_i8_reference,
                                               stem_conv, stem_conv_reference)
+from pytorchcv_tpu_torch.nn.deform import deform_conv2d
 from pytorchcv_tpu_torch.quant import calibrate_int8, prepare_int8_resnet
 
 torch.set_num_threads(1)
@@ -192,7 +197,80 @@ def test_int8_pipeline_on_cuda_matches_cpu(name, kw, n_convs):
     reset_launch_counts()
     y_gpu = infer(plan_gpu, pre_gpu(raw.to(dev))).float().cpu()
     assert LAUNCHES == {"preprocess": 1, "stem": 1, "int8_conv": n_convs,
-                        "maxpool_i8": 1, "flash_attention": 0}
+                        "maxpool_i8": 1, "flash_attention": 0,
+                        "deform_sample": 0}
     cos = float(torch.nn.functional.cosine_similarity(
         y_gpu.flatten(), y_cpu.flatten(), dim=0))
     assert cos >= 0.9999, cos
+
+
+def _deform_inputs(rng, h, w, c, g, rb, dev, center_std=6.0):
+    """x, offsets = center + U(-rb, rb) and mask, NCHW on ``dev``; centers
+    of std 6 put windows across every border."""
+    x = rng.standard_normal((1, c, h, w)).astype(np.float32)
+    center = rng.normal(0.0, center_std, (1, 1, 1, 2, h, w))
+    resid = rng.uniform(-rb, rb, (1, g, 9, 2, h, w))
+    offset = (center + resid).astype(np.float32).reshape(1, 18 * g, h, w)
+    mask = rng.random((1, 9 * g, h, w)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (x, offset, mask)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,w,c,g,rb", [
+    (19, 27, 32, 4, 2.5), (14, 15, 48, 3, 5.0), (30, 54, 256, 16, 5.0),
+    (60, 108, 128, 16, 3.0)])
+def test_deform_sample_kernel_matches_plain(h, w, c, g, rb, dtype):
+    """W not a multiple of 8, H*W*9*C not a multiple of the 256-thread
+    block (the first two shapes), RFC's and the flow-guided shape."""
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    x, offset, mask = _deform_inputs(np.random.default_rng(h * w), h, w, c,
+                                     g, rb, dev)
+    x = x.to(dt)
+    reset_launch_counts()
+    got = deform_sample(x, offset, mask, g, rb)
+    assert LAUNCHES["deform_sample"] == 1
+    ref = deform_sample_reference(x, offset, mask, g)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (h * w, 9, c) and got.dtype == dt
+    if dt == torch.bfloat16:
+        assert float(bf16_ulp_error(got, ref).max()) <= 1
+    else:
+        err = float((got - ref).abs().max())
+        assert err <= 1e-5 * float(x.abs().max()), err
+
+
+def test_deform_conv2d_routes_agree_on_cuda():
+    """The contract route (K5, one launch) and the general route (no
+    center) give the same deformable conv."""
+    dev = _cuda()
+    x, offset, mask = _deform_inputs(np.random.default_rng(7), 30, 54, 64,
+                                     16, 5.0, dev)
+    wgt = torch.randn(32, 64, 3, 3, device=dev) * 0.05
+    bias = torch.randn(32, device=dev)
+    center = torch.zeros(1, 2, 30, 54, device=dev)
+    reset_launch_counts()
+    got = deform_conv2d(x, offset, mask, wgt, bias, deform_groups=16,
+                        center=center, residue_bound=5.0)
+    assert LAUNCHES["deform_sample"] == 1
+    ref = deform_conv2d(x, offset, mask, wgt, bias, deform_groups=16)
+    torch.cuda.synchronize()
+    assert LAUNCHES["deform_sample"] == 1
+    err = float((got - ref).abs().max())
+    assert err <= 1e-5 * float(ref.abs().max()), err
+
+
+def test_deform_sample_refuses_calls_outside_the_contract():
+    dev = _cuda()
+    x, offset, mask = _deform_inputs(np.random.default_rng(8), 12, 16, 32,
+                                     4, 2.0, dev)
+    with pytest.raises(ValueError, match="P = 14"):      # H < P at rb 5
+        deform_sample(x, offset, mask, 4, 5.0)
+    with pytest.raises(ValueError, match=r"\(1, C, H, W\)"):  # batch 2
+        deform_sample(torch.cat([x, x]), offset, mask, 4, 2.0)
+    with pytest.raises(ValueError, match="do not match"):
+        deform_sample(x, offset[:, :36], mask, 4, 2.0)
+    with pytest.raises(ValueError, match="C % G"):
+        deform_sample(x, offset, mask, 5, 2.0)
+    with pytest.raises(ValueError, match="several devices"):
+        deform_sample(x, offset.cpu(), mask, 4, 2.0)
