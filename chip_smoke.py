@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke test of pytorchcv_tpu_torch: int8 ResNet-50 classification,
-int8 DANet (ResNet-D50b) Cityscapes segmentation serving and ProPainter
-recurrent flow completion (RFC) streaming, on the port's hand-written CUDA
-kernels.
+int8 DANet (ResNet-D50b) Cityscapes segmentation serving, ProPainter
+recurrent flow completion (RFC) streaming and bf16 EfficientNet-B0
+classification, on the port's hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -63,7 +63,27 @@ use (one nvcc per source, in parallel). Phases, each ending in
 11. RFC timing with CUDA events: completed-flow frames/s over the clip and
    per window, K5 a call beside its plain version and ``F.grid_sample``
    times the mask, and one RFC call split into its 3-D and 2-D convs and
-   K5.
+   K5;
+12. K6 (depthwise conv + folded BN + activation) against its plain
+   version on the calls of phase 13's run (every depthwise call of one
+   batch-32 ``efficientnet_b0`` bf16 serving batch), in bf16 as run and
+   again in f32, on the calls with asymmetric pads of an
+   ``efficientnet_b0b`` forward (TF-SAME), and at one shape with each of
+   the 7 activations and with k = 7: f32 bit-exact for the
+   piecewise-linear activations and within 1e-6 of max |plain| for
+   sigmoid and swish, bf16 within 1 bf16 ulp; K1 on the path within 1 bf16
+   ulp;
+13. the EfficientNet slice: ``make_serving_fn("efficientnet_b0", (256,
+   256), device="cuda")`` in mode auto (the bf16 route) on seed-0 weights,
+   BN randomized from seed 1; one batch of 32, recorded for phase 12, with
+   launch counts K1 = 1, K6 = 16 and no other kernel, finite (32, 1000)
+   bf16 logits, cosine >= 0.99 against the f32 reference forward (no
+   TF32, depthwise blocks unfused: K6 0), top-1 agreement printed;
+14. EfficientNet timing at batch 128: serving images/s, K6 per forward and
+   per call beside its plain version, cuDNN's depthwise conv with the
+   affine and swish in bf16 and its bound, K1, cuDNN's other convs, the
+   SE blocks and the BN fold replayed alone, and the device's busy time
+   and idle share (``torch.profiler``).
 
 Any failure raises. The last lines are the card, the kernels' JSON record
 (one entry per kernel and path) and ``{"ok": true, "device": {...}}``.
@@ -90,7 +110,7 @@ SEG_SOURCE_HW = (1024, 2048)   # native Cityscapes frames
 SEG_BATCH_CHECK = 2
 SEG_BATCH_TIME = 8
 SEG_LAUNCHES = {"preprocess": 1, "stem": 1, "maxpool_i8": 1, "int8_conv": 54,
-                "flash_attention": 1, "deform_sample": 0}
+                "flash_attention": 1, "deform_sample": 0, "dwconv": 0}
 ATTN_F32_RTOL = 1e-4           # K4 f32: max |err| / max |plain|
 
 RFC_HW = (240, 432)            # ProPainter's default input
@@ -101,6 +121,13 @@ RFC_F32_TOL = 1e-5             # K5 f32: max |err| / max |x|
 RFC_E2E_TOL = 1e-3             # completed flows: max |delta| / max |flow|
 RFC_SHORT = 3                  # flows of the card-vs-CPU check
 RFC_CPU_TOL = 1e-4             # its max |delta| / max |flow|
+
+EFF_NAME = "efficientnet_b0"
+EFF_TF_NAME = "efficientnet_b0b"   # TF-SAME: asymmetric depthwise pads
+EFF_LAUNCHES = {"preprocess": 1, "stem": 0, "maxpool_i8": 0, "int8_conv": 0,
+                "flash_attention": 0, "deform_sample": 0, "dwconv": 16}
+DW_EXACT_ACTS = ("none", "relu", "relu6", "hswish", "hsigmoid")
+DW_F32_RTOL = 1e-6             # K6 f32 sigmoid/swish: max |err| / max |plain|
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): HBM bytes/s and
 # operations/s by operand type.
@@ -436,7 +463,7 @@ def _resnet(card, record) -> None:
     print(f"resnet50 launches in one forward: {launches}")
     _require(launches == {"preprocess": 1, "stem": 1, "int8_conv": 52,
                           "maxpool_i8": 1, "flash_attention": 0,
-                          "deform_sample": 0}, launches)
+                          "deform_sample": 0, "dwconv": 0}, launches)
     _require(tuple(logits.shape) == (BATCH_CHECK, 1000), logits.shape)
     y = logits.float()
     _require(bool(torch.isfinite(y).all()), "non-finite logits")
@@ -775,7 +802,8 @@ def _work_deform(a, out):
 
 def _device_kernels(fn, reps: int):
     """Device time a call of every kernel ``fn`` launches, by name (ms),
-    from ``torch.profiler``'s CUDA activity after one warm-up call; empty
+    and the number of device operations (kernels, copies) a call, from
+    ``torch.profiler``'s CUDA activity after one warm-up call; empty and 0
     when the profiler sees no device activity."""
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -785,10 +813,11 @@ def _device_kernels(fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / reps
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0}
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    return ({e.key: e.self_device_time_total / 1e3 / reps for e in events},
+            sum(e.count for e in events) / reps)
 
 
 def _rfc(card, record) -> None:
@@ -949,9 +978,9 @@ def _rfc(card, record) -> None:
         # device time (profiler): K5's kernel alone, and every kernel of
         # one RFC call against its wall time
         k5_dev = [v for n_, v in _device_kernels(
-            lambda: deform_sample(*a, **k), 20).items()
+            lambda: deform_sample(*a, **k), 20)[0].items()
             if "deform_sample" in n_]
-        call_dev = _device_kernels(lambda: model(f1, m1), 1)
+        call_dev = _device_kernels(lambda: model(f1, m1), 1)[0]
     n_k5 = per_window[0] // 2
     print(f"[{card}] rfc K5 at x {tuple(x.shape)} G {groups}: wrapper "
           f"{ms:.4f} ms a call (CUDA events, back to back; the kernel alone "
@@ -985,6 +1014,236 @@ def _rfc(card, record) -> None:
         launches["deform_sample"], max(errs), ms, plain, bound, lib))
 
 
+def _dw_key(a):
+    x, w = a[0], a[1]
+    return (tuple(x.shape), w.shape[-1], a[4], a[5], a[6], str(x.dtype)[6:])
+
+
+def _check_dwconv(a, out, what) -> float:
+    """K6 against its plain version: f32 bit-exact for the piecewise-linear
+    activations and within DW_F32_RTOL of max |plain| for sigmoid and
+    swish (``expf``'s ulps); bf16 within 1 bf16 ulp (``bf16_ulp_error``).
+    Returns the max abs error."""
+    from pytorchcv_tpu_torch.kernels.dwconv import dwconv2d_bn_act_reference
+    from pytorchcv_tpu_torch.kernels.preprocess import bf16_ulp_error
+    x, w, _, _, stride, pad, act = a
+    ref = dwconv2d_bn_act_reference(*a)
+    err = float((out.float() - ref.float()).abs().max())
+    head = (f"K6 {what} {str(x.dtype)[6:]} x {tuple(x.shape)} k "
+            f"{w.shape[-1]} s {stride} pad {pad} {act}")
+    if x.dtype == torch.bfloat16:
+        ulp = float(bf16_ulp_error(out, ref).max())
+        print(f"{head}: max {ulp} bf16 ulp (scaled), max abs err {err}")
+        _require(ulp <= 1, f"{head} differs by {ulp} bf16 ulp")
+    elif act in DW_EXACT_ACTS:
+        print(f"{head}: {'bit-exact' if torch.equal(out, ref) else 'DIFFERS'}")
+        _require(torch.equal(out, ref), f"{head} not bit-exact")
+    else:
+        rel = err / float(ref.abs().max())
+        print(f"{head}: max abs err {err}, {rel:.3e} of max |plain|")
+        _require(rel <= DW_F32_RTOL, f"{head}: {rel} of max |plain|")
+    return err
+
+
+def _work_dwconv(calls):
+    """Bytes: x, w, scale, shift read once and the output written once.
+    Operations: 2 k*k f32 a output element (the taps), 2 for the affine
+    and 4 for swish (exp, add, divide, multiply)."""
+    nbytes = ops = 0
+    for a, k, out in calls:
+        nbytes += _nbytes(*a[:4], out)
+        ops += out.numel() * (2 * a[1].shape[-1] ** 2 + 2 + 4)
+    return _bound(nbytes, ops, "f32")
+
+
+@contextlib.contextmanager
+def _module_calls(types):
+    """(module, input) of every call of a module of ``types``, through a
+    global forward pre-hook."""
+    seen = []
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda m, a: seen.append((m, a[0])) if isinstance(m, types) else None)
+    try:
+        yield seen
+    finally:
+        handle.remove()
+
+
+def _effnet(card, record) -> None:
+    import pytorchcv_tpu_torch as pt
+    import pytorchcv_tpu_torch.kernels.preprocess as pre_mod
+    import pytorchcv_tpu_torch.nn.conv as conv_mod
+    import torch.nn.functional as F
+    from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from pytorchcv_tpu_torch.kernels.dwconv import (dwconv2d_bn_act,
+                                                    dwconv2d_bn_act_reference)
+    from pytorchcv_tpu_torch.nn import SEBlock, fold_batchnorm
+    from pytorchcv_tpu_torch.serve import as_bfloat16
+    targets = [(pre_mod, "preprocess", "preprocess"),
+               (conv_mod, "dwconv2d_bn_act", "dwconv")]
+
+    # -- 12. K6 vs its plain version, on the calls of the slice's run (13)
+    model = pt.get_model(EFF_NAME, rng=0, device="cuda")
+    _randomize_bn(model, seed=1)
+    serve = pt.make_serving_fn(EFF_NAME, SOURCE_HW, device="cuda",
+                               model=model)
+    _require(serve.route == "bf16", f"{EFF_NAME} route {serve.route}")
+    raw = _raw_batch(BATCH_CHECK, seed=2)
+    reset_launch_counts()
+    with _recording(targets) as calls:
+        logits = serve(raw)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    # TF-SAME's asymmetric pads come from a B0b forward of its own
+    tf_model = pt.get_model(EFF_TF_NAME, rng=0, device="cuda")
+    _randomize_bn(tf_model, seed=1)
+    tf_bf = as_bfloat16(tf_model)
+    g = torch.Generator().manual_seed(5)
+    with _recording(targets[1:]) as tf_calls, torch.inference_mode():
+        tf_bf(torch.randn((BATCH_CHECK, 3, 224, 224), generator=g)
+              .to(torch.bfloat16).cuda())
+    torch.cuda.synchronize()
+    del tf_bf, tf_model
+    tf_asym = [c for c in tf_calls["dwconv"]
+               if any(lo != hi for lo, hi in c[0][5])]
+    max_err = {}
+    errs = []
+    with torch.inference_mode():
+        _check_preprocess(calls["preprocess"], max_err, EFF_NAME)
+        seen = {}
+        for tag, cs in ((EFF_NAME, calls["dwconv"]), (EFF_TF_NAME, tf_asym)):
+            for a, _, out in cs:
+                seen.setdefault(_dw_key(a), (tag, a, out))
+        for key, (tag, a, out) in sorted(seen.items()):
+            errs.append(_check_dwconv(a, out, tag))
+            a32 = (a[0].float(), a[1].float(), *a[2:])
+            errs.append(_check_dwconv(a32, dwconv2d_bn_act(*a32), tag))
+        print(f"K6: {len(seen)} distinct calls: the {len(calls['dwconv'])} "
+              f"of the slice's batch-{BATCH_CHECK} run ({EFF_NAME}) and "
+              f"{len(tf_asym)} with asymmetric pads ({EFF_TF_NAME}), in bf16 "
+              f"as run and again in f32")
+        x, w, scale, shift, _, pad, _ = calls["dwconv"][0][0]
+        for act in ("none", "relu", "relu6", "hswish", "hsigmoid", "swish",
+                    "sigmoid"):
+            for dt in (torch.bfloat16, torch.float32):
+                a = (x.to(dt), w.to(dt), scale, shift, 1, pad, act)
+                errs.append(_check_dwconv(a, dwconv2d_bn_act(*a),
+                                          "activation"))
+        c = x.shape[1]
+        w7 = (torch.randn((c, 1, 7, 7), generator=g) * 0.1).cuda()
+        for stride in (1, 2):
+            for dt in (torch.bfloat16, torch.float32):
+                a = (x.to(dt), w7.to(dt), scale, shift, stride,
+                     ((3, 3), (3, 3)), "swish")
+                errs.append(_check_dwconv(a, dwconv2d_bn_act(*a), "k=7"))
+    max_err["dwconv"] = max(errs)
+    del calls, tf_calls, tf_asym, seen
+    torch.cuda.synchronize()
+
+    # -- 13. the slice: the run above, its launch counts and its logits
+    print(f"{EFF_NAME} launches in one forward: {launches}")
+    _require(launches == EFF_LAUNCHES, launches)
+    _require(tuple(logits.shape) == (BATCH_CHECK, 1000) and
+             logits.dtype == torch.bfloat16, (logits.shape, logits.dtype))
+    y = logits.float()
+    _require(bool(torch.isfinite(y).all()), "non-finite logits")
+    reset_launch_counts()
+    yf = serve.make_reference_forward()(raw).float()
+    torch.cuda.synchronize()
+    _require(LAUNCHES["dwconv"] == 0, f"the f32 oracle ran K6 "
+             f"{LAUNCHES['dwconv']} times")
+    cos = float((y * yf).sum() / (y.norm() * yf.norm()))
+    top1 = float((y.argmax(1) == yf.argmax(1)).float().mean())
+    print(f"{EFF_NAME} bf16 vs f32 reference (depthwise blocks unfused, no "
+          f"K6): cosine {cos:.6f}, top-1 agreement {top1}")
+    _require(cos >= 0.99, f"{EFF_NAME} cosine {cos} < 0.99")
+
+    # -- 14. timing at batch 128
+    raw128 = _raw_batch(BATCH_TIME, seed=3)
+    with torch.inference_mode():
+        ms_serve = _cuda_ms(lambda: serve(raw128), reps=10, warmup=3)
+        print(f"[{card}] serving {EFF_NAME} bf16 batch {BATCH_TIME}: "
+              f"{ms_serve:.3f} ms/batch, "
+              f"{BATCH_TIME * 1000.0 / ms_serve:.1f} img/s")
+        with _recording(targets) as calls128, _module_calls(
+                (torch.nn.Conv2d, SEBlock, conv_mod.ConvBlock)) as mods:
+            serve(raw128)
+        torch.cuda.synchronize()
+        dws = [(a, k) for a, k, _ in calls128["dwconv"]]
+        dw_bound = _work_dwconv(calls128["dwconv"])
+        (pa, pk, _), = calls128["preprocess"]
+        se = [(m, x) for m, x in mods if isinstance(m, SEBlock)]
+        se_convs = {id(c_) for m, _ in se for c_ in (m.conv1, m.conv2)}
+        convs = [(m, x) for m, x in mods if isinstance(m, torch.nn.Conv2d)
+                 and id(m) not in se_convs]
+        bns = [m.bn for m, _ in mods
+               if isinstance(m, conv_mod.ConvBlock) and m.fused_dw]
+        del mods
+
+        def library_dw():
+            for (x, w, scale, shift, stride, pad, act), _ in dws:
+                s_, b_ = (v.to(x.dtype).view(1, -1, 1, 1)
+                          for v in (scale, shift))
+                yl = F.conv2d(x, w, None, stride, (pad[0][0], pad[1][0]), 1,
+                              x.shape[1]) * s_ + b_
+                yl * torch.sigmoid(yl)
+
+        ms_dw = _cuda_ms(lambda: [dwconv2d_bn_act(*a, **k) for a, k in dws],
+                         20)
+        per_call = [(a, _cuda_ms(lambda: dwconv2d_bn_act(*a, **k), 20),
+                     _work_dwconv([(a, k, out)])[0])
+                    for a, k, out in calls128["dwconv"]]
+        plain_dw = _cuda_ms(lambda: [dwconv2d_bn_act_reference(*a, **k)
+                                     for a, k in dws], 3, warmup=1)
+        lib_dw = _cuda_ms(library_dw, 20)
+        ms_pre = _cuda_ms(lambda: pre_mod.preprocess(*pa, **pk), 20)
+        ms_conv = _cuda_ms(lambda: [m(x) for m, x in convs], 10)
+        ms_se = _cuda_ms(lambda: [m(x) for m, x in se], 10)
+        ms_fold = _cuda_ms(lambda: [fold_batchnorm(b) for b in bns], 20)
+        dev, n_ops = _device_kernels(lambda: serve(raw128), 1)
+        k6_dev = sum(v for n_, v in dev.items() if "dwconv_kernel" in n_)
+        n_conv, n_se, n_fold = len(convs), len(se), len(bns)
+        del dws, convs, se, bns, calls128
+    print(f"[{card}] {EFF_NAME} K6 batch {BATCH_TIME} ({launches['dwconv']} "
+          f"calls of one forward): kernel {ms_dw:.4f} ms "
+          f"({ms_dw / launches['dwconv']:.4f} ms a call; on the device "
+          f"{f'{k6_dev:.4f} ms' if k6_dev else 'not measured'}, profiler), "
+          f"plain {plain_dw:.4f} ms, library (cuDNN depthwise conv, affine, "
+          f"swish in bf16) {lib_dw:.4f} ms, bound {dw_bound[0]:.4f} ms "
+          f"({dw_bound[1]}), share of the batch "
+          f"{100.0 * ms_dw / ms_serve:.1f} %")
+    for i, (a, ms, bound_ms) in enumerate(per_call):
+        print(f"[{card}] {EFF_NAME} K6 call {i + 1} x {tuple(a[0].shape)} k "
+              f"{a[1].shape[-1]} s {a[4]}: {ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({ms / bound_ms:.1f}x)")
+    rest = ms_serve - ms_dw - ms_pre - ms_conv - ms_se - ms_fold
+    print(f"[{card}] {EFF_NAME} batch {BATCH_TIME}, replayed alone: K1 "
+          f"{ms_pre:.4f} ms ({100.0 * ms_pre / ms_serve:.1f} %), cuDNN bf16 "
+          f"convs ({n_conv}) {ms_conv:.4f} ms "
+          f"({100.0 * ms_conv / ms_serve:.1f} %), SE blocks ({n_se}) "
+          f"{ms_se:.4f} ms ({100.0 * ms_se / ms_serve:.1f} %), BN fold "
+          f"({n_fold}) {ms_fold:.4f} ms ({100.0 * ms_fold / ms_serve:.2f} %"
+          f"{', above 2 %' if ms_fold > 0.02 * ms_serve else ''}); the rest "
+          f"(BN and swish of the other blocks, residual adds, pooling, fc, "
+          f"host gaps) {rest:.4f} ms")
+    if dev:
+        busy = sum(dev.values())
+        top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+        print(f"[{card}] {EFF_NAME} one batch on the device (profiler): "
+              f"kernels busy {busy:.3f} ms of {ms_serve:.3f} ms, idle share "
+              f"{100.0 * (1 - busy / ms_serve):.1f} %, {n_ops:.0f} device "
+              f"operations ({1e3 * ms_serve / n_ops:.1f} us of the batch "
+              f"each); largest: " +
+              "; ".join(f"{n_[:60]} {v:.3f} ms" for n_, v in top))
+    else:
+        print(f"[{card}] {EFF_NAME} device busy and idle share: not measured "
+              f"(the profiler saw no device activity)")
+    record.append(_record_entry(
+        "dwconv", EFF_NAME, "dwconv.cu", "pytorchcv_tpu/kernels/dwconv.py:124",
+        launches["dwconv"], max_err["dwconv"], ms_dw, plain_dw, dw_bound,
+        lib_dw))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is False; "
@@ -1016,6 +1275,9 @@ def main() -> None:
     t0 = time.perf_counter()
     _rfc(card, record)
     print(f"rfc phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _effnet(card, record)
+    print(f"{EFF_NAME} phases: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": record}))

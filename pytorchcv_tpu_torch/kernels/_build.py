@@ -31,7 +31,7 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # kernel (never on its CPU path).
 LAUNCHES: Dict[str, int] = {"preprocess": 0, "int8_conv": 0, "stem": 0,
                             "maxpool_i8": 0, "flash_attention": 0,
-                            "deform_sample": 0}
+                            "deform_sample": 0, "dwconv": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -44,6 +44,7 @@ _SIGNATURES = {
     "pcv_maxpool_i8": [_P, _P] + [_I] * 6 + [_P],
     "pcv_flash_attention": [_P, _P, _P, _P] + [_I] * 5 + [_F, _I, _P],
     "pcv_deform_sample": [_P, _P, _P, _P] + [_I] * 5 + [_P],
+    "pcv_dwconv": [_P] * 5 + [_I] * 12 + [_P],
 }
 
 

@@ -6,9 +6,11 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Union
 
+import torch
 from torch import nn
 
-__all__ = ["lambda_leakyrelu", "create_activation"]
+__all__ = ["Swish", "lambda_leakyrelu", "lambda_swish", "lambda_sigmoid",
+           "create_activation"]
 
 Activation = Union[bool, None, Callable[[], nn.Module]]
 
@@ -16,6 +18,24 @@ Activation = Union[bool, None, Callable[[], nn.Module]]
 def lambda_leakyrelu(negative_slope: float = 1e-2) -> Callable[[], nn.Module]:
     """Factory of ``nn.LeakyReLU(negative_slope)`` (JAX ``nn/activ.py:76``)."""
     return lambda: nn.LeakyReLU(negative_slope, inplace=True)
+
+
+class Swish(nn.Module):
+    """``x * sigmoid(x)``, two rounded operations as in the JAX package
+    (``nn/activ.py:25``); ``nn.SiLU`` rounds once in bf16."""
+
+    def forward(self, x):
+        return x * torch.sigmoid(x)
+
+
+def lambda_swish() -> Callable[[], nn.Module]:
+    """Factory of :class:`Swish` (JAX ``nn/activ.py``)."""
+    return Swish
+
+
+def lambda_sigmoid() -> Callable[[], nn.Module]:
+    """Factory of ``nn.Sigmoid`` (JAX ``nn/activ.py``)."""
+    return nn.Sigmoid
 
 
 def create_activation(activation: Activation) -> Optional[nn.Module]:

@@ -4,42 +4,111 @@ match the released checkpoints and the JAX package's parameter tree."""
 
 from __future__ import annotations
 
+import contextlib
+from typing import Callable, Iterator, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
 from torch import nn
 
-from .activ import Activation, create_activation
+from ..kernels.dwconv import dwconv2d_bn_act
+from .activ import Activation, Swish, create_activation
+from .norm import BN_EPS, fold_batchnorm
 
 __all__ = ["ConvBlock", "conv1x1", "conv1x1_block", "conv3x3_block",
-           "conv7x7_block"]
+           "conv7x7_block", "dwconv_block", "dwconv3x3_block",
+           "dwconv5x5_block", "unfused_depthwise"]
 
-BN_EPS = 1e-5
+Normalization = Union[bool, Callable[[int], nn.Module]]
+Pad = Tuple[Tuple[int, int], Tuple[int, int]]
+
+# K6's name for each activation module whose arithmetic it repeats.
+_K6_ACTS = {Swish: "swish"}
 
 
 class ConvBlock(nn.Module):
-    """conv + optional BatchNorm2d(eps=1e-5) + optional activation (NCHW).
-    The padding is the caller's, as in the reference (a dilated 3x3 passes
+    """conv + optional BatchNorm2d + optional activation (NCHW). The
+    padding is the caller's, as in the reference (a dilated 3x3 passes
     ``padding=dilation``). ``activation``: ``True`` ReLU, ``False``/``None``
-    none, or a factory (``nn.activ.lambda_leakyrelu(0.1)``); without
-    ``normalization`` there is no ``bn`` child (ProPainter's blocks)."""
+    none, or a factory (``nn.activ.lambda_leakyrelu(0.1)``).
+    ``normalization``: ``True`` BatchNorm2d(eps=1e-5), a factory of
+    channels (``nn.norm.lambda_batchnorm2d(1e-3)``), or ``False``: no
+    ``bn`` child (ProPainter's blocks).
+
+    A depthwise block (``groups == in == out`` channels, k in (3, 5, 7),
+    stride 1 or 2, no dilation, no bias) with BN and swish runs in eval
+    mode as one K6 launch (``kernels.dwconv``), BN folded on every call.
+    It runs conv, BN and activation unfused in training mode, whenever
+    autograd records the forward (K6 has no backward yet), and inside
+    :func:`unfused_depthwise`. K6 takes the weight in x's dtype, so under
+    ``torch.autocast`` an f32 model's eval forward raises."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
-                 bias: bool = False, normalization: bool = True,
+                 groups: int = 1, bias: bool = False,
+                 normalization: Normalization = True,
                  activation: Activation = True):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
                               stride=stride, padding=padding,
-                              dilation=dilation, bias=bias)
-        self.bn = nn.BatchNorm2d(out_channels, eps=BN_EPS) \
-            if normalization else None
+                              dilation=dilation, groups=groups, bias=bias)
+        if normalization is True:
+            self.bn = nn.BatchNorm2d(out_channels, eps=BN_EPS)
+        else:
+            self.bn = normalization(out_channels) if normalization else None
         self.activ = create_activation(activation)
+        self.fused_dw = (groups == in_channels == out_channels
+                         and kernel_size in (3, 5, 7)
+                         and stride in (1, 2) and dilation == 1 and not bias
+                         and isinstance(self.bn, nn.BatchNorm2d)
+                         and type(self.activ) in _K6_ACTS)
 
-    def forward(self, x):
+    def forward(self, x, pad: Optional[Pad] = None):
+        """``pad``: ((top, bottom), (left, right)) zeros for this call, for
+        a block built with padding 0 (TF-SAME, whose pad follows the
+        input's size)."""
+        if self.fused_dw and not self.training and not self._records(x):
+            return self._dwconv(x, pad)
+        if pad is not None:
+            (top, bottom), (left, right) = pad
+            x = F.pad(x, (left, right, top, bottom))
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
         if self.activ is not None:
             x = self.activ(x)
         return x
+
+    def _records(self, x) -> bool:
+        """Whether autograd records this forward."""
+        return torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, self.conv.weight, self.bn.weight, self.bn.bias))
+
+    def _dwconv(self, x, pad: Optional[Pad]):
+        if pad is None:
+            ph, pw = self.conv.padding
+            pad = ((ph, ph), (pw, pw))
+        scale, shift = fold_batchnorm(self.bn)
+        return dwconv2d_bn_act(x.contiguous(), self.conv.weight, scale, shift,
+                               self.conv.stride[0], pad,
+                               _K6_ACTS[type(self.activ)])
+
+
+@contextlib.contextmanager
+def unfused_depthwise(model: nn.Module) -> Iterator[nn.Module]:
+    """Inside the block, ``model``'s depthwise blocks run conv, BN and
+    activation unfused in eval mode too: a forward with no K6 in it (the
+    f32 oracle of the serving routes)."""
+    blocks = [m for m in model.modules()
+              if isinstance(m, ConvBlock) and m.fused_dw]
+    for m in blocks:
+        m.fused_dw = False
+    try:
+        yield model
+    finally:
+        for m in blocks:
+            m.fused_dw = True
 
 
 def conv1x1(in_channels: int, out_channels: int,
@@ -66,3 +135,22 @@ def conv7x7_block(in_channels: int, out_channels: int, stride: int = 1,
                   **kwargs) -> ConvBlock:
     return ConvBlock(in_channels, out_channels, 7, stride=stride, padding=3,
                      **kwargs)
+
+
+def dwconv_block(in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 1, **kwargs) -> ConvBlock:
+    """Depthwise ConvBlock (JAX ``nn/conv.py:167``)."""
+    return ConvBlock(in_channels, out_channels, kernel_size, stride=stride,
+                     padding=padding, groups=out_channels, **kwargs)
+
+
+def dwconv3x3_block(in_channels: int, out_channels: int, stride: int = 1,
+                    padding: int = 1, **kwargs) -> ConvBlock:
+    return dwconv_block(in_channels, out_channels, 3, stride=stride,
+                        padding=padding, **kwargs)
+
+
+def dwconv5x5_block(in_channels: int, out_channels: int, stride: int = 1,
+                    padding: int = 2, **kwargs) -> ConvBlock:
+    return dwconv_block(in_channels, out_channels, 5, stride=stride,
+                        padding=padding, **kwargs)

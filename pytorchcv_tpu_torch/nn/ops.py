@@ -1,4 +1,4 @@
-"""Resampling and the hourglass's cut (counterparts in
+"""Resampling, pooling and the hourglass's cut (counterparts in
 ``pytorchcv_tpu.nn.ops``)."""
 
 from __future__ import annotations
@@ -8,7 +8,8 @@ from typing import Tuple
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["interpolate", "BreakBlock", "InterpolationBlock"]
+__all__ = ["interpolate", "BreakBlock", "InterpolationBlock",
+           "global_avg_pool2d"]
 
 
 def interpolate(x, size: Tuple[int, int]):
@@ -39,3 +40,13 @@ class InterpolationBlock(nn.Module):
     def forward(self, x):
         h, w = x.shape[2:]
         return interpolate(x, (h * self.scale_factor, w * self.scale_factor))
+
+
+class _GlobalAvgPool2d(nn.Module):
+    def forward(self, x):
+        return x.mean((2, 3))
+
+
+def global_avg_pool2d() -> nn.Module:
+    """Mean over H and W: (B, C, H, W) -> (B, C) (JAX ``nn/ops.py:355``)."""
+    return _GlobalAvgPool2d()

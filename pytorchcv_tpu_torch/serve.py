@@ -7,7 +7,9 @@
                             task="segmentation")
     maps = serve(batch_u8)          # -> 3 x (B, 19, 480, 480) bf16 (aux)
 
-Two routes of the JAX package's ``make_serving_fn``, both on the card by
+    serve = make_serving_fn("efficientnet_b0", (256, 256))   # bf16 route
+
+Three routes of the JAX package's ``make_serving_fn``, all on the card by
 default:
 
 * ``resnet`` (classification): the eval preprocess (kernel K1, planar bf16
@@ -16,7 +18,11 @@ default:
 * ``seg_backbone`` (segmentation): the resize-only preprocess (K1),
   calibration over the whole f32 model, the int8 dilated backbone (K3,
   ``maxpool_i8``, K2) and the model's own head on a bf16 copy, fed through
-  ``from_features=True`` (DANet's position attention on K4).
+  ``from_features=True`` (DANet's position attention on K4);
+* bf16 (classification): the eval preprocess (K1, planar bf16 out) and a
+  bf16 copy of the model (``as_bfloat16``), for ``mode="bf16"`` and for a
+  family that declares no int8 route in ``mode="auto"`` (EfficientNet,
+  whose depthwise blocks run K6).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from .kernels.preprocess import (classification_preprocess,
                                  segmentation_preprocess)
 from .model_provider import get_model, resolve_device
 from .models.registry import get_constructor
+from .nn.conv import unfused_depthwise
 from .quant import (calibrate_int8, is_seg_resnetd_backbone,
                     prepare_int8_resnet, prepare_int8_seg_backbone)
 
@@ -118,24 +125,36 @@ def make_serving_fn(model_name: str, source_hw: Tuple[int, int],
     """Build a ``uint8 (B, H, W, 3) -> prediction`` closure on ``device``
     (default: the CUDA card; ``"cpu"`` must be asked for).
 
-    ``task="classification"`` (a ResNet): bf16 logits (B, classes).
+    ``task="classification"``: bf16 logits (B, classes).
     ``task="segmentation"`` (DANet): bf16 class maps (B, classes, H, W) at
     the model's ``in_size``, three of them with ``aux``.
-    ``mode``: 'auto' and 'int8' both serve the int8 pipeline (the measured
-    choice for both routes); other modes, families and tasks are not yet
-    ported. ``calib_batches``: preprocessed NCHW f32 batches for
-    calibration. ``model``: a built module on ``device`` to serve instead of
-    a fresh ``get_model(model_name, device=device, **model_kwargs)``. The
-    closure carries ``make_reference_forward()``, the f32 oracle: f32
-    preprocess and the unquantized model, without TF32; and ``head``, the
-    bf16 copy of the model that runs the segmentation head (None for
-    classification)."""
+    ``mode``: 'auto' serves the family's declared int8 pipeline (the
+    measured choice), or bf16 where the family declares none in auto;
+    'int8' forces the int8 pipeline; 'bf16' forces bf16 (classification
+    only). Pipelines, families and tasks not yet ported raise
+    ``NotImplementedError``. ``calib_batches``: preprocessed NCHW f32
+    batches for calibration. ``model``: a built module on ``device`` to
+    serve instead of a fresh ``get_model(model_name, device=device,
+    **model_kwargs)``. The closure carries ``route`` ("bf16" or the int8
+    pipeline's name); ``make_reference_forward()``, the f32 oracle: f32
+    preprocess and the unquantized f32 model, without TF32 and with its
+    depthwise blocks unfused (no K6 in it); and ``head``,
+    the bf16 copy of the model that runs the segmentation head (None
+    otherwise)."""
     if task not in _TASK_ROUTES:
         raise NotImplementedError(f"task {task!r} is not yet ported")
-    if mode not in ("auto", "int8"):
+    if mode not in ("auto", "int8", "bf16"):
         raise NotImplementedError(f"mode {mode!r} is not yet ported")
-    route = declared_int8_route(model_name, mode)
-    if route != _TASK_ROUTES[task]:
+    route = None if mode == "bf16" else declared_int8_route(model_name, mode)
+    if route is None:
+        if mode == "int8":
+            raise NotImplementedError(
+                f"{model_name!r}: no int8 pipeline is declared; the generic "
+                f"int8 interception is not yet ported")
+        if task != "classification":
+            raise NotImplementedError(
+                f"task {task!r} in bf16 is not yet ported")
+    elif route != _TASK_ROUTES[task]:
         raise NotImplementedError(
             f"{model_name!r}, task {task!r}: int8 route {route!r} is not "
             f"ported (ported: {_TASK_ROUTES[task]!r})")
@@ -164,34 +183,41 @@ def make_serving_fn(model_name: str, source_hw: Tuple[int, int],
                                            **kw)
 
     pre = make_pre()
-    scales = _calibrate(model, calib_batches, pre, source_hw, device)
-    if task == "classification":
-        infer, plan = prepare_int8_resnet(model, scales)
-        head = None
+    head = None
+    if route is None:
+        infer = as_bfloat16(model)
+    elif task == "classification":
+        scales = _calibrate(model, calib_batches, pre, source_hw, device)
+        run, plan = prepare_int8_resnet(model, scales)
+
+        def infer(x):
+            return run(plan, x)
     else:
+        scales = _calibrate(model, calib_batches, pre, source_hw, device)
         backbone, plan = prepare_int8_seg_backbone(
             model, scales, bend=getattr(model, "reads_bend", True))
         head = as_bfloat16(model)
         head.backbone = None
 
-        def infer(plan, x):
+        def infer(x):
             outs = backbone(plan, x)
             return head(tuple(None if o is None else o.permute(0, 3, 1, 2)
                               for o in outs), from_features=True)
 
     def pipeline(raw_u8):
         with torch.inference_mode():
-            return infer(plan, pre(_as_input(raw_u8, device)))
+            return infer(pre(_as_input(raw_u8, device)))
 
     def make_reference_forward() -> Callable:
         pre32 = make_pre(out_dtype=torch.float32)
 
         def reference(raw_u8):
-            with torch.inference_mode(), no_tf32():
+            with torch.inference_mode(), no_tf32(), unfused_depthwise(model):
                 return model(pre32(_as_input(raw_u8, device)))
 
         return reference
 
+    pipeline.route = "bf16" if route is None else route
     pipeline.make_reference_forward = make_reference_forward
     pipeline.head = head
     return pipeline

@@ -20,7 +20,9 @@ def test_import_leaves_jax_out():
     code = ("import sys, pytorchcv_tpu_torch, pytorchcv_tpu_torch.serve, "
             "pytorchcv_tpu_torch.nn.deform, pytorchcv_tpu_torch.streaming, "
             "pytorchcv_tpu_torch.models.propainter_rfc, "
-            "pytorchcv_tpu_torch.models.propainter_rfc_stream; "
+            "pytorchcv_tpu_torch.models.propainter_rfc_stream, "
+            "pytorchcv_tpu_torch.models.efficientnet, "
+            "pytorchcv_tpu_torch.kernels.dwconv; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'pytorchcv_tpu')]; "
             "assert not bad, bad")
@@ -28,23 +30,24 @@ def test_import_leaves_jax_out():
 
 
 def test_registry_holds_every_jax_resnet_name():
-    """Each ported family (resnet, resnetd, danet, propainter_rfc)
-    registers exactly the JAX package's names of that family, and nothing
-    else."""
+    """Each ported family (resnet, resnetd, danet, propainter_rfc,
+    efficientnet) registers exactly the JAX package's names of that family,
+    and nothing else."""
     def family(names, registry, fam):
         return {n for n in names if registry.get_constructor(
             n).__module__.rsplit(".", 1)[-1] == fam}
     port_names = set(pt.registered_models())
     from pytorchcv_tpu_torch.models import registry as port_registry
     counts = {}
-    for fam in ("resnet", "resnetd", "danet", "propainter_rfc"):
+    for fam in ("resnet", "resnetd", "danet", "propainter_rfc",
+                "efficientnet"):
         jax_names = family(jax_registry.registered_models(), jax_registry,
                            fam)
         assert family(port_names, port_registry, fam) == jax_names, fam
         counts[fam] = len(jax_names)
     assert counts == {"resnet": 21, "resnetd": 3, "danet": 2,
-                      "propainter_rfc": 1}
-    assert len(port_names) == 27
+                      "propainter_rfc": 1, "efficientnet": 26}
+    assert len(port_names) == 53
 
 
 def test_get_model_is_seeded_and_named():
@@ -78,7 +81,7 @@ def test_serving_end_to_end_matches_reference_forward():
         y.flatten(), ref.flatten(), dim=0))
     assert cos >= 0.995, cos
     with pytest.raises(NotImplementedError):
-        pt.make_serving_fn("resnet10", (74, 74), mode="bf16", device="cpu")
+        pt.make_serving_fn("resnet10", (74, 74), mode="fp16", device="cpu")
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

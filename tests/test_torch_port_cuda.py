@@ -2,9 +2,10 @@
 the serving paths do not give them: partial output tiles, reduction tails,
 odd image sizes, dilations on odd sizes, narrow models, the bf16 residual
 of a last unit with an identity conv, attention at sequence lengths and
-widths no tile divides, and the deformable sampler at widths that are not
+widths no tile divides, the deformable sampler at widths that are not
 multiples of 8, with windows across every border and element counts no
-block divides.
+block divides, and the depthwise conv (K6) at odd sizes, asymmetric pads,
+planes no block divides and every activation.
 
 Each test carries the ``cuda`` marker, needs a CUDA card and nvcc, and
 skips without a card. On a machine without JAX, run them without the
@@ -23,6 +24,8 @@ import pytorchcv_tpu_torch as pt
 from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
 from pytorchcv_tpu_torch.kernels.deform_patch import (deform_sample,
                                                       deform_sample_reference)
+from pytorchcv_tpu_torch.kernels.dwconv import (ACTIVATIONS, dwconv2d_bn_act,
+                                                dwconv2d_bn_act_reference)
 from pytorchcv_tpu_torch.kernels.flash_attention import (
     flash_attention, flash_attention_reference)
 from pytorchcv_tpu_torch.kernels.int8_conv import (int8_conv,
@@ -34,6 +37,7 @@ from pytorchcv_tpu_torch.kernels.stem import (maxpool_i8, maxpool_i8_reference,
                                               stem_conv, stem_conv_reference)
 from pytorchcv_tpu_torch.nn.deform import deform_conv2d
 from pytorchcv_tpu_torch.quant import calibrate_int8, prepare_int8_resnet
+from pytorchcv_tpu_torch.serve import as_bfloat16
 
 torch.set_num_threads(1)
 
@@ -198,7 +202,7 @@ def test_int8_pipeline_on_cuda_matches_cpu(name, kw, n_convs):
     y_gpu = infer(plan_gpu, pre_gpu(raw.to(dev))).float().cpu()
     assert LAUNCHES == {"preprocess": 1, "stem": 1, "int8_conv": n_convs,
                         "maxpool_i8": 1, "flash_attention": 0,
-                        "deform_sample": 0}
+                        "deform_sample": 0, "dwconv": 0}
     cos = float(torch.nn.functional.cosine_similarity(
         y_gpu.flatten(), y_cpu.flatten(), dim=0))
     assert cos >= 0.9999, cos
@@ -274,3 +278,85 @@ def test_deform_sample_refuses_calls_outside_the_contract():
         deform_sample(x, offset, mask, 5, 2.0)
     with pytest.raises(ValueError, match="several devices"):
         deform_sample(x, offset.cpu(), mask, 4, 2.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,stride,pad,shape", [
+    (3, 1, ((1, 1), (1, 1)), (3, 5, 13, 11)),
+    (3, 2, ((0, 1), (0, 1)), (2, 7, 28, 30)),
+    (5, 2, ((1, 2), (2, 1)), (2, 9, 15, 17)),
+    (5, 1, ((2, 2), (2, 2)), (1, 3, 130, 3)),
+    (7, 2, ((3, 3), (3, 3)), (2, 4, 23, 19)),
+    (7, 1, ((0, 0), (0, 0)), (1, 6, 9, 40))])
+def test_dwconv_kernel_matches_plain(k, stride, pad, shape, dtype):
+    """Odd sizes, asymmetric pads, no pad, output planes of 1 to 390
+    pixels (no multiple of the 128-pixel block), every activation: f32
+    bit-exact for the piecewise-linear ones and within 1e-6 of max |plain|
+    for sigmoid and swish, bf16 within 1 bf16 ulp."""
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(k * 100 + shape[2])
+    n, c, h, w = shape
+    x = (torch.randn(shape, generator=g) * 2).to(dev, dt)
+    wgt = (torch.randn((c, 1, k, k), generator=g) * 0.3).to(dev, dt)
+    scale = torch.empty(c).uniform_(0.5, 1.5, generator=g).to(dev)
+    shift = (torch.randn(c, generator=g) * 0.3).to(dev)
+    for act in ACTIVATIONS:
+        reset_launch_counts()
+        got = dwconv2d_bn_act(x, wgt, scale, shift, stride, pad, act)
+        assert LAUNCHES["dwconv"] == 1
+        ref = dwconv2d_bn_act_reference(x, wgt, scale, shift, stride, pad,
+                                        act)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and got.dtype == dt
+        if dt == torch.bfloat16:
+            assert float(bf16_ulp_error(got, ref).max()) <= 1, act
+        elif act in ("sigmoid", "swish"):
+            err = float((got - ref).abs().max() / ref.abs().max())
+            assert err <= 1e-6, (act, err)
+        else:
+            assert torch.equal(got, ref), act
+
+
+def test_dwconv_refuses_calls_outside_the_contract():
+    dev = _cuda()
+    x = torch.randn(2, 8, 9, 9, device=dev)
+    w = torch.randn(8, 1, 3, 3, device=dev)
+    s, b = torch.ones(8, device=dev), torch.zeros(8, device=dev)
+    pad = ((1, 1), (1, 1))
+    with pytest.raises(ValueError, match="several devices"):
+        dwconv2d_bn_act(x, w, s.cpu(), b, 1, pad, "relu")
+    with pytest.raises(ValueError, match="not contiguous"):
+        dwconv2d_bn_act(x.transpose(2, 3), w, s, b, 1, pad, "relu")
+    with pytest.raises(ValueError, match="w must be"):
+        dwconv2d_bn_act(x.to(torch.bfloat16), w, s, b, 1, pad, "relu")
+    with pytest.raises(ValueError, match="stride"):
+        dwconv2d_bn_act(x, w, s, b, 3, pad, "relu")
+    with pytest.raises(ValueError, match="no backward"):
+        dwconv2d_bn_act(x, w.clone().requires_grad_(True), s, b, 1, pad,
+                        "relu")
+
+
+@pytest.mark.parametrize("name", ["efficientnet_b0", "efficientnet_b0b"])
+def test_efficientnet_bf16_on_cuda_matches_cpu(name):
+    """The bf16 model on the card (K6 in its 16 depthwise blocks, cuDNN
+    elsewhere) against the same model on the CPU (the plain version)."""
+    dev = _cuda()
+    model = pt.get_model(name, in_size=(64, 64), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.5, generator=g)
+                m.running_var.uniform_(0.5, 2.0, generator=g)
+    bf = as_bfloat16(model)
+    x = torch.randn((4, 3, 64, 64), generator=g).to(torch.bfloat16)
+    with torch.inference_mode():
+        y_cpu = bf(x).float()
+        bf_gpu = copy.deepcopy(bf).to(dev)
+        reset_launch_counts()
+        y_gpu = bf_gpu(x.to(dev)).float().cpu()
+    assert LAUNCHES["dwconv"] == 16
+    cos = float(torch.nn.functional.cosine_similarity(
+        y_gpu.flatten(), y_cpu.flatten(), dim=0))
+    assert cos >= 0.999, cos
