@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """GPU smoke test of pytorchcv_tpu_torch: int8 ResNet-50 classification,
 int8 DANet (ResNet-D50b) Cityscapes segmentation serving, ProPainter
-recurrent flow completion (RFC) streaming and bf16 EfficientNet-B0
-classification, on the port's hand-written CUDA kernels.
+recurrent flow completion (RFC) streaming, bf16 EfficientNet-B0
+classification and ProPainter's generator (image propagation, the sparse
+window transformer, the mask blend) streaming, on the port's hand-written
+CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -83,7 +85,42 @@ use (one nvcc per source, in parallel). Phases, each ending in
    per call beside its plain version, cuDNN's depthwise conv with the
    affine and swish in bf16 and its bound, K1, cuDNN's other convs, the
    SE blocks and the BN fold replayed alone, and the device's busy time
-   and idle share (``torch.profiler``).
+   and idle share (``torch.profiler``);
+15. the generator slice: ``get_model("propainter", device="cuda")`` on
+   seed-0 weights (two draws scaled down, as in the CPU parity test, see
+   ``_tame_propainter``) through ``ProPainterIMSequencer(ProPainterITSequencer(
+   ProPainterIPSequencer(frames, masks, comp_flows), masks, comp_flows,
+   pp_model=model), frames, masks)`` over a synthetic 80-frame 240x432 clip
+   (seeded uint8 frames as f32 in [-1, 1], ``_rfc_video``'s moving ellipse
+   masks and its smooth flows, through ``TensorSequencer``, as the
+   completed flows; the middle window reaches t = 18, 11 local frames):
+   launch counts per generator call K7 = 16 and K5 = 2 (l_t - 1), nothing
+   else; finite (80, 3, 240, 432) frames, equal to the input outside the
+   masks; the same chain with K7 swapped for its plain version and K5 for
+   ``deform_conv2d``'s general route within 1e-4 of max |out|; the first
+   generator call against a CPU copy of the model within 1e-4 (its CPU
+   seconds printed);
+16. K7 against its plain version at every distinct (n, Lq, Lk, D) of
+   phase 15's run, full and local paths, at B8's own test shapes with a
+   mask, at D = 128 with mask entries of -1e9 and at n > 65,535 (within
+   2e-5 of max |plain|); K5 on the generator's first calls (phase 9's f32
+   tolerance);
+17. generator timing with CUDA events: frames/s over the clip, each
+   generator call and IP window; K7 per call, full and local at t = 18,
+   beside its plain version, f32 SDPA and its bound; one generator call at
+   t = 18 split into encoder, feature propagation (K5 within it), soft
+   split, the 8 blocks (attention against FFN), soft composite and
+   decoder; the device's busy time and idle share.
+
+The generator's CPU tests are ``tests/test_torch_port_propainter.py`` (the
+port against the JAX package at 96x176). To rehearse phases 15-17 without
+a card: exec a copy of this file with "cuda" replaced by "cpu",
+``torch.cpu.Event`` faked with a host clock, the launch wrappers
+(``kernels.attention.fused_window_attention``, also bound in
+``models.propainter``, and ``nn.deform.deform_sample``) wrapped to count
+launches, ``models.propainter_ip_stream.resolve_device`` returning the
+CPU, ``PP_FRAMES`` 16, ``PP_HW`` (96, 176) and ``ATTN_BIG_N`` 100, then
+call ``_propainter``.
 
 Any failure raises. The last lines are the card, the kernels' JSON record
 (one entry per kernel and path) and ``{"ok": true, "device": {...}}``.
@@ -110,7 +147,8 @@ SEG_SOURCE_HW = (1024, 2048)   # native Cityscapes frames
 SEG_BATCH_CHECK = 2
 SEG_BATCH_TIME = 8
 SEG_LAUNCHES = {"preprocess": 1, "stem": 1, "maxpool_i8": 1, "int8_conv": 54,
-                "flash_attention": 1, "deform_sample": 0, "dwconv": 0}
+                "flash_attention": 1, "deform_sample": 0, "dwconv": 0,
+                "window_attention": 0}
 ATTN_F32_RTOL = 1e-4           # K4 f32: max |err| / max |plain|
 
 RFC_HW = (240, 432)            # ProPainter's default input
@@ -125,9 +163,17 @@ RFC_CPU_TOL = 1e-4             # its max |delta| / max |flow|
 EFF_NAME = "efficientnet_b0"
 EFF_TF_NAME = "efficientnet_b0b"   # TF-SAME: asymmetric depthwise pads
 EFF_LAUNCHES = {"preprocess": 1, "stem": 0, "maxpool_i8": 0, "int8_conv": 0,
-                "flash_attention": 0, "deform_sample": 0, "dwconv": 16}
+                "flash_attention": 0, "deform_sample": 0, "dwconv": 16,
+                "window_attention": 0}
 DW_EXACT_ACTS = ("none", "relu", "relu6", "hswish", "hsigmoid")
 DW_F32_RTOL = 1e-6             # K6 f32 sigmoid/swish: max |err| / max |plain|
+
+PP_FRAMES = 80                 # the middle windows reach t = 18 (11 local)
+PP_HW = (240, 432)             # ProPainter's default input
+PP_E2E_TOL = 1e-4              # generated frames: max |delta| / max |out|
+PP_K5_CHECKED = 10             # K5 calls held against the plain version
+ATTN_WIN_TOL = 2e-5            # K7: max |err| / max |plain|
+ATTN_BIG_N = 65600             # problems of K7's check beyond 65,535
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): HBM bytes/s and
 # operations/s by operand type.
@@ -463,7 +509,8 @@ def _resnet(card, record) -> None:
     print(f"resnet50 launches in one forward: {launches}")
     _require(launches == {"preprocess": 1, "stem": 1, "int8_conv": 52,
                           "maxpool_i8": 1, "flash_attention": 0,
-                          "deform_sample": 0, "dwconv": 0}, launches)
+                          "deform_sample": 0, "dwconv": 0,
+                          "window_attention": 0}, launches)
     _require(tuple(logits.shape) == (BATCH_CHECK, 1000), logits.shape)
     y = logits.float()
     _require(bool(torch.isfinite(y).all()), "non-finite logits")
@@ -709,14 +756,14 @@ def _danet(card, record) -> None:
                                     bound, lib))
 
 
-def _rfc_video(seed: int):
-    """A synthetic RFC_FRAMES-frame clip at RFC_HW on the card: forward and
-    backward flows (T-1, 4, H, W), each component a sum of four
+def _rfc_video(seed: int, frames: int = RFC_FRAMES, hw=RFC_HW):
+    """A synthetic clip of ``frames`` frames at ``hw`` on the card: forward
+    and backward flows (T-1, 4, H, W), each component a sum of four
     low-frequency sinusoids drifting in time (|flow| <= 10 px), and masks
     (T, 1, H, W) of an ellipse covering ~10 % of the frame that moves
     across it."""
     g = torch.Generator().manual_seed(seed)
-    (h, w), t = RFC_HW, RFC_FRAMES
+    (h, w), t = hw, frames
     ys = torch.linspace(0.0, 1.0, h, device="cuda")[:, None]
     xs = torch.linspace(0.0, 1.0, w, device="cuda")[None, :]
     tt = torch.arange(t - 1, device="cuda", dtype=torch.float32)[:, None,
@@ -800,31 +847,66 @@ def _work_deform(a, out):
     return _bound(_nbytes(*a[:3], out), 10 * out.numel(), "f32")
 
 
+def _deform_library(a, out):
+    """K5's library yardstick: ``F.grid_sample`` over x as (G, C/G, H, W)
+    at the same (y, x) positions (align_corners=True, zeros), times the
+    mask. Returns its ms a call and its max |diff| to K5's output."""
+    import torch.nn.functional as F
+    from pytorchcv_tpu_torch.kernels.deform_patch import tap_positions
+    x, offset, mask, groups = a[:4]
+    _, c, h, w = x.shape
+    py, px, m = tap_positions(offset, mask, groups, (3, 3), 1, 1, x.dtype)
+    grid = torch.stack([px / (w - 1) * 2 - 1, py / (h - 1) * 2 - 1],
+                       dim=-1)[0].permute(2, 0, 1, 3).contiguous()
+    xg = x.view(groups, c // groups, h, w)
+    mg = m[0].permute(2, 0, 1)[:, None]
+    ms = _cuda_ms(lambda: F.grid_sample(
+        xg, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True) * mg, 50)
+    err = float((F.grid_sample(xg, grid, align_corners=True) * mg
+                 - out.view(h * w, 9, groups, c // groups)
+                 .permute(2, 3, 0, 1)).abs().max())
+    return ms, err
+
+
 def _device_kernels(fn, reps: int):
     """Device time a call of every kernel ``fn`` launches, by name (ms),
-    and the number of device operations (kernels, copies) a call, from
-    ``torch.profiler``'s CUDA activity after one warm-up call; empty and 0
-    when the profiler sees no device activity."""
+    the number of device operations (kernels, copies) a call, from
+    ``torch.profiler``'s CUDA activity after one warm-up call (empty and 0
+    when the profiler sees no device activity), the profiled calls' own
+    ms a call (CUDA events), and the ms a call in which some device
+    operation ran (the union of their intervals: operations that overlap
+    count once)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        ev[0].record()
         for _ in range(reps):
             fn()
+        ev[1].record()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    covered, reach = 0.0, float("-inf")
+    for start, end in spans:
+        covered += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
     return ({e.key: e.self_device_time_total / 1e3 / reps for e in events},
-            sum(e.count for e in events) / reps)
+            sum(e.count for e in events) / reps,
+            ev[0].elapsed_time(ev[1]) / reps, covered / 1e3 / reps)
 
 
 def _rfc(card, record) -> None:
     import pytorchcv_tpu_torch as pt
     import pytorchcv_tpu_torch.models.propainter_rfc as rfc_mod
     import pytorchcv_tpu_torch.nn.deform as deform_mod
-    import torch.nn.functional as F
     from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from pytorchcv_tpu_torch.kernels.deform_patch import (
         deform_sample, deform_sample_reference)
@@ -929,26 +1011,11 @@ def _rfc(card, record) -> None:
           f"{ms_pass:.3f} ms, {n_out * 1000.0 / ms_pass:.2f} completed-flow "
           f"frames/s; windows {win_ms[0]:.3f} and {win_ms[1]:.3f} ms")
     (key, (a, k, out)), = seen.items()
-    x, offset, mask, groups = a[:4]
+    x, groups = a[0], a[3]
     with torch.inference_mode():
         ms = _cuda_ms(lambda: deform_sample(*a, **k), 50)
         plain = _cuda_ms(lambda: deform_sample_reference(*a[:4]), 20)
-        # library yardstick: grid_sample over x as (G, C/G, H, W) at the
-        # same (y, x) positions (align_corners=True, zeros), times the mask
-        from pytorchcv_tpu_torch.kernels.deform_patch import tap_positions
-        _, c, h, w = x.shape
-        py, px, m = tap_positions(offset, mask, groups, (3, 3), 1, 1,
-                                  x.dtype)
-        grid = torch.stack([px / (w - 1) * 2 - 1, py / (h - 1) * 2 - 1],
-                           dim=-1)[0].permute(2, 0, 1, 3).contiguous()
-        xg = x.view(groups, c // groups, h, w)
-        mg = m[0].permute(2, 0, 1)[:, None]
-        lib = _cuda_ms(lambda: F.grid_sample(
-            xg, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=True) * mg, 50)
-        lib_err = float((F.grid_sample(xg, grid, align_corners=True) * mg
-                         - out.view(h * w, 9, groups, c // groups)
-                         .permute(2, 3, 0, 1)).abs().max())
+        lib, lib_err = _deform_library(a, out)
         bound = _work_deform(a, out)
         # the 3-D encoder and every 2-D conv of one RFC call (one direction
         # of the first window), replayed
@@ -1200,7 +1267,7 @@ def _effnet(card, record) -> None:
         ms_conv = _cuda_ms(lambda: [m(x) for m, x in convs], 10)
         ms_se = _cuda_ms(lambda: [m(x) for m, x in se], 10)
         ms_fold = _cuda_ms(lambda: [fold_batchnorm(b) for b in bns], 20)
-        dev, n_ops = _device_kernels(lambda: serve(raw128), 1)
+        dev, n_ops, _, _ = _device_kernels(lambda: serve(raw128), 1)
         k6_dev = sum(v for n_, v in dev.items() if "dwconv_kernel" in n_)
         n_conv, n_se, n_fold = len(convs), len(se), len(bns)
         del dws, convs, se, bns, calls128
@@ -1244,6 +1311,426 @@ def _effnet(card, record) -> None:
         lib_dw))
 
 
+def _pp_clip(seed: int):
+    """The generator's clip on the card: PP_FRAMES seeded uint8 frames at
+    PP_HW cast to f32 and scaled to [-1, 1] (the reference's input range),
+    and ``_rfc_video``'s moving ellipse masks and smooth flows, which take
+    the place of completed flows."""
+    flows, masks = _rfc_video(seed, PP_FRAMES, PP_HW)
+    g = torch.Generator().manual_seed(seed)
+    frames = torch.randint(0, 256, (PP_FRAMES, 3, *PP_HW), generator=g,
+                           dtype=torch.uint8).cuda()
+    return frames.to(torch.float32) / 127.5 - 1.0, masks, flows
+
+
+def _tame_propainter(model) -> None:
+    """Scale two random draws down by 100, as the CPU parity test does
+    (``tests/test_torch_port_propainter.py``): the last conv of each
+    ``conv_offset`` (the reference zero-initializes it) and the last
+    decoder conv. At the init's scale the propagation's recurrence is
+    chaotic (on the CPU, f32 against f64 drifts to 6e-3 of max |out|
+    within 6 local frames at 96x176) and the output tanh saturates; so
+    scaled, the drift stays below 5e-7 over 11 local frames. The offsets
+    still move each sample by the flow."""
+    with torch.no_grad():
+        for align in model.feat_prop_module.deform_align.values():
+            align.conv_offset.conv4.conv.weight.mul_(0.01)
+        model.decoder.unit2.conv2.conv.weight.mul_(0.01)
+
+
+def _pp_chain(model, frames, masks, flows):
+    """Stages 3-5 as ``ProPainterIterator`` wires them: image propagation
+    (on the card) -> the generator (``model``) -> the mask blend. Returns
+    the three sequencers."""
+    from pytorchcv_tpu_torch.models.propainter_stream import (
+        ProPainterIMSequencer, ProPainterIPSequencer, ProPainterITSequencer)
+    from pytorchcv_tpu_torch.streaming import TensorSequencer
+    comp = TensorSequencer(flows)
+    ip = ProPainterIPSequencer(frames, masks, comp)
+    it = ProPainterITSequencer(ip, masks, comp, pp_model=model)
+    return ip, it, ProPainterIMSequencer(it, frames, masks)
+
+
+@contextlib.contextmanager
+def _calls_of(mod, attr, limit: int):
+    """(args, kwargs, output) of the first ``limit`` calls of
+    ``mod.attr``."""
+    calls = []
+    orig = getattr(mod, attr)
+
+    def rec(*a, **k):
+        out = orig(*a, **k)
+        if len(calls) < limit:
+            calls.append((a, k, out))
+        return out
+    setattr(mod, attr, rec)
+    try:
+        yield calls
+    finally:
+        setattr(mod, attr, orig)
+
+
+@contextlib.contextmanager
+def _timed_modules(named):
+    """CUDA events around every call of each (name, module); yields a dict
+    that, after ``synchronize()``, ``_event_ms`` turns into ms by name."""
+    marks = {name: [] for name, _ in named}
+    hooks = []
+    for name, mod in named:
+        def pre(m, a, _n=name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks[_n].append([ev])
+
+        def post(m, a, out, _n=name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks[_n][-1].append(ev)
+        hooks += [mod.register_forward_pre_hook(pre),
+                  mod.register_forward_hook(post)]
+    try:
+        yield marks
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+@contextlib.contextmanager
+def _timed_calls(mod, attr):
+    """CUDA events around every call of ``mod.attr``; yields the list of
+    (start, end) event pairs."""
+    pairs = []
+    orig = getattr(mod, attr)
+
+    def timed(*a, **k):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = orig(*a, **k)
+        end.record()
+        pairs.append((start, end))
+        return out
+    setattr(mod, attr, timed)
+    try:
+        yield pairs
+    finally:
+        setattr(mod, attr, orig)
+
+
+def _event_ms(marks, name):
+    """ms of each call recorded under ``name`` by ``_timed_modules``."""
+    return [a.elapsed_time(b) for a, b in marks[name]]
+
+
+def _check_window_attention(q, k, v, scale, mask, out, what) -> float:
+    """K7 against its plain version: within ATTN_WIN_TOL of the largest
+    plain value. Returns the max abs error."""
+    from pytorchcv_tpu_torch.kernels.attention import \
+        fused_window_attention_reference
+    if mask is not None:
+        mask = mask.expand(*q.shape[:-1], k.shape[-2])
+    ref = fused_window_attention_reference(q, k, v, scale, mask)
+    err = float((out.float() - ref.float()).abs().max())
+    rel = err / float(ref.abs().max())
+    n = q.numel() // (q.shape[-2] * q.shape[-1])
+    print(f"K7 {what} n {n} Lq {q.shape[-2]} Lk {k.shape[-2]} D "
+          f"{q.shape[-1]}{'' if mask is None else ' masked'}: max abs err "
+          f"{err:.3e}, {rel:.3e} of max |plain|")
+    _require(rel <= ATTN_WIN_TOL, f"K7 {what} error {rel} of max |plain|")
+    return err
+
+
+def _work_window_attention(q, k, v, out):
+    """Bytes: q, k, v read once and out written once. Operations: the two
+    products, 2 n Lq Lk D each, in f32."""
+    n = q.numel() // (q.shape[-2] * q.shape[-1])
+    ops = 4 * n * q.shape[-2] * k.shape[-2] * q.shape[-1]
+    return _nbytes(q, k, v, out), ops
+
+
+def _propainter(card, record) -> None:
+    import pytorchcv_tpu_torch as pt
+    import pytorchcv_tpu_torch.models.propainter as pp_mod
+    import pytorchcv_tpu_torch.models.propainter_rfc as rfc_mod
+    import pytorchcv_tpu_torch.nn.deform as deform_mod
+    import torch.nn.functional as F
+    from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from pytorchcv_tpu_torch.kernels._build import no_tf32
+    from pytorchcv_tpu_torch.kernels.attention import (
+        fused_window_attention, fused_window_attention_reference)
+    from pytorchcv_tpu_torch.kernels.deform_patch import (
+        deform_sample, deform_sample_reference)
+
+    # -- 15. the generator slice: IP -> IT -> IM through the streaming
+    # engine, with launch counts per generator call
+    model = pt.get_model("propainter", rng=0, device="cuda")
+    _tame_propainter(model)
+    k7_per_call = 2 * len(model.transformers.transformer)
+    frames, masks, flows = _pp_clip(seed=5)
+    it_calls, keep = [], {}
+
+    def pre(m, a):
+        it_calls.append([a[4], a[0].shape[1], dict(LAUNCHES)])
+        if not keep:
+            keep["first"] = a
+        if a[0].shape[1] > keep.get("t", 0):
+            keep["t"], keep["largest"] = a[0].shape[1], a
+
+    def post(m, a, out):
+        it_calls[-1][2] = {k: LAUNCHES[k] - it_calls[-1][2][k]
+                           for k in LAUNCHES}
+        keep.setdefault("first_out", out)
+    hooks = [model.register_forward_pre_hook(pre),
+             model.register_forward_hook(post)]
+    _, it, im = _pp_chain(model, frames, masks, flows)
+    print(f"propainter IT windows (target:offset <- frames/masks/flows): "
+          f"{it.window_index}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _first_calls(pp_mod, "fused_window_attention") as (k7_seen, _), \
+            _calls_of(deform_mod, "deform_sample", PP_K5_CHECKED) as k5:
+        reset_launch_counts()
+        out = im[0:PP_FRAMES]
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    s_chain = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    print(f"propainter launches over {PP_FRAMES} frames ({len(it_calls)} "
+          f"generator calls, {s_chain:.2f} s with the recording): "
+          f"{launches}")
+    for i, (l_t, t, d) in enumerate(it_calls):
+        want = {k: 0 for k in LAUNCHES}
+        want["window_attention"] = k7_per_call
+        want["deform_sample"] = 2 * (l_t - 1)
+        print(f"propainter IT call {i}: t {t}, l_t {l_t}, K7 "
+              f"{d['window_attention']}, K5 {d['deform_sample']}")
+        _require(d == want, f"IT call {i} launches {d}, want {want}")
+    _require(launches == {k: sum(c[2][k] for c in it_calls)
+                          for k in LAUNCHES}, launches)
+    _require(tuple(out.shape) == (PP_FRAMES, 3, *PP_HW), out.shape)
+    _require(bool(torch.isfinite(out).all()), "non-finite frames")
+    known = (masks == 0).expand_as(frames)
+    _require(torch.equal(out[known], frames[known]),
+             "frames outside the masks changed")
+    max_out = float(out.abs().max())
+    inside = out[~known]
+    print(f"propainter frames {tuple(out.shape)}: finite, equal to the input "
+          f"outside the masks ({float(masks.mean()):.4f} of pixels masked), "
+          f"inside: mean {float(inside.mean()):.4f}, std "
+          f"{float(inside.std()):.4f}, max |out| {max_out:.4f}")
+
+    # the same chain with K7 swapped for its plain version and K5 for
+    # deform_conv2d's general route, patched here and only here
+    def plain_attention(q, k, v, scale=None, mask=None):
+        return fused_window_attention_reference(q, k, v, scale, mask)
+
+    def general(*a, **k):
+        k.pop("center", None)
+        return deform_mod.deform_conv2d(*a, **k)
+    pp_mod.fused_window_attention = plain_attention
+    rfc_mod.deform_conv2d = general
+    try:
+        reset_launch_counts()
+        out_plain = _pp_chain(model, frames, masks, flows)[2][0:PP_FRAMES]
+        torch.cuda.synchronize()
+        _require(not any(LAUNCHES.values()),
+                 f"the plain chain launched {dict(LAUNCHES)}")
+    finally:
+        pp_mod.fused_window_attention = fused_window_attention
+        rfc_mod.deform_conv2d = deform_mod.deform_conv2d
+    delta = float((out - out_plain).abs().max())
+    print(f"propainter K7 and K5 vs their plain routes over the clip: max "
+          f"|delta| {delta:.3e} = {delta / max_out:.3e} of max |out| (gate "
+          f"{PP_E2E_TOL})")
+    _require(delta <= PP_E2E_TOL * max_out,
+             f"propainter chain delta {delta} > {PP_E2E_TOL} * {max_out}")
+    del out_plain
+    # the clip's first generator call on the card against a CPU copy
+    args_cpu = [a.cpu() if torch.is_tensor(a) else a for a in keep["first"]]
+    cpu_model = copy.deepcopy(model).cpu()
+    t0 = time.perf_counter()
+    with torch.inference_mode(), no_tf32():
+        y_cpu = cpu_model(*args_cpu)
+    s_cpu = time.perf_counter() - t0
+    del cpu_model
+    rel = float((keep["first_out"].cpu() - y_cpu).abs().max()
+                / y_cpu.abs().max())
+    print(f"propainter first generator call (t {args_cpu[0].shape[1]}, l_t "
+          f"{args_cpu[4]}) card vs CPU: max |delta| {rel:.3e} of max |out| "
+          f"{float(y_cpu.abs().max()):.4f} (gate {PP_E2E_TOL}); the CPU "
+          f"took {s_cpu:.1f} s on {torch.get_num_threads()} threads")
+    _require(rel <= PP_E2E_TOL, f"propainter card vs CPU: {rel} of max |out|")
+    torch.cuda.synchronize()
+
+    # -- 16. K7 and K5 against their plain versions on phase 15's calls
+    errs7, errs5 = [], []
+    with torch.inference_mode():
+        for key, (a, k, o) in sorted(k7_seen.items()):
+            errs7.append(_check_window_attention(*a[:4], None, o, "path"))
+        g = torch.Generator(device="cuda").manual_seed(7)
+        # B8's own test shapes, and D = 128 at the full path's lengths, each
+        # with a mask of 0 and -1e9
+        for qs, ks, scale in (((2, 16, 16), (2, 24, 16), 0.25),
+                              ((2, 3, 45, 32), (2, 3, 90, 32), 32 ** -0.5),
+                              ((4, 810, 128), (4, 2142, 128), 128 ** -0.5)):
+            q = torch.randn(qs, device="cuda", generator=g)
+            kk, v = (torch.randn(ks, device="cuda", generator=g)
+                     for _ in range(2))
+            mask = torch.where(torch.rand((*qs[:-1], ks[-2]), device="cuda",
+                                          generator=g) > 0.5, 0.0, -1e9)
+            errs7.append(_check_window_attention(
+                q, kk, v, scale, mask,
+                fused_window_attention(q, kk, v, scale, mask), "masked"))
+        # more problems than a grid's y or z dimension holds
+        q, kk, v = (torch.randn((ATTN_BIG_N, 45, 128), device="cuda",
+                                generator=g) for _ in range(3))
+        errs7.append(_check_window_attention(
+            q, kk, v, 128 ** -0.5, None,
+            fused_window_attention(q, kk, v), "n > 65535"))
+        del q, kk, v
+        for a, k, o in k5:
+            errs5.append(_check_deform(a, o, "generator"))
+    torch.cuda.synchronize()
+
+    # -- 17. timing: a pass over the clip, the kernels, one call's parts
+    ip, it, im = _pp_chain(model, frames, masks, flows)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with _timed_modules([("it", model), ("ip", ip.net)]) as marks:
+        ev[0].record()
+        im[0:PP_FRAMES]
+        ev[1].record()
+        torch.cuda.synchronize()
+    ms_pass = ev[0].elapsed_time(ev[1])
+    it_ms, ip_ms = _event_ms(marks, "it"), _event_ms(marks, "ip")
+    print(f"[{card}] propainter {PP_FRAMES} frames at {PP_HW[0]}x{PP_HW[1]} "
+          f"(f32, no TF32): {ms_pass:.3f} ms, "
+          f"{PP_FRAMES * 1000.0 / ms_pass:.3f} frames/s; IP windows "
+          f"{', '.join(f'{x:.3f}' for x in ip_ms)} ms; generator calls "
+          f"{', '.join(f'{x:.3f}' for x in it_ms)} ms (sum "
+          f"{sum(it_ms):.3f}, {len(it_ms) * 1000.0 / sum(it_ms):.3f} calls/s)")
+    full = max((c for c in k7_seen.values() if c[0][0].dim() == 5),
+               key=lambda c: (c[0][1].shape[-2], c[0][0].shape[-2]))
+    local = max((c for c in k7_seen.values() if c[0][0].dim() == 6),
+                key=lambda c: c[0][0].numel())
+    t7 = {}
+    with torch.inference_mode():
+        for name, (a, _, o) in (("full", full), ("local", local)):
+            q, kk, v, scale = a[:4]
+            n, lq, lk, d = (q.numel() // (q.shape[-2] * q.shape[-1]),
+                            q.shape[-2], kk.shape[-2], q.shape[-1])
+            ms = _cuda_ms(lambda: fused_window_attention(*a), 10)
+            plain = _cuda_ms(lambda: fused_window_attention_reference(*a), 5)
+            q3, k3, v3 = (x.reshape(n, -1, d) for x in (q, kk, v))
+            lib = _cuda_ms(lambda: F.scaled_dot_product_attention(
+                q3, k3, v3, scale=scale), 10)
+            lib_err = float((F.scaled_dot_product_attention(
+                q3, k3, v3, scale=scale).view_as(o) - o).abs().max())
+            nbytes, ops = _work_window_attention(q, kk, v, o)
+            bound = _bound(nbytes, ops, "f32")
+            t7[name] = (ms, plain, lib, nbytes, ops)
+            print(f"[{card}] propainter K7 {name} path n {n} Lq {lq} Lk {lk} "
+                  f"D {d}: {ms:.4f} ms a call ({ops / ms / 1e9:.2f} TFLOP/s), "
+                  f"plain {plain:.4f} ms, SDPA f32 {lib:.4f} ms (max |diff| "
+                  f"to K7 {lib_err:.2e}), bound {bound[0]:.4f} ms "
+                  f"({bound[1]}, {100.0 * bound[0] / ms:.1f} % of it)")
+        pair = [sum(t7[p][i] for p in t7) for i in range(5)]
+        pair_bound = _bound(pair[3], pair[4], "f32")
+        # one generator call at the clip's largest t, split into its parts
+        a_big = keep["largest"]
+        tf = model.transformers.transformer
+        parts = [("encoder", model.encoder),
+                 ("propagation", model.feat_prop_module),
+                 ("soft split", model.ss), ("soft composite", model.sc),
+                 ("decoder", model.decoder), ("call", model)]
+        parts += [(f"attention {i}", b.attention) for i, b in enumerate(tf)]
+        parts += [(f"ffn {i}", b.mlp) for i, b in enumerate(tf)]
+        parts += [(f"block {i}", b) for i, b in enumerate(tf)]
+        enc_layers = list(model.encoder.layers)
+        parts += [(f"encoder layer {i}", m_) for i, m_ in
+                  enumerate(enc_layers)]
+        model(*a_big)
+        with _timed_modules(parts) as marks, \
+                _timed_calls(deform_mod, "deform_sample") as k5_marks:
+            model(*a_big)
+            torch.cuda.synchronize()
+        ms_call = sum(_event_ms(marks, "call"))
+        part_ms = {n_: sum(_event_ms(marks, n_)) for n_, _ in parts}
+        ms_k5 = sum(a_.elapsed_time(b_) for a_, b_ in k5_marks)
+        n_k5 = len(k5_marks)
+        att = sum(part_ms[f"attention {i}"] for i in range(len(tf)))
+        ffn = sum(part_ms[f"ffn {i}"] for i in range(len(tf)))
+        blocks = sum(part_ms[f"block {i}"] for i in range(len(tf)))
+        dev, n_ops, ms_prof, covered = _device_kernels(
+            lambda: model(*a_big), 1)
+        # the encoder again with cuDNN's autotuner on (a diagnostic: the
+        # port leaves cudnn.benchmark as the caller set it)
+        enc_in = torch.cat([a_big[0], a_big[2], a_big[1]], dim=2).flatten(
+            0, 1)
+        old_bench = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = True
+        try:
+            ms_enc_tuned = _cuda_ms(lambda: model.encoder(enc_in), 3,
+                                    warmup=2)
+        finally:
+            torch.backends.cudnn.benchmark = old_bench
+        # K5 at the generator's shape
+        (a5, k5k, o5) = k5[0]
+        ms5 = _cuda_ms(lambda: deform_sample(*a5, **k5k), 50)
+        plain5 = _cuda_ms(lambda: deform_sample_reference(*a5[:4]), 20)
+        lib5, lib5_err = _deform_library(a5, o5)
+        bound5 = _work_deform(a5, o5)
+    t_big, l_big = a_big[0].shape[1], a_big[4]
+    print(f"[{card}] propainter K7 a transformer block at t {t_big} (full + "
+          f"local): {pair[0]:.4f} ms, plain {pair[1]:.4f} ms, SDPA f32 "
+          f"{pair[2]:.4f} ms, bound {pair_bound[0]:.4f} ms "
+          f"({pair_bound[1]}); per generator call {len(tf)} x "
+          f"{pair[0]:.4f} = {len(tf) * pair[0]:.3f} ms")
+    rest = ms_call - sum(part_ms[n_] for n_ in (
+        "encoder", "propagation", "soft split", "soft composite",
+        "decoder")) - blocks
+    print(f"[{card}] propainter one generator call (t {t_big}, l_t {l_big}): "
+          f"{ms_call:.3f} ms; encoder {part_ms['encoder']:.3f}, feature "
+          f"propagation {part_ms['propagation']:.3f} (K5 {n_k5} x "
+          f"{ms_k5 / max(n_k5, 1):.4f} = {ms_k5:.3f}), soft split "
+          f"{part_ms['soft split']:.3f}, {len(tf)} blocks {blocks:.3f} "
+          f"(attention {att:.3f}, FFN {ffn:.3f}, norms and residuals "
+          f"{blocks - att - ffn:.3f}), soft composite "
+          f"{part_ms['soft composite']:.3f}, decoder "
+          f"{part_ms['decoder']:.3f}, the rest (downsampling, mask pool, "
+          f"copies) {rest:.3f} ms")
+    print(f"[{card}] propainter encoder layers at t {t_big} (batch {t_big}, "
+          f"cuDNN f32): " + ", ".join(
+              f"{i} {part_ms[f'encoder layer {i}']:.3f}"
+              for i in range(len(enc_layers))) + f" ms; the encoder with "
+          f"cudnn.benchmark on: {ms_enc_tuned:.3f} ms")
+    if dev:
+        busy = sum(dev.values())
+        top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+        print(f"[{card}] propainter one generator call on the device "
+              f"(profiler): some operation running {covered:.3f} ms of the "
+              f"profiled call's {ms_prof:.3f} ms, idle share "
+              f"{100.0 * (1 - covered / ms_prof):.1f} %; kernel times summed "
+              f"{busy:.3f} ms{' (they overlap)' if busy > covered else ''}, "
+              f"{n_ops:.0f} device operations; largest: " + "; ".join(
+                  f"{n_[:60]} {v:.3f} ms" for n_, v in top))
+    else:
+        print(f"[{card}] propainter device busy and idle share: not measured "
+              f"(the profiler saw no device activity)")
+    print(f"[{card}] propainter K5 at x {tuple(a5[0].shape)} G {a5[3]}: "
+          f"{ms5:.4f} ms a call, plain {plain5:.4f} ms, grid_sample x mask "
+          f"{lib5:.4f} ms (max |diff| to K5 {lib5_err:.2e}), bound "
+          f"{bound5[0]:.4f} ms ({bound5[1]})")
+    record.append(_record_entry(
+        "window_attention", "propainter", "window_attention.cu",
+        "pytorchcv_tpu/kernels/attention.py:91",
+        launches["window_attention"], max(errs7), pair[0], pair[1],
+        pair_bound, pair[2]))
+    record.append(_record_entry(
+        "deform_sample", "propainter", "deform_sample.cu",
+        "pytorchcv_tpu/kernels/deform_patch.py:81",
+        launches["deform_sample"], max(errs5), ms5, plain5, bound5, lib5))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is False; "
@@ -1278,6 +1765,9 @@ def main() -> None:
     t0 = time.perf_counter()
     _effnet(card, record)
     print(f"{EFF_NAME} phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _propainter(card, record)
+    print(f"propainter phases: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": record}))

@@ -31,7 +31,8 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # kernel (never on its CPU path).
 LAUNCHES: Dict[str, int] = {"preprocess": 0, "int8_conv": 0, "stem": 0,
                             "maxpool_i8": 0, "flash_attention": 0,
-                            "deform_sample": 0, "dwconv": 0}
+                            "deform_sample": 0, "dwconv": 0,
+                            "window_attention": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -45,6 +46,7 @@ _SIGNATURES = {
     "pcv_flash_attention": [_P, _P, _P, _P] + [_I] * 5 + [_F, _I, _P],
     "pcv_deform_sample": [_P, _P, _P, _P] + [_I] * 5 + [_P],
     "pcv_dwconv": [_P] * 5 + [_I] * 12 + [_P],
+    "pcv_window_attention": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
 }
 
 

@@ -10,7 +10,7 @@ import torch
 from torch import nn
 
 __all__ = ["Swish", "lambda_leakyrelu", "lambda_swish", "lambda_sigmoid",
-           "create_activation"]
+           "lambda_tanh", "create_activation"]
 
 Activation = Union[bool, None, Callable[[], nn.Module]]
 
@@ -36,6 +36,11 @@ def lambda_swish() -> Callable[[], nn.Module]:
 def lambda_sigmoid() -> Callable[[], nn.Module]:
     """Factory of ``nn.Sigmoid`` (JAX ``nn/activ.py``)."""
     return nn.Sigmoid
+
+
+def lambda_tanh() -> Callable[[], nn.Module]:
+    """Factory of ``nn.Tanh`` (JAX ``nn/activ.py:86``)."""
+    return nn.Tanh
 
 
 def create_activation(activation: Activation) -> Optional[nn.Module]:

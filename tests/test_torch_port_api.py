@@ -12,6 +12,8 @@ from pytorchcv_tpu.models import registry as jax_registry
 import pytorchcv_tpu_torch as pt
 from pytorchcv_tpu_torch.models.propainter_rfc_stream import \
     ProPainterRFCSequencer
+from pytorchcv_tpu_torch.models.propainter_stream import (
+    ProPainterIPSequencer, ProPainterITSequencer)
 
 torch.set_num_threads(1)
 
@@ -22,7 +24,12 @@ def test_import_leaves_jax_out():
             "pytorchcv_tpu_torch.models.propainter_rfc, "
             "pytorchcv_tpu_torch.models.propainter_rfc_stream, "
             "pytorchcv_tpu_torch.models.efficientnet, "
-            "pytorchcv_tpu_torch.kernels.dwconv; "
+            "pytorchcv_tpu_torch.kernels.dwconv, "
+            "pytorchcv_tpu_torch.kernels.attention, "
+            "pytorchcv_tpu_torch.models.propainter, "
+            "pytorchcv_tpu_torch.models.propainter_ip, "
+            "pytorchcv_tpu_torch.models.propainter_ip_stream, "
+            "pytorchcv_tpu_torch.models.propainter_stream; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'pytorchcv_tpu')]; "
             "assert not bad, bad")
@@ -31,8 +38,8 @@ def test_import_leaves_jax_out():
 
 def test_registry_holds_every_jax_resnet_name():
     """Each ported family (resnet, resnetd, danet, propainter_rfc,
-    efficientnet) registers exactly the JAX package's names of that family,
-    and nothing else."""
+    efficientnet, propainter, propainter_ip) registers exactly the JAX
+    package's names of that family, and nothing else."""
     def family(names, registry, fam):
         return {n for n in names if registry.get_constructor(
             n).__module__.rsplit(".", 1)[-1] == fam}
@@ -40,14 +47,15 @@ def test_registry_holds_every_jax_resnet_name():
     from pytorchcv_tpu_torch.models import registry as port_registry
     counts = {}
     for fam in ("resnet", "resnetd", "danet", "propainter_rfc",
-                "efficientnet"):
+                "efficientnet", "propainter", "propainter_ip"):
         jax_names = family(jax_registry.registered_models(), jax_registry,
                            fam)
         assert family(port_names, port_registry, fam) == jax_names, fam
         counts[fam] = len(jax_names)
     assert counts == {"resnet": 21, "resnetd": 3, "danet": 2,
-                      "propainter_rfc": 1, "efficientnet": 26}
-    assert len(port_names) == 53
+                      "propainter_rfc": 1, "efficientnet": 26,
+                      "propainter": 1, "propainter_ip": 1}
+    assert len(port_names) == 55
 
 
 def test_get_model_is_seeded_and_named():
@@ -85,9 +93,9 @@ def test_serving_end_to_end_matches_reference_forward():
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """Without a card, get_model, make_serving_fn and the RFC sequencer
-    without a model raise unless the CPU is asked for; they never fall
-    back to it."""
+    """Without a card, get_model, make_serving_fn and the ProPainter
+    sequencers without a model raise unless the CPU is asked for; they
+    never fall back to it."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pt.get_model("resnet10")
@@ -101,6 +109,16 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ProPainterRFCSequencer(torch.zeros(2, 4, 8, 8),
                                torch.zeros(3, 1, 8, 8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.get_model("propainter")
+    frames, masks = torch.zeros(3, 3, 8, 8), torch.zeros(3, 1, 8, 8)
+    flows = torch.zeros(2, 4, 8, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ProPainterIPSequencer(frames, masks, flows)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ProPainterITSequencer(torch.zeros(3, 4, 8, 8), masks, flows)
+    ip = ProPainterIPSequencer(frames, masks, flows, device="cpu")
+    assert ip.net.training is False and ip.device.type == "cpu"
     cpu_model = pt.get_model("resnet10", device="cpu")
     assert next(cpu_model.parameters()).device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):

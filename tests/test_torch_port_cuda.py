@@ -5,7 +5,9 @@ of a last unit with an identity conv, attention at sequence lengths and
 widths no tile divides, the deformable sampler at widths that are not
 multiples of 8, with windows across every border and element counts no
 block divides, and the depthwise conv (K6) at odd sizes, asymmetric pads,
-planes no block divides and every activation.
+planes no block divides and every activation, the window attention (K7)
+at head widths, lengths and masks off ProPainter's path, and a narrow
+ProPainter generator on the card against the CPU.
 
 Each test carries the ``cuda`` marker, needs a CUDA card and nvcc, and
 skips without a card. On a machine without JAX, run them without the
@@ -22,6 +24,9 @@ import torch
 
 import pytorchcv_tpu_torch as pt
 from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+from pytorchcv_tpu_torch.kernels._build import no_tf32
+from pytorchcv_tpu_torch.kernels.attention import (
+    fused_window_attention, fused_window_attention_reference)
 from pytorchcv_tpu_torch.kernels.deform_patch import (deform_sample,
                                                       deform_sample_reference)
 from pytorchcv_tpu_torch.kernels.dwconv import (ACTIVATIONS, dwconv2d_bn_act,
@@ -202,7 +207,8 @@ def test_int8_pipeline_on_cuda_matches_cpu(name, kw, n_convs):
     y_gpu = infer(plan_gpu, pre_gpu(raw.to(dev))).float().cpu()
     assert LAUNCHES == {"preprocess": 1, "stem": 1, "int8_conv": n_convs,
                         "maxpool_i8": 1, "flash_attention": 0,
-                        "deform_sample": 0, "dwconv": 0}
+                        "deform_sample": 0, "dwconv": 0,
+                        "window_attention": 0}
     cos = float(torch.nn.functional.cosine_similarity(
         y_gpu.flatten(), y_cpu.flatten(), dim=0))
     assert cos >= 0.9999, cos
@@ -360,3 +366,122 @@ def test_efficientnet_bf16_on_cuda_matches_cpu(name):
     cos = float(torch.nn.functional.cosine_similarity(
         y_gpu.flatten(), y_cpu.flatten(), dim=0))
     assert cos >= 0.999, cos
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("lq,lk,masked", [
+    (1, 1, False), (1, 300, True), (45, 45, False), (70, 129, True),
+    (200, 63, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_window_attention_kernel_matches_plain(d, lq, lk, masked, dtype):
+    """Lq = 1, Lk no tile divides, masks of 0 and -1e9 broadcast over the
+    heads: f32 within 2e-5 of the largest plain value, bf16 within 1
+    ulp."""
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(d * 1000 + lq + lk)
+    q = torch.randn((3, 2, lq, d), generator=g).to(dev, dt)
+    k, v = (torch.randn((3, 2, lk, d), generator=g).to(dev, dt)
+            for _ in range(2))
+    mask = None
+    if masked:
+        mask = torch.where(torch.rand((3, 1, lq, lk), generator=g) > 0.4,
+                           0.0, -1e9).to(dev)
+    reset_launch_counts()
+    got = fused_window_attention(q, k, v, 0.7, mask)
+    ref = fused_window_attention_reference(
+        q, k, v, 0.7, None if mask is None else mask.expand(3, 2, lq, lk))
+    torch.cuda.synchronize()
+    assert LAUNCHES["window_attention"] == 1
+    assert got.dtype == dt and got.shape == (3, 2, lq, d)
+    if dt == torch.bfloat16:
+        assert float(bf16_ulp_error(got, ref).max()) <= 1
+    else:
+        err = float((got - ref).abs().max() / ref.abs().max())
+        assert err <= 2e-5, err
+
+
+def test_window_attention_refuses_calls_outside_the_contract():
+    dev = _cuda()
+    q = torch.zeros((2, 4, 16), device=dev)
+    wide = torch.zeros((2, 4, 129), device=dev)
+    with pytest.raises(ValueError, match="D <= 128"):
+        fused_window_attention(wide, wide, wide)
+    with pytest.raises(ValueError, match="several devices"):
+        fused_window_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="no backward"):
+        fused_window_attention(q.clone().requires_grad_(True), q, q)
+
+
+def _narrow_propainter():
+    """ProPainter at hidden 128, depth 2 on the CPU. As in the CPU parity
+    test, the last conv of each ``conv_offset`` and the last decoder conv
+    are scaled down by 100: at the init's scale the propagation's
+    recurrence amplifies rounding chaotically."""
+    model = pt.get_model("propainter", hidden_dim=128, depth=2,
+                         device="cpu")
+    with torch.no_grad():
+        for align in model.feat_prop_module.deform_align.values():
+            align.conv_offset.conv4.conv.weight.mul_(0.01)
+        model.decoder.unit2.conv2.conv.weight.mul_(0.01)
+    return model
+
+
+def _smooth_clip(t, g):
+    """Frames in [-1, 1], ~10 % masked pixels, smooth flows of 3 px
+    (T-1, 4, 96, 176)."""
+    frames = torch.rand((t, 3, 96, 176), generator=g) * 2 - 1
+    masks = (torch.rand((t, 1, 96, 176), generator=g) > 0.9).float()
+    ys = torch.linspace(0, 6.2832, 96)[:, None]
+    xs = torch.linspace(0, 6.2832, 176)[None, :]
+    phase = torch.rand((t - 1, 4, 1, 1), generator=g) * 6.2832
+    return frames, masks, 3 * torch.sin(ys + 2 * xs + phase)
+
+
+def test_propainter_on_cuda_matches_cpu():
+    """The narrow generator at 96x176 on the card (K7 on both attention
+    paths of each block, K5 in the feature propagation) against the same
+    model on the CPU (the plain versions), f32 with TF32 off."""
+    dev = _cuda()
+    model = _narrow_propainter()
+    g = torch.Generator().manual_seed(3)
+    t, l_t = 7, 5
+    frames, masks, flows = _smooth_clip(t, g)
+    args = (frames[None], masks[None], masks[None], flows[None, :l_t - 1],
+            l_t)
+    with torch.inference_mode(), no_tf32():
+        y_cpu = model(*args)
+        gpu = copy.deepcopy(model).to(dev)
+        reset_launch_counts()
+        y_gpu = gpu(*(a.to(dev) if torch.is_tensor(a) else a
+                      for a in args)).cpu()
+    assert LAUNCHES["window_attention"] == 4
+    assert LAUNCHES["deform_sample"] == 2 * (l_t - 1)
+    err = float((y_gpu - y_cpu).abs().max() / y_cpu.abs().max())
+    assert err <= 1e-4, err
+
+
+def test_propainter_sequencers_on_cuda_match_cpu():
+    """IP -> IT -> IM over 12 frames: image propagation on its default
+    device (the card) and the narrow generator on the card, against the
+    same chain on the CPU."""
+    dev = _cuda()
+    from pytorchcv_tpu_torch.models.propainter_stream import (
+        ProPainterIMSequencer, ProPainterIPSequencer, ProPainterITSequencer)
+    from pytorchcv_tpu_torch.streaming import TensorSequencer
+    model = _narrow_propainter()
+    frames, masks, flows = _smooth_clip(12, torch.Generator().manual_seed(4))
+
+    def chain(m, f, k, fl, device):
+        comp = TensorSequencer(fl)
+        return ProPainterIMSequencer(ProPainterITSequencer(
+            ProPainterIPSequencer(f, k, comp, device=device), k, comp,
+            pp_model=m), f, k)[0:len(f)]
+    y_cpu = chain(model, frames, masks, flows, "cpu")
+    reset_launch_counts()
+    y_gpu = chain(copy.deepcopy(model).to(dev), frames.to(dev),
+                  masks.to(dev), flows.to(dev), None).cpu()
+    assert LAUNCHES["window_attention"] == 3 * 4
+    assert LAUNCHES["deform_sample"] == 2 * (5 + 10 + 6)
+    err = float((y_gpu - y_cpu).abs().max() / y_cpu.abs().max())
+    assert err <= 1e-4, err

@@ -38,22 +38,28 @@ def test_param_count_matches_registry(name):
 
 
 def _video_channels_first(shape):
-    """(B, T, H, W, C) -> (B, T, C, H, W)."""
-    return (*shape[:2], shape[-1], *shape[2:-1])
+    """(..., H, W, C) -> (..., C, H, W)."""
+    return (*shape[:-3], shape[-1], *shape[-3:-1])
+
+
+def _as_list(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
 
 
 def _check_video_model(name, ref):
-    """A model with its own example inputs (ProPainter RFC): the JAX
-    package's output shapes, from ``jax.eval_shape``, channels first."""
+    """A model with its own example inputs (ProPainter RFC, IP and the
+    generator): the JAX package's output shapes, from ``jax.eval_shape``,
+    channels first."""
     args = ref.module.dummy_inputs(1)
     want = [None if o is None else _video_channels_first(o.shape)
-            for o in ref.eval_output_shape()]
+            for o in _as_list(ref.eval_output_shape())]
     with FakeTensorMode():
         model = get_constructor(name)().eval()
         with torch.no_grad():
             out = model(*(torch.empty(_video_channels_first(a.shape))
                           for a in args))
-    assert [None if o is None else tuple(o.shape) for o in out] == want
+    assert [None if o is None else tuple(o.shape)
+            for o in _as_list(out)] == want
 
 
 @pytest.mark.parametrize("name", _NAMES)
