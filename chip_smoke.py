@@ -2,9 +2,10 @@
 """GPU smoke test of pytorchcv_tpu_torch: int8 ResNet-50 classification,
 int8 DANet (ResNet-D50b) Cityscapes segmentation serving, ProPainter
 recurrent flow completion (RFC) streaming, bf16 EfficientNet-B0
-classification and ProPainter's generator (image propagation, the sparse
-window transformer, the mask blend) streaming, on the port's hand-written
-CUDA kernels.
+classification, ProPainter's generator (image propagation, the sparse
+window transformer, the mask blend) streaming and int8 WRN-50-2
+classification, on the port's hand-written CUDA kernels, with the int8
+7x7 stem and the window-sum probe on their own entry points.
 
     python3 chip_smoke.py
 
@@ -18,14 +19,18 @@ use (one nvcc per source, in parallel). Phases, each ending in
    batch-32 forward (256x256 frames, crop 224) gives them: preprocess (K1)
    within 1 bf16 ulp, every distinct int8 conv (K2) bit-exact, the 7x7
    stem conv (K3) with at most 0.1 % of elements off by 1, ``maxpool_i8``
-   bit-exact;
+   bit-exact, every distinct bottleneck chain (K8) bit-exact;
 3. the ResNet-50 slice: ``make_serving_fn("resnet50", (256, 256),
    device="cuda")`` on seeded random weights (BN statistics randomized by
    an explicit generator); one batch with launch counts K1 = 1, K3 = 1,
-   ``maxpool_i8`` = 1, K2 = 52, finite (B, 1000) logits, cosine >= 0.99
+   ``maxpool_i8`` = 1, K2 = 19, K8 = 11 (the 11 stride-1 units in 4
+   chains, one launch a unit), finite (B, 1000) logits, cosine >= 0.99
    against the f32 reference forward (no TF32);
-4. ResNet-50 timing with CUDA events at batch 128: serving images/s, and
-   each kernel beside its plain version and its library call;
+4. ResNet-50 timing with CUDA events at batch 128: serving images/s, each
+   kernel beside its plain version and its library call, K8 per chain,
+   and the chained units replayed on K2 from the K2-only plan
+   (``prepare_int8_resnet(..., chains=False)``, whose logits must equal
+   the chained plan's);
 5. DANet kernels vs their plain versions, on the inputs one batch-2
    forward of 1024x2048 frames (resized to 480x480) gives them, and on
    calibration's f32 attention: K1 within 1 bf16 ulp, every distinct K2
@@ -112,6 +117,26 @@ use (one nvcc per source, in parallel). Phases, each ending in
    split, the 8 blocks (attention against FFN), soft composite and
    decoder; the device's busy time and idle share.
 
+18. K8 against its plain version, bit-exact, on every distinct chain call
+   of the batch-32 resnet50 and wrn50_2 forwards and at the JAX test's
+   shape (h 4, w 8, C 128, M 128, 2 units, batch 2);
+19. the WRN-50-2 slice: ``make_serving_fn("wrn50_2", (256, 256),
+   device="cuda")`` on seed-0 weights, conv biases from seed 1 (zero
+   biases would leave the BN-less fold untested), with phase 2's checks
+   and phase 3's launch counts (K1, K3, ``maxpool_i8`` 1, K2 19, K8 11,
+   nothing else) and cosine >= 0.99 against the f32 reference forward;
+20. WRN-50-2 timing at batch 128, as phase 4;
+21. K9 (the int8 7x7 stem, ``kernels.stem_conv.stem_conv7x7_s2``) against
+   its plain version, bit-exact, on the resnet50 and wrn50_2 stems at
+   batch 128 (the preprocess output as NHWC f32, ``s_img`` the stem conv's
+   calibrated scale, ``s_out`` stage 1's input scale), timed beside K3 and
+   cuDNN's f32 conv of the same image; its agreement with K3's int8 output
+   printed for information (the input quantization differs);
+22. K10 (the window-sum probe, ``kernels.patch_probe.patch_window_sum``)
+   against its plain version at the probe tool's shapes (H 60, W 128, C
+   128, n 6480, numpy seed 0), within 1e-5 of max |plain|, timed, with
+   its bound.
+
 The generator's CPU tests are ``tests/test_torch_port_propainter.py`` (the
 port against the JAX package at 96x176). To rehearse phases 15-17 without
 a card: exec a copy of this file with "cuda" replaced by "cpu",
@@ -141,6 +166,11 @@ BATCH_CHECK = 32
 BATCH_TIME = 128
 SOURCE_HW = (256, 256)
 STEM_TOLERANCE = 1e-3          # share of int8 elements allowed off by 1
+# The int8 ResNet route's launches in one forward (resnet50 and wrn50_2):
+# K8 takes the 11 stride-1 units (one launch each), K2 the other 19 convs.
+INT8_LAUNCHES = {"preprocess": 1, "stem": 1, "maxpool_i8": 1, "int8_conv": 19,
+                 "fused_bottleneck": 11}
+PROBE_TOL = 1e-5               # K10: max |err| / max |plain|
 
 SEG_NAME = "danet_resnetd50b_cityscapes"
 SEG_SOURCE_HW = (1024, 2048)   # native Cityscapes frames
@@ -148,7 +178,8 @@ SEG_BATCH_CHECK = 2
 SEG_BATCH_TIME = 8
 SEG_LAUNCHES = {"preprocess": 1, "stem": 1, "maxpool_i8": 1, "int8_conv": 54,
                 "flash_attention": 1, "deform_sample": 0, "dwconv": 0,
-                "window_attention": 0}
+                "window_attention": 0, "fused_bottleneck": 0, "stem_int8": 0,
+                "patch_window_sum": 0}
 ATTN_F32_RTOL = 1e-4           # K4 f32: max |err| / max |plain|
 
 RFC_HW = (240, 432)            # ProPainter's default input
@@ -164,7 +195,8 @@ EFF_NAME = "efficientnet_b0"
 EFF_TF_NAME = "efficientnet_b0b"   # TF-SAME: asymmetric depthwise pads
 EFF_LAUNCHES = {"preprocess": 1, "stem": 0, "maxpool_i8": 0, "int8_conv": 0,
                 "flash_attention": 0, "deform_sample": 0, "dwconv": 16,
-                "window_attention": 0}
+                "window_attention": 0, "fused_bottleneck": 0, "stem_int8": 0,
+                "patch_window_sum": 0}
 DW_EXACT_ACTS = ("none", "relu", "relu6", "hswish", "hsigmoid")
 DW_F32_RTOL = 1e-6             # K6 f32 sigmoid/swish: max |err| / max |plain|
 
@@ -264,7 +296,8 @@ def _resnet_targets():
     return [(pre_mod, "preprocess", "preprocess"),
             (rq, "int8_conv", "int8_conv"),
             (rq, "stem_conv", "stem"),
-            (rq, "maxpool_i8", "maxpool_i8")]
+            (rq, "maxpool_i8", "maxpool_i8"),
+            (rq, "fused_bottleneck_chain", "fused_bottleneck")]
 
 
 def _seg_targets():
@@ -466,9 +499,79 @@ def _record_entry(name, path, source, replaces, launches, max_err, ms,
             "bound_by": bound[1], "library_ms": library_ms}
 
 
-def _resnet(card, record) -> None:
+def _randomize_biases(model: torch.nn.Module, seed: int) -> None:
+    """Conv biases N(0, 0.1) from an explicit generator: the init's zero
+    biases would leave a BN-less fold untested."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d) and m.bias is not None:
+                m.bias.copy_(torch.empty(m.bias.shape).normal_(
+                    0.0, 0.1, generator=g))
+
+
+def _int8_model(name: str):
+    """Seed-0 weights; ResNet-50's BN statistics, or WRN-50-2's conv
+    biases, from seed 1."""
     import pytorchcv_tpu_torch as pt
+    model = pt.get_model(name, rng=0, device="cuda")
+    if any(isinstance(m, torch.nn.BatchNorm2d) for m in model.modules()):
+        _randomize_bn(model, seed=1)
+    else:
+        _randomize_biases(model, seed=1)
+    return model
+
+
+def _chain_key(a):
+    x, packed = a[0], a[1]
+    n, m, c = packed["w1"].shape
+    return (tuple(x.shape), n, m)
+
+
+def _check_chains(calls, max_err, tag):
+    """K8 against its plain version on every distinct chain call."""
+    from pytorchcv_tpu_torch.kernels.fused_bottleneck import \
+        fused_bottleneck_chain_reference
+    seen = {}
+    for a, k, out in calls:
+        seen.setdefault(_chain_key(a), (a, k, out))
+    err = max_err.get("fused_bottleneck", 0.0)
+    for key, (a, k, out) in sorted(seen.items()):
+        ref = fused_bottleneck_chain_reference(*a, **k)
+        same = torch.equal(out, ref)
+        err = max(err, float((out.float() - ref.float()).abs().max()))
+        print(f"{tag} K8 chain x {key[0]}, {key[1]} unit(s), M {key[2]}: "
+              f"{'bit-exact' if same else 'DIFFERS'}, "
+              f"{float((ref != 0).float().mean()):.3f} of outputs nonzero")
+        _require(same, f"{tag} K8 not bit-exact at {key}")
+    max_err["fused_bottleneck"] = err
+    print(f"{tag} K8: {len(seen)} distinct chain calls of {len(calls)} "
+          f"bit-exact")
+
+
+def _work_chains(calls):
+    """Per unit: 2 B H W (2 C M + 9 M^2) int8 operations; bytes: its x read,
+    its output written and its weights read once."""
+    nbytes = ops = 0
+    for a, _, _ in calls:
+        x, packed = a[0], a[1]
+        n, m, c = packed["w1"].shape
+        bsz, h, w, _ = x.shape
+        ops += n * 2 * bsz * h * w * (2 * c * m + 9 * m * m)
+        nbytes += n * 2 * _nbytes(x) + _nbytes(
+            *(packed[f] for f in ("w1", "w2", "w3", "a1", "b1", "a2", "b2",
+                                  "a3", "b3")))
+    return _bound(nbytes, ops, "int8")
+
+
+def _int8_route(card, record, name: str) -> dict:
+    """Phases 2-4 (resnet50) and 19-20 (wrn50_2): the int8 ResNet route of
+    ``make_serving_fn(name, ...)``. Returns what phases 18 and 21 read."""
+    import pytorchcv_tpu_torch as pt
+    import pytorchcv_tpu_torch.quant.resnet_int8 as rq
     from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from pytorchcv_tpu_torch.kernels.fused_bottleneck import (
+        fused_bottleneck_chain, fused_bottleneck_chain_reference)
     from pytorchcv_tpu_torch.kernels.int8_conv import (int8_conv,
                                                        int8_conv_reference)
     from pytorchcv_tpu_torch.kernels.preprocess import (preprocess,
@@ -479,38 +582,37 @@ def _resnet(card, record) -> None:
                                                   stem_conv_reference)
     import torch.nn.functional as F
 
-    # -- 2. kernels vs plain versions at the main path's shapes
-    model = pt.get_model("resnet50", rng=0, device="cuda")
-    _randomize_bn(model, seed=1)
+    # -- 2 / 19. kernels vs plain versions at the main path's shapes
+    model = _int8_model(name)
     t0 = time.perf_counter()
-    serve = pt.make_serving_fn("resnet50", SOURCE_HW, device="cuda",
-                               model=model)
+    serve = pt.make_serving_fn(name, SOURCE_HW, device="cuda", model=model)
     torch.cuda.synchronize()
-    print(f"serving fn built (calibrate + quantize): "
-          f"{time.perf_counter() - t0:.3f} s")
+    print(f"{name} serving fn built (calibrate + quantize): "
+          f"{time.perf_counter() - t0:.3f} s, route {serve.route}")
+    _require(serve.route == "resnet", serve.route)
     raw = _raw_batch(BATCH_CHECK, seed=2)
     with _recording(_resnet_targets()) as calls:
         serve(raw)
     torch.cuda.synchronize()
     max_err = {}
     with torch.inference_mode():
-        _check_preprocess(calls["preprocess"], max_err, "resnet50")
-        _check_stem(calls["stem"], max_err, "resnet50")
-        _check_pool(calls["maxpool_i8"], max_err, "resnet50")
-        _check_convs(calls["int8_conv"], max_err, "resnet50")
+        _check_preprocess(calls["preprocess"], max_err, name)
+        _check_stem(calls["stem"], max_err, name)
+        _check_pool(calls["maxpool_i8"], max_err, name)
+        _check_convs(calls["int8_conv"], max_err, name)
+        _check_chains(calls["fused_bottleneck"], max_err, name)
+    chains32 = calls["fused_bottleneck"]
     del calls
     torch.cuda.synchronize()
 
-    # -- 3. the slice, with launch counts
+    # -- 3 / 19. the slice, with launch counts
     reset_launch_counts()
     logits = serve(raw)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    print(f"resnet50 launches in one forward: {launches}")
-    _require(launches == {"preprocess": 1, "stem": 1, "int8_conv": 52,
-                          "maxpool_i8": 1, "flash_attention": 0,
-                          "deform_sample": 0, "dwconv": 0,
-                          "window_attention": 0}, launches)
+    print(f"{name} launches in one forward: {launches}")
+    _require(launches == {k: INT8_LAUNCHES.get(k, 0) for k in LAUNCHES},
+             launches)
     _require(tuple(logits.shape) == (BATCH_CHECK, 1000), logits.shape)
     y = logits.float()
     _require(bool(torch.isfinite(y).all()), "non-finite logits")
@@ -518,21 +620,23 @@ def _resnet(card, record) -> None:
     torch.cuda.synchronize()
     cos = float((y * yf).sum() / (y.norm() * yf.norm()))
     top1 = float((y.argmax(1) == yf.argmax(1)).float().mean())
-    print(f"int8 vs f32 reference: cosine {cos:.6f}, top-1 agreement {top1}")
-    _require(cos >= 0.99, f"cosine {cos} < 0.99")
+    print(f"{name} int8 vs f32 reference: cosine {cos:.6f}, top-1 agreement "
+          f"{top1}")
+    _require(cos >= 0.99, f"{name} cosine {cos} < 0.99")
 
-    # -- 4. timing at batch 128
+    # -- 4 / 20. timing at batch 128
     raw128 = _raw_batch(BATCH_TIME, seed=3)
     with torch.inference_mode():
         ms_serve = _cuda_ms(lambda: serve(raw128), reps=10, warmup=3)
-        print(f"[{card}] serving resnet50 int8 batch {BATCH_TIME}: "
+        print(f"[{card}] serving {name} int8 batch {BATCH_TIME}: "
               f"{ms_serve:.3f} ms/batch, "
               f"{BATCH_TIME * 1000.0 / ms_serve:.1f} img/s")
         with _recording(_resnet_targets()) as calls128:
-            serve(raw128)
+            logits128 = serve(raw128)
         torch.cuda.synchronize()
         t = {}
         (a, k, out), = calls128["preprocess"]
+        x128 = out
         r, ct = a[1], a[2]
         x32 = a[0].permute(0, 3, 1, 2).float()
         t["preprocess"] = (
@@ -540,6 +644,7 @@ def _resnet(card, record) -> None:
             _cuda_ms(lambda: preprocess_reference(*a, **k), 20),
             _cuda_ms(lambda: torch.einsum("oh,bchw,wp->bcop", r, x32, ct),
                      20), _work_preprocess(a, out))
+        stem128 = calls128["stem"][0]
         (a, k, out), = calls128["stem"]
         xs = a[0].float()
         ws = a[1].permute(3, 0, 1, 2).float()
@@ -548,38 +653,229 @@ def _resnet(card, record) -> None:
             _cuda_ms(lambda: stem_conv_reference(*a, **k), 5),
             _cuda_ms(lambda: F.conv2d(xs, ws, stride=2, padding=3), 20),
             _work_stem(a, k, out))
-        del xs
+        del xs, x32
         (a, k, out), = calls128["maxpool_i8"]
         t["maxpool_i8"] = (
             _cuda_ms(lambda: maxpool_i8(*a, **k), 20),
             _cuda_ms(lambda: maxpool_i8_reference(*a, **k), 20), None,
             _work_pool(a, out))
         convs = [(a, k) for a, k, _ in calls128["int8_conv"]]
-        conv_bound = _work_convs(calls128["int8_conv"])
-        del calls128
         t["int8_conv"] = (
             _cuda_ms(lambda: [int8_conv(*a, **k) for a, k in convs], 5),
             _cuda_ms(lambda: [int8_conv_reference(*a, **k)
                               for a, k in convs], 2, warmup=1),
-            None, conv_bound)
-    for name, (ms, plain, lib, bound) in t.items():
-        what = "52 convs of one forward" if name == "int8_conv" else "one call"
-        print(f"[{card}] resnet50 {name} batch {BATCH_TIME} ({what}): kernel "
+            None, _work_convs(calls128["int8_conv"]))
+        chains = [(a, k) for a, k, _ in calls128["fused_bottleneck"]]
+        t["fused_bottleneck"] = (
+            _cuda_ms(lambda: [fused_bottleneck_chain(*a, **k)
+                              for a, k in chains], 5),
+            _cuda_ms(lambda: [fused_bottleneck_chain_reference(*a, **k)
+                              for a, k in chains], 2, warmup=1),
+            None, _work_chains(calls128["fused_bottleneck"]))
+        per_chain = [(_chain_key(a), _cuda_ms(
+            lambda a=a, k=k: fused_bottleneck_chain(*a, **k), 5),
+            _work_chains([(a, k, None)])) for a, k in chains]
+        # The K2 launches the chained units took before: the K2-only plan's
+        # units at the chains' places, replayed on their own inputs.
+        infer, plan = rq.prepare_int8_resnet(model, serve.scales)
+        _, plan_k2 = rq.prepare_int8_resnet(model, serve.scales,
+                                            chains=False)
+        k2_units = iter(plan_k2["units"])
+        chained = set()
+        for u in plan["units"]:
+            for _ in (u["chain"]["q"] if "chain" in u else [None]):
+                v = next(k2_units)
+                if "chain" in u:
+                    chained.add(id(v))
+        with _recording([(rq, "_unit", "unit")]) as unit_calls:
+            reset_launch_counts()
+            logits_k2 = infer(plan_k2, x128)
+            k2_launches = LAUNCHES["int8_conv"]
+        torch.cuda.synchronize()
+        _require(k2_launches == 52 and torch.equal(logits_k2, logits128),
+                 f"{name}: the K2-only plan ({k2_launches} K2 launches) "
+                 f"differs from the chained plan")
+        replay = [a for a, _, _ in unit_calls["unit"] if id(a[0]) in chained]
+        del unit_calls
+        ms_k2_units = _cuda_ms(lambda: [rq._unit(*a) for a in replay], 5)
+        del calls128
+    for kname, (ms, plain, lib, bound) in t.items():
+        what = {"int8_conv": f"{len(convs)} convs of one forward",
+                "fused_bottleneck": f"{len(chains)} chains of one forward"
+                }.get(kname, "one call")
+        print(f"[{card}] {name} {kname} batch {BATCH_TIME} ({what}): kernel "
               f"{ms:.4f} ms, plain {plain:.4f} ms, library "
               f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
               f"{bound[0]:.4f} ms ({bound[1]})")
+    for key, ms, bound in per_chain:
+        print(f"[{card}] {name} K8 chain x {key[0]}, {key[1]} unit(s), M "
+              f"{key[2]}: {ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    print(f"[{card}] {name} the {len(replay)} chained units on K2 (the "
+          f"K2-only plan, {3 * len(replay)} launches, replayed): "
+          f"{ms_k2_units:.4f} ms; on K8 ({launches['fused_bottleneck']} "
+          f"launches): {t['fused_bottleneck'][0]:.4f} ms")
     replaces = {"preprocess": ("preprocess.cu",
                                "pytorchcv_tpu/kernels/preprocess.py:133"),
                 "int8_conv": ("int8_conv.cu",
                               "pytorchcv_tpu/quant/resnet_int8.py:66"),
                 "stem": ("stem.cu", "pytorchcv_tpu/quant/resnet_int8.py:253"),
                 "maxpool_i8": ("stem.cu",
-                               "pytorchcv_tpu/quant/resnet_int8.py:261")}
-    for name, (source, rep) in replaces.items():
-        ms, plain, lib, bound = t[name]
-        record.append(_record_entry(name, "resnet50", source, rep,
-                                    launches[name], max_err[name], ms, plain,
-                                    bound, lib))
+                               "pytorchcv_tpu/quant/resnet_int8.py:261"),
+                "fused_bottleneck": (
+                    "fused_bottleneck.cu",
+                    "pytorchcv_tpu/kernels/fused_bottleneck.py:176")}
+    for kname, (source, rep) in replaces.items():
+        ms, plain, lib, bound = t[kname]
+        record.append(_record_entry(kname, name, source, rep,
+                                    launches[kname], max_err[kname], ms,
+                                    plain, bound, lib))
+    return {"model": model, "scales": serve.scales, "raw128": raw128,
+            "stem128": stem128, "chains32": chains32, "k3_ms": t["stem"][0],
+            "cudnn_ms": t["stem"][2]}
+
+
+def _chains(routes, record) -> None:
+    """Phase 18: K8 against its plain version on every distinct chain call
+    of the batch-32 resnet50 and wrn50_2 forwards, and at the JAX test's
+    shape (h 4, w 8, C 128, M 128, 2 units, batch 2)."""
+    import numpy as np
+    from pytorchcv_tpu_torch.kernels.fused_bottleneck import (
+        fused_bottleneck_chain, pack_units)
+    max_err = {}
+    for name, state in routes.items():
+        _check_chains(state["chains32"], max_err, f"{name} (phase 18)")
+    rng = np.random.default_rng(0)
+    h, w, c, m, n_units, bsz = 4, 8, 128, 128, 2, 2
+
+    def cell(cin, cout, k):
+        kern = rng.standard_normal((k, k, cin, cout)).astype(np.float32) * 0.05
+        s_w = np.maximum(np.abs(kern).max(axis=(0, 1, 2)), 1e-12) / 127.0
+        wq = np.clip(np.round(kern / s_w), -127, 127).astype(np.int8)
+        return {"wq": torch.from_numpy(np.ascontiguousarray(
+                    wq.transpose(3, 0, 1, 2))).cuda(),
+                "gain": torch.from_numpy((s_w * rng.uniform(0.5, 1.5, cout))
+                                         .astype(np.float32)).cuda(),
+                "bias": torch.from_numpy((rng.standard_normal(cout) * 0.1)
+                                         .astype(np.float32)).cuda()}
+    units = [{"conv1": cell(c, m, 1), "conv2": cell(m, m, 3),
+              "conv3": cell(m, c, 1)} for _ in range(n_units)]
+    packed = pack_units(units, [2.5] + [1.8, 2.1, 2.4] * n_units)
+    x = torch.from_numpy(rng.integers(-127, 128, (bsz, h, w, c),
+                                      dtype=np.int8)).cuda()
+    with torch.inference_mode():
+        out = fused_bottleneck_chain(x, packed)
+        _check_chains([((x, packed), {}, out)], max_err, "JAX test shape")
+    for entry in record:
+        if entry["name"] == "fused_bottleneck":
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       max_err["fused_bottleneck"])
+
+
+def _stem_int8(card, routes, record) -> None:
+    """Phase 21: K9 against its plain version, bit-exact, on the resnet50
+    and wrn50_2 stems at batch 128 (the preprocess output as NHWC f32,
+    s_img the stem conv's calibrated scale, s_out stage 1's input scale),
+    timed beside K3 and cuDNN's f32 conv of the same image; agreement with
+    K3's int8 output printed (the input quantization differs)."""
+    import torch.nn.functional as F
+    from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from pytorchcv_tpu_torch.kernels.preprocess import \
+        classification_preprocess
+    from pytorchcv_tpu_torch.kernels.stem_conv import (
+        stem_conv7x7_s2, stem_conv7x7_s2_reference)
+    for name, st in routes.items():
+        model, scales = st["model"], st["scales"]
+        pre = classification_preprocess(name, SOURCE_HW,
+                                        model_in_size=model.in_size,
+                                        out_dtype=torch.float32,
+                                        layout="nhwc", device="cuda")
+        block = model.features.init_block.conv
+        k7 = block.conv.weight.detach().permute(2, 3, 1, 0).contiguous()
+        if block.bn is not None:
+            bn = block.bn
+            gain = bn.weight.detach() * torch.rsqrt(bn.running_var + 1e-5)
+            bias = (bn.bias.detach() - bn.running_mean * gain).contiguous()
+        else:
+            gain = torch.ones_like(block.conv.bias)
+            bias = block.conv.bias.detach().contiguous()
+        s_img = scales["features/init_block/conv/conv"]
+        s_out = scales["features/stage1/unit1/body/conv1/conv"]
+        with torch.inference_mode():
+            x = pre(st["raw128"])
+            args = (x, k7, gain, bias, s_img, s_out)
+            reset_launch_counts()
+            out = stem_conv7x7_s2(*args)
+            torch.cuda.synchronize()
+            launches = LAUNCHES["stem_int8"]
+            _require(launches == 1, f"K9 launches {launches}")
+            ref = stem_conv7x7_s2_reference(*args)
+            err = float((out.float() - ref.float()).abs().max())
+            same = torch.equal(out, ref)
+            k3_out = st["stem128"][2]
+            agree = float((out == k3_out).float().mean())
+            print(f"{name} K9 int8 stem x {tuple(x.shape)} -> "
+                  f"{tuple(out.shape)}: {'bit-exact' if same else 'DIFFERS'}"
+                  f" (max abs err {err}); {agree:.4f} of elements equal to "
+                  f"K3's int8 output (information only: K3 takes the bf16 "
+                  f"image, K9 the image quantized at s_img)")
+            _require(same, f"{name} K9 not bit-exact")
+            ms = _cuda_ms(lambda: stem_conv7x7_s2(*args), 20)
+            plain = _cuda_ms(lambda: stem_conv7x7_s2_reference(*args), 5)
+            xn = x.permute(0, 3, 1, 2).contiguous()
+            wf = block.conv.weight.detach()
+            lib = _cuda_ms(lambda: F.conv2d(xn, wf, stride=2, padding=3), 20)
+            bsz, h, w, _ = x.shape
+            o = k7.shape[3]
+            bound = _bound(_nbytes(x, k7, gain, bias, out),
+                           2 * bsz * (h // 2) * (w // 2) * o * 147, "int8")
+        print(f"[{card}] {name} K9 int8 stem batch {BATCH_TIME}: kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, K3 (bf16 stem, phase "
+              f"4/20) {st['k3_ms']:.4f} ms, cuDNN f32 conv {lib:.4f} ms, "
+              f"bound {bound[0]:.4f} ms ({bound[1]})")
+        record.append(_record_entry(
+            "stem_int8", f"{name} stem_conv7x7_s2", "stem_int8.cu",
+            "pytorchcv_tpu/kernels/stem_conv.py:149", launches, err, ms,
+            plain, bound, lib))
+
+
+def _patch_probe(card, record) -> None:
+    """Phase 22: K10 against its plain version at the probe tool's shapes
+    (H 60, W 128, C 128, n 6480, numpy seed 0, as the tool draws them),
+    within 1e-5 of max |plain|, timed beside it, with its bound."""
+    import numpy as np
+    from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from pytorchcv_tpu_torch.kernels.patch_probe import (
+        PATCH_COLS, PATCH_ROWS, patch_window_sum, patch_window_sum_reference)
+    rs = np.random.RandomState(0)
+    h, w, c, n = 60, 128, 128, 6480
+    x = torch.from_numpy(rs.randn(h, w, c).astype(np.float32)).cuda().to(
+        torch.bfloat16)
+    starts = torch.from_numpy(np.stack(
+        [rs.randint(0, h - PATCH_ROWS, n), rs.randint(0, w - PATCH_COLS, n)],
+        1).astype(np.int32)).cuda()
+    with torch.inference_mode():
+        reset_launch_counts()
+        out = patch_window_sum(x, starts)
+        torch.cuda.synchronize()
+        launches = LAUNCHES["patch_window_sum"]
+        _require(launches == 1, f"K10 launches {launches}")
+        ref = patch_window_sum_reference(x, starts)
+        err = float((out - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        print(f"K10 window sums x {tuple(x.shape)}, {n} starts: max abs err "
+              f"{err}, {rel:.3e} of max |plain| (gate {PROBE_TOL})")
+        _require(rel <= PROBE_TOL, f"K10 rel err {rel}")
+        ms = _cuda_ms(lambda: patch_window_sum(x, starts), 20)
+        plain = _cuda_ms(lambda: patch_window_sum_reference(x, starts), 5)
+    bound = _bound(_nbytes(x, starts, out),
+                   n * PATCH_ROWS * PATCH_COLS * c, "f32")
+    print(f"[{card}] K10 window sums: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, library none, bound {bound[0]:.4f} ms "
+          f"({bound[1]})")
+    record.append(_record_entry(
+        "patch_window_sum", "patch_window_sum (probe)", "patch_probe.cu",
+        "tools/exp_pallas_patch_probe.py:51", launches, err, ms, plain,
+        bound, None))
 
 
 def _danet(card, record) -> None:
@@ -1754,7 +2050,7 @@ def main() -> None:
 
     record = []
     t0 = time.perf_counter()
-    _resnet(card, record)
+    routes = {"resnet50": _int8_route(card, record, "resnet50")}
     print(f"resnet50 phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     _danet(card, record)
@@ -1768,6 +2064,14 @@ def main() -> None:
     t0 = time.perf_counter()
     _propainter(card, record)
     print(f"propainter phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    routes["wrn50_2"] = _int8_route(card, record, "wrn50_2")
+    _chains(routes, record)
+    print(f"wrn50_2 and K8 phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _stem_int8(card, routes, record)
+    _patch_probe(card, record)
+    print(f"K9 and K10 phases: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": record}))

@@ -32,7 +32,8 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 LAUNCHES: Dict[str, int] = {"preprocess": 0, "int8_conv": 0, "stem": 0,
                             "maxpool_i8": 0, "flash_attention": 0,
                             "deform_sample": 0, "dwconv": 0,
-                            "window_attention": 0}
+                            "window_attention": 0, "fused_bottleneck": 0,
+                            "stem_int8": 0, "patch_window_sum": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -47,7 +48,17 @@ _SIGNATURES = {
     "pcv_deform_sample": [_P, _P, _P, _P] + [_I] * 5 + [_P],
     "pcv_dwconv": [_P] * 5 + [_I] * 12 + [_P],
     "pcv_window_attention": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
+    "pcv_fused_bottleneck": [_P] * 10 + [_F] * 4 + [_P] + [_I] * 8 + [_P],
+    "pcv_stem_int8": [_P] * 4 + [_F] * 2 + [_P] + [_I] * 6 + [_P],
+    "pcv_patch_window_sum": [_P] * 3 + [_I] * 4 + [_P],
 }
+
+
+def f32(v: float) -> float:
+    """A Python float (float64) rounded to the nearest float32 value, as
+    JAX rounds a Python scalar that meets a float32 array."""
+    import numpy as np
+    return float(np.float32(v))
 
 
 def reset_launch_counts() -> None:
@@ -149,6 +160,15 @@ def no_tf32():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old_mm
         torch.backends.cudnn.allow_tf32 = old_cudnn
+
+
+def autograd_records(*tensors) -> bool:
+    """Whether autograd would record an operation on ``tensors`` (None
+    entries are skipped). The kernels have no backward: their wrappers
+    refuse such calls, and the models route them to the plain versions."""
+    import torch
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def require_cuda_or_cpu(name: str, *tensors) -> bool:

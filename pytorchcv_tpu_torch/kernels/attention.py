@@ -20,8 +20,8 @@ from typing import Optional
 
 import torch
 
-from ._build import (LAUNCHES, check, library, no_tf32, require_cuda_or_cpu,
-                     stream_of)
+from ._build import (LAUNCHES, autograd_records, check, library, no_tf32,
+                     require_cuda_or_cpu, stream_of)
 
 __all__ = ["fused_window_attention", "fused_window_attention_reference"]
 
@@ -77,7 +77,7 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = d ** -0.5
     tensors = (q, k, v) if mask is None else (q, k, v, mask)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if autograd_records(*tensors):
         raise ValueError("window_attention: K7 has no backward; call it "
                          "under torch.no_grad() or torch.inference_mode()")
     if mask is not None:

@@ -23,7 +23,8 @@ import math
 
 import torch
 
-from ._build import LAUNCHES, check, library, require_cuda_or_cpu, stream_of
+from ._build import (LAUNCHES, autograd_records, check, library,
+                     require_cuda_or_cpu, stream_of)
 
 __all__ = ["deform_sample", "deform_sample_reference", "tap_positions",
            "bilinear_taps", "window_size"]
@@ -110,7 +111,8 @@ def deform_sample(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     P = 2*ceil(residue_bound) + 4. The caller's (not checked): every
     offset is a per-pixel center plus a residual of magnitude at most
     ``residue_bound``. CUDA tensors run the kernel, CPU tensors the plain
-    version."""
+    version. A call that autograd would record raises (K5 has no backward;
+    ``nn.deform.deform_conv2d`` takes its general route then)."""
     if x.dim() != 4 or x.shape[0] != 1 or x.dtype not in _DTYPES:
         raise ValueError(f"deform_sample: x must be (1, C, H, W) of "
                          f"{_DTYPES}, got {tuple(x.shape)} {x.dtype}")
@@ -125,6 +127,9 @@ def deform_sample(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"deform_sample: offset {tuple(offset.shape)} and "
                          f"mask {tuple(mask.shape)} do not match x "
                          f"{tuple(x.shape)} with {g} groups")
+    if autograd_records(x, offset, mask):
+        raise ValueError("deform_sample: K5 has no backward; call it under "
+                         "torch.no_grad() or torch.inference_mode()")
     if not require_cuda_or_cpu("deform_sample", x, offset, mask):
         return deform_sample_reference(x, offset, mask, g)
     if h * w * 9 * c >= 2 ** 31:

@@ -18,7 +18,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ._build import LAUNCHES, check, library, require_cuda_or_cpu, stream_of
+from ._build import (LAUNCHES, autograd_records, check, library,
+                     require_cuda_or_cpu, stream_of)
 
 __all__ = ["ACTIVATIONS", "dwconv2d_bn_act", "dwconv2d_bn_act_reference"]
 
@@ -118,8 +119,7 @@ def dwconv2d_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if ho < 1 or wo < 1:
         raise ValueError(f"dwconv: empty output for x {tuple(x.shape)}, "
                          f"k {k}, stride {stride}, pad {pad}")
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (x, w, scale, shift)):
+    if autograd_records(x, w, scale, shift):
         raise ValueError("dwconv: K6 has no backward; call it under "
                          "torch.no_grad() or torch.inference_mode()")
     if not require_cuda_or_cpu("dwconv", x, w, scale, shift):

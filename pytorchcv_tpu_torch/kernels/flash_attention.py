@@ -14,8 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from ._build import (LAUNCHES, check, library, no_tf32, require_cuda_or_cpu,
-                     stream_of)
+from ._build import (LAUNCHES, autograd_records, check, library, no_tf32,
+                     require_cuda_or_cpu, stream_of)
 
 __all__ = ["flash_attention", "flash_attention_reference"]
 
@@ -39,7 +39,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float = 1.0) -> torch.Tensor:
     """K4: ``q`` (..., Lq, d), ``k`` (..., Lk, d), ``v`` (..., Lk, dv), one
     dtype (bf16 or f32), d <= 128 -> (..., Lq, dv) in q's dtype. CUDA
-    tensors run the kernel at every size, CPU tensors the plain version."""
+    tensors run the kernel at every size, CPU tensors the plain version.
+    A call that autograd would record raises (K4 has no backward; callers
+    take ``flash_attention_reference`` then)."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: q, k, v must share one dtype of "
                          f"{_DTYPES}, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -56,6 +58,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: need 1 <= d <= {_MAX_D} and "
                          f"non-empty L and dv, got {tuple(q.shape)}, "
                          f"{tuple(v.shape)}")
+    if autograd_records(q, k, v):
+        raise ValueError("flash_attention: K4 has no backward; call it "
+                         "under torch.no_grad() or torch.inference_mode()")
     if not require_cuda_or_cpu("flash_attention", q, k, v):
         return flash_attention_reference(q, k, v, scale)
     if not all(t.is_contiguous() for t in (q, k, v)):

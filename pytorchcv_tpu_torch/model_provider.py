@@ -7,6 +7,7 @@ import math
 import torch
 from torch import nn
 
+from .kernels._build import no_tf32
 from .models import get_constructor, registered_models
 
 __all__ = ["get_model", "registered_models", "resolve_device"]
@@ -42,11 +43,30 @@ def _init_weights(module: nn.Module, rng: int) -> None:
                     m.bias.zero_()
 
 
+def _pin_f32(module: nn.Module) -> None:
+    """Run every forward of ``module`` under ``no_tf32()``: f32 convolutions
+    and matmuls compute in f32, as the JAX package's do, whatever torch's
+    TF32 flags say (cuDNN's default is TF32); the flags are restored after
+    the forward, also when it raises."""
+    entered = []
+
+    def enter(_module, _args):
+        ctx = no_tf32()
+        ctx.__enter__()
+        entered.append(ctx)
+
+    def leave(_module, _args, _out):
+        entered.pop().__exit__(None, None, None)
+
+    module.register_forward_pre_hook(enter)
+    module.register_forward_hook(leave, always_call=True)
+
+
 def get_model(name: str, pretrained: bool = False, rng: int = 0,
               device=None, **kwargs) -> nn.Module:
     """Build a zoo model by registered name, initialized from seed ``rng``,
     on ``device`` (default: the CUDA card; ``"cpu"`` must be asked for), in
-    eval mode."""
+    eval mode. Its forward computes f32 without TF32 (``_pin_f32``)."""
     if pretrained:
         raise NotImplementedError(
             "pretrained weights are not yet ported to pytorchcv_tpu_torch; "
@@ -55,4 +75,5 @@ def get_model(name: str, pretrained: bool = False, rng: int = 0,
     device = resolve_device(device)
     module = get_constructor(name)(**kwargs)
     _init_weights(module, rng)
+    _pin_f32(module)
     return module.to(device).eval()

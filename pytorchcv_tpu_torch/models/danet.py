@@ -2,7 +2,8 @@
 (``backbone.1.unit1.body.conv1.conv.weight``, ``head.branch_pa.att.
 query_conv.weight``, ...). Counterpart of ``pytorchcv_tpu.models.danet``:
 the same two registered names. The position attention runs on the flash
-attention kernel (K4)."""
+attention kernel (K4), or on its plain version when autograd records the
+forward (K4 has no backward)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,9 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from ..kernels.flash_attention import flash_attention
+from ..kernels._build import autograd_records
+from ..kernels.flash_attention import (flash_attention,
+                                       flash_attention_reference)
 from ..nn import conv1x1, conv3x3_block, interpolate
 from .pspnet import segmentation_backbone
 from .registry import register_model
@@ -48,9 +51,11 @@ class PosAttBlock(nn.Module):
         def tokens(t):           # (B, C', H, W) -> (B, H*W, C')
             return t.flatten(2).transpose(1, 2).contiguous()
 
-        y = flash_attention(tokens(self.query_conv(x)),
-                            tokens(self.key_conv(x)),
-                            tokens(self.value_conv(x)), 1.0)
+        q, k, v = (tokens(self.query_conv(x)), tokens(self.key_conv(x)),
+                   tokens(self.value_conv(x)))
+        attend = flash_attention_reference if autograd_records(q, k, v) \
+            else flash_attention
+        y = attend(q, k, v, 1.0)
         y = y.to(x.dtype).transpose(1, 2).reshape(b, c, h, w)
         return self.scale(y) + x
 

@@ -15,10 +15,11 @@ The sparse window attention computes both of the reference's paths for
 every window, as the JAX model does: the full path (a window's tokens of
 all frames against the window's, the rolled and the pooled tokens of the
 sampled frames) and the window-local one; each window's mask selects one.
-Both run on K7 (``kernels/attention.py``). Soft split and soft composite
-keep the reference's unfold / linear / fold formulation, whose weights are
-the JAX layers' (``(C*kh*kw)`` rows or columns in unfold's channel-major
-``(c, ki, kj)`` order).
+Both run on K7 (``kernels/attention.py``), or on its plain version when
+autograd records the forward (K7 has no backward). Soft split and soft
+composite keep the reference's unfold / linear / fold formulation, whose
+weights are the JAX layers' (``(C*kh*kw)`` rows or columns in unfold's
+channel-major ``(c, ki, kj)`` order).
 """
 
 from __future__ import annotations
@@ -32,7 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.attention import fused_window_attention
+from ..kernels._build import autograd_records
+from ..kernels.attention import (fused_window_attention,
+                                 fused_window_attention_reference)
 from ..nn import (InterpolationBlock, Sequential, conv3x3_block, interpolate,
                   lambda_leakyrelu, lambda_tanh)
 from ..nn.activ import Activation
@@ -270,9 +273,12 @@ class SparseWindowAttention(nn.Module):
         k_full = win_k_all.reshape(b, nw, heads, -1, c_head)
         v_full = win_v_all.reshape(b, nw, heads, -1, c_head)
         q_full = win_q.reshape(b, nw, heads, t * wh * ww, c_head)
-        y_full = fused_window_attention(q_full, k_full, v_full, scale).view(
+        attend = fused_window_attention_reference \
+            if autograd_records(q_full, k_full, v_full) \
+            else fused_window_attention
+        y_full = attend(q_full, k_full, v_full, scale).view(
             b, nw, heads, t, wh * ww, c_head)
-        y_local = fused_window_attention(win_q, win_k, win_v, scale)
+        y_local = attend(win_q, win_k, win_v, scale)
         out = torch.where(win_masked[:, :, None, None, None, None], y_full,
                           y_local)
         out = out.view(b, n_wh, n_ww, heads, t, wh, ww, c_head).permute(

@@ -7,10 +7,10 @@ from __future__ import annotations
 import contextlib
 from typing import Callable, Iterator, Optional, Tuple, Union
 
-import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels._build import autograd_records
 from ..kernels.dwconv import dwconv2d_bn_act
 from .activ import Activation, Swish, create_activation
 from .norm import BN_EPS, fold_batchnorm
@@ -67,7 +67,8 @@ class ConvBlock(nn.Module):
         """``pad``: ((top, bottom), (left, right)) zeros for this call, for
         a block built with padding 0 (TF-SAME, whose pad follows the
         input's size)."""
-        if self.fused_dw and not self.training and not self._records(x):
+        if self.fused_dw and not self.training and not autograd_records(
+                x, self.conv.weight, self.bn.weight, self.bn.bias):
             return self._dwconv(x, pad)
         if pad is not None:
             (top, bottom), (left, right) = pad
@@ -78,12 +79,6 @@ class ConvBlock(nn.Module):
         if self.activ is not None:
             x = self.activ(x)
         return x
-
-    def _records(self, x) -> bool:
-        """Whether autograd records this forward."""
-        return torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x, self.conv.weight, self.bn.weight, self.bn.bias))
 
     def _dwconv(self, x, pad: Optional[Pad]):
         if pad is None:

@@ -9,8 +9,9 @@ Two routes, one function:
   kernel, stride 1, padding 1, batch 1 and H, W >= P = 2*ceil(bound) + 4,
   ``kernels.deform_patch.deform_sample`` samples the taps (the CUDA kernel
   on the card, its plain version on the CPU) and ``torch.matmul`` applies
-  the (9*C, O) weight matrix. The JAX package also asks that the feature
-  map fit the TPU's VMEM; the card has no such limit, so the port does not.
+  the (9*C, O) weight matrix, unless autograd records the call (K5 has no
+  backward). The JAX package also asks that the feature map fit the TPU's
+  VMEM; the card has no such limit, so the port does not.
   ``center`` marks the contract and is not read: the kernel reads each
   sample's corners directly, without the window the center places.
 - **general route**: every other call (any kernel size, stride, padding,
@@ -28,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from ..kernels._build import autograd_records
 from ..kernels.deform_patch import (bilinear_taps, deform_sample,
                                     tap_positions, window_size)
 
@@ -45,7 +47,8 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     ho, wo = offset.shape[2:]
     if (center is not None and residue_bound is not None and stride == 1
             and padding == 1 and (kh, kw) == (3, 3) and b == 1
-            and min(h, w) >= window_size(residue_bound)):
+            and min(h, w) >= window_size(residue_bound)
+            and not autograd_records(x, offset, mask)):
         taps = deform_sample(x, offset, mask, deform_groups, residue_bound)
         taps = taps.view(1, h * w, 9 * c)
     else:

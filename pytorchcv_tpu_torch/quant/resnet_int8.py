@@ -13,22 +13,32 @@ pipeline's bit for bit on the same weights and scales:
 * every unit conv: int8 conv with its ``_cell`` epilogue (kernel K2); the
   unit's last conv also runs the bf16-domain residual tail (add, ReLU,
   requantize to the next unit's scale, or bf16 after the last unit);
+* chain steps: each maximal run of consecutive units that K8 takes
+  (``_chainable``: no identity conv, an int8 output, and a 1x1 / 3x3 / 1x1
+  body with every stride 1 and widths K8 takes,
+  ``kernels.fused_bottleneck.takes_unit``) is one step on K8, whose
+  arithmetic is the K2 chain's, so the logits do not change by a bit.
+  Which units chain is decided here, once; at run time a chain step runs
+  K8 or raises;
 * head: mean-pool and the FC layer in f32 (``torch.mean``, ``torch.matmul``).
 
-Trees this pipeline does not walk (SE gates, the deep SENet stem, grouped
-convs, BN-less cells) raise ``UnsupportedTreeError``; the deep-stem,
-dilated segmentation trunk has its own pipeline, ``seg_backbone_int8``.
+BN-less cells (the ImageNet WRN family: conv + bias, no norm) fold to gain
+``s_w`` and the conv's bias, as in the JAX package. Trees this pipeline does
+not walk (SE gates, the deep SENet stem, grouped convs) raise
+``UnsupportedTreeError``; the deep-stem, dilated segmentation trunk has its
+own pipeline, ``seg_backbone_int8``.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
-from ..kernels._build import no_tf32
+from ..kernels._build import f32 as _f32, no_tf32
+from ..kernels.fused_bottleneck import (fused_bottleneck_chain,
+                                        pack_units, takes_unit)
 from ..kernels.int8_conv import int8_conv
 from ..kernels.stem import maxpool_i8, stem_conv
 from ..nn.conv import ConvBlock
@@ -42,23 +52,18 @@ class UnsupportedTreeError(NotImplementedError):
     """A model whose structure the port's int8 pipeline does not serve."""
 
 
-def _f32(v: float) -> float:
-    """Round a Python float (float64) to the nearest float32 value, as JAX
-    does when a Python scalar meets a float32 array."""
-    return float(np.float32(v))
-
-
 def _cell_consts(block: ConvBlock, path: str) -> Dict[str, torch.Tensor]:
     """Fold a conv + BN block into {wq int8 (Cout,kh,kw,Cin), gain, bias},
     rounding as the JAX package's jitted fold does on XLA: the division by
     127 is a product with f32(1 / 127), and ``beta - mean * g`` is one fused
-    multiply-add (its exact product is taken in float64)."""
+    multiply-add (its exact product is taken in float64). A BN-less cell
+    (WRN, reference wrn.py:12) folds to gain ``s_w`` and the conv's bias, or
+    zeros (JAX ``_cell_consts``)."""
     conv, bn = block.conv, getattr(block, "bn", None)
     if conv.groups != 1:
         raise UnsupportedTreeError(f"{path}: grouped conv is not yet ported")
-    if bn is None:
-        raise UnsupportedTreeError(f"{path}: BN-less cell is not yet ported")
-    if bn.running_mean is None or bn.running_var is None:
+    if bn is not None and (bn.running_mean is None or
+                           bn.running_var is None):
         raise ValueError(f"{path}: BatchNorm has no running statistics; "
                          f"the int8 pipeline folds them into the conv")
     kernel = conv.weight.detach().to(torch.float32).permute(0, 2, 3, 1)
@@ -66,13 +71,18 @@ def _cell_consts(block: ConvBlock, path: str) -> Dict[str, torch.Tensor]:
         _f32(1.0 / 127.0)
     wq = torch.clamp(torch.round(kernel / s_w[:, None, None, None]),
                      -127, 127).to(torch.int8).contiguous()
+    cell = {"wq": wq, "stride": conv.stride[0],
+            "dilation": conv.dilation[0]}
+    if bn is None:
+        bias = torch.zeros_like(s_w) if conv.bias is None else \
+            conv.bias.detach().to(torch.float32)
+        return dict(cell, gain=s_w, bias=bias)
     g = bn.weight.detach().to(torch.float32) * torch.rsqrt(
         bn.running_var.to(torch.float32) + _EPS)
     bias = (bn.bias.detach().to(torch.float64) -
             bn.running_mean.to(torch.float64) * g.to(torch.float64)
             ).to(torch.float32)
-    return {"wq": wq, "gain": s_w * g, "bias": bias,
-            "stride": conv.stride[0], "dilation": conv.dilation[0]}
+    return dict(cell, gain=s_w * g, bias=bias)
 
 
 def _quantize_tree(model: nn.Module) -> Dict:
@@ -180,6 +190,9 @@ def _forward(plan: Dict, x: torch.Tensor) -> torch.Tensor:
                               st["q"]))
     out = None
     for u in plan["units"]:
+        if "chain" in u:
+            xq = fused_bottleneck_chain(xq, u["chain"])
+            continue
         y = _unit(u, xq)
         if y.dtype == torch.int8:
             xq = y
@@ -193,13 +206,15 @@ def _forward(plan: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _folded_stem_kernel(block: ConvBlock) -> torch.Tensor:
-    """The stem conv with its BN gain folded in, bf16, input channel first:
-    (3, k, k, Cout), the stem kernel's layout."""
-    g0 = block.bn.weight.to(torch.float32) * torch.rsqrt(
-        block.bn.running_var.to(torch.float32) + _EPS)
+    """The stem conv with its BN gain folded in (none without BN: JAX's g0
+    = 1), bf16, input channel first: (3, k, k, Cout), the stem kernel's
+    layout."""
     kernel = block.conv.weight.to(torch.float32)        # (O, 3, k, k)
-    kf = (kernel * g0[:, None, None, None]).to(torch.bfloat16)
-    return kf.permute(1, 2, 3, 0).contiguous()
+    if block.bn is not None:
+        g0 = block.bn.weight.to(torch.float32) * torch.rsqrt(
+            block.bn.running_var.to(torch.float32) + _EPS)
+        kernel = kernel * g0[:, None, None, None]
+    return kernel.to(torch.bfloat16).permute(1, 2, 3, 0).contiguous()
 
 
 def _unit_plan(uq: Dict, prefix: str, s_in: float, s_next: Optional[float],
@@ -224,14 +239,26 @@ def _unit_plan(uq: Dict, prefix: str, s_in: float, s_next: Optional[float],
             "res_scale": res_scale}
 
 
+def _chainable(uq: Dict, s_next: Optional[float]) -> bool:
+    """Whether K8 takes this unit (``uq`` from ``_quantize_tree``): no
+    identity conv, an int8 output (``s_next`` given) and a body K8 takes
+    (``takes_unit``: 1x1 / 3x3 / 1x1, every stride 1, no dilation, C and
+    M within ``fits``). Grouped convs and SE raise at the tree walk."""
+    return ("identity_conv" not in uq and s_next is not None
+            and sorted(uq["body"]) == ["conv1", "conv2", "conv3"]
+            and takes_unit(uq["body"]))
+
+
 def prepare_int8_resnet(model: nn.Module, scales: Dict[str, float],
-                        conv1_stride: Optional[bool] = None
-                        ) -> Tuple[Callable, Dict]:
+                        conv1_stride: Optional[bool] = None,
+                        chains: bool = True) -> Tuple[Callable, Dict]:
     """Serving entry point: quantize weights once and return
     ``(infer_fn, plan)`` with ``infer_fn(plan, x) -> bf16 logits``.
 
     ``scales``: {path: amax} from ``calibrate_int8`` (or the JAX package's,
-    which uses the same keys)."""
+    which uses the same keys). ``chains``: run each maximal run of
+    ``_chainable`` units as one K8 chain step (the default); False keeps
+    every unit on K2 (the same logits)."""
     _resolve_conv1_stride(model, conv1_stride)
     sc = scales.__getitem__
     with torch.no_grad():
@@ -242,6 +269,14 @@ def prepare_int8_resnet(model: nn.Module, scales: Dict[str, float],
                          "bias": qf["init_block"]["conv"]["bias"],
                          "q": _f32(127.0 / s_u1)},
                 "units": []}
+        run, run_scales = [], []        # the pending chain and its scales
+
+        def close_chain():
+            if run:
+                plan["units"].append({"chain": pack_units(run, run_scales)})
+                run.clear()
+                run_scales.clear()
+
         stage_names = sorted(k for k in qf if k.startswith("stage"))
         s_in = s_u1
         for si, stage in enumerate(stage_names):
@@ -254,11 +289,20 @@ def prepare_int8_resnet(model: nn.Module, scales: Dict[str, float],
                 else:
                     nxt = None
                 s_next = sc(nxt) if nxt else None
-                plan["units"].append(_unit_plan(
-                    qf[stage][unit], f"features/{stage}/{unit}/body", s_in,
-                    s_next, sc))
+                uq, prefix = qf[stage][unit], f"features/{stage}/{unit}/body"
+                if chains and _chainable(uq, s_next):
+                    if not run:
+                        run_scales.append(s_in)
+                    run.append(uq["body"])
+                    run_scales += [sc(f"{prefix}/conv2/conv"),
+                                   sc(f"{prefix}/conv3/conv"), s_next]
+                else:
+                    close_chain()
+                    plan["units"].append(_unit_plan(uq, prefix, s_in, s_next,
+                                                    sc))
                 if s_next is not None:
                     s_in = s_next
+        close_chain()
         fc = model.output
         plan["head"] = {
             "kernel": fc.weight.t().to(torch.bfloat16).to(torch.float32)

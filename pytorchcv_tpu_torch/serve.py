@@ -3,6 +3,8 @@
     serve = make_serving_fn("resnet50", source_hw=(256, 256))
     logits = serve(batch_u8)        # (B, 256, 256, 3) uint8 -> (B, 1000) bf16
 
+    serve = make_serving_fn("wrn50_2", (256, 256))   # the same int8 route
+
     serve = make_serving_fn("danet_resnetd50b_cityscapes", (1024, 2048),
                             task="segmentation")
     maps = serve(batch_u8)          # -> 3 x (B, 19, 480, 480) bf16 (aux)
@@ -14,7 +16,8 @@ default:
 
 * ``resnet`` (classification): the eval preprocess (kernel K1, planar bf16
   out), calibration in the preprocessed domain, and the int8 ResNet
-  pipeline (kernels K3 and K2);
+  pipeline (kernels K3, ``maxpool_i8``, K2 and the K8 bottleneck chains),
+  for ResNets and the BN-less WRN;
 * ``seg_backbone`` (segmentation): the resize-only preprocess (K1),
   calibration over the whole f32 model, the int8 dilated backbone (K3,
   ``maxpool_i8``, K2) and the model's own head on a bf16 copy, fed through
@@ -138,9 +141,9 @@ def make_serving_fn(model_name: str, source_hw: Tuple[int, int],
     **model_kwargs)``. The closure carries ``route`` ("bf16" or the int8
     pipeline's name); ``make_reference_forward()``, the f32 oracle: f32
     preprocess and the unquantized f32 model, without TF32 and with its
-    depthwise blocks unfused (no K6 in it); and ``head``,
-    the bf16 copy of the model that runs the segmentation head (None
-    otherwise)."""
+    depthwise blocks unfused (no K6 in it); ``head``, the bf16 copy of the
+    model that runs the segmentation head (None otherwise); and ``scales``,
+    the calibrated amaxes of an int8 route (None on the bf16 route)."""
     if task not in _TASK_ROUTES:
         raise NotImplementedError(f"task {task!r} is not yet ported")
     if mode not in ("auto", "int8", "bf16"):
@@ -183,7 +186,7 @@ def make_serving_fn(model_name: str, source_hw: Tuple[int, int],
                                            **kw)
 
     pre = make_pre()
-    head = None
+    head = scales = None
     if route is None:
         infer = as_bfloat16(model)
     elif task == "classification":
@@ -220,4 +223,5 @@ def make_serving_fn(model_name: str, source_hw: Tuple[int, int],
     pipeline.route = "bf16" if route is None else route
     pipeline.make_reference_forward = make_reference_forward
     pipeline.head = head
+    pipeline.scales = scales
     return pipeline

@@ -38,7 +38,7 @@ def test_import_leaves_jax_out():
 
 def test_registry_holds_every_jax_resnet_name():
     """Each ported family (resnet, resnetd, danet, propainter_rfc,
-    efficientnet, propainter, propainter_ip) registers exactly the JAX
+    efficientnet, propainter, propainter_ip, wrn) registers exactly the JAX
     package's names of that family, and nothing else."""
     def family(names, registry, fam):
         return {n for n in names if registry.get_constructor(
@@ -47,15 +47,15 @@ def test_registry_holds_every_jax_resnet_name():
     from pytorchcv_tpu_torch.models import registry as port_registry
     counts = {}
     for fam in ("resnet", "resnetd", "danet", "propainter_rfc",
-                "efficientnet", "propainter", "propainter_ip"):
+                "efficientnet", "propainter", "propainter_ip", "wrn"):
         jax_names = family(jax_registry.registered_models(), jax_registry,
                            fam)
         assert family(port_names, port_registry, fam) == jax_names, fam
         counts[fam] = len(jax_names)
     assert counts == {"resnet": 21, "resnetd": 3, "danet": 2,
                       "propainter_rfc": 1, "efficientnet": 26,
-                      "propainter": 1, "propainter_ip": 1}
-    assert len(port_names) == 55
+                      "propainter": 1, "propainter_ip": 1, "wrn": 1}
+    assert len(port_names) == 56
 
 
 def test_get_model_is_seeded_and_named():

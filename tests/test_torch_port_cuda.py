@@ -6,8 +6,12 @@ widths no tile divides, the deformable sampler at widths that are not
 multiples of 8, with windows across every border and element counts no
 block divides, and the depthwise conv (K6) at odd sizes, asymmetric pads,
 planes no block divides and every activation, the window attention (K7)
-at head widths, lengths and masks off ProPainter's path, and a narrow
-ProPainter generator on the card against the CPU.
+at head widths, lengths and masks off ProPainter's path, a narrow
+ProPainter generator on the card against the CPU, the fused bottleneck
+chain (K8) at odd maps, ragged row tiles and WRN-50-2's widest stage, the
+int8 stem (K9) and the window-sum probe (K10) at odd sizes, the ResNet-50
+logits with and without K8 chains, DANet's position-attention gradients
+against the CPU's and a direct f32 forward under torch's TF32 defaults.
 
 Each test carries the ``cuda`` marker, needs a CUDA card and nvcc, and
 skips without a card. On a machine without JAX, run them without the
@@ -187,12 +191,13 @@ def test_maxpool_i8_kernel_matches_plain(hw):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("name,kw,n_convs", [
-    ("resnet10", {}, 11), ("resnet50", {"width_scale": 0.25}, 53)])
-def test_int8_pipeline_on_cuda_matches_cpu(name, kw, n_convs):
+@pytest.mark.parametrize("name,kw,n_convs,n_chained", [
+    ("resnet10", {}, 11, 0), ("resnet50", {"width_scale": 0.25}, 20, 11)])
+def test_int8_pipeline_on_cuda_matches_cpu(name, kw, n_convs, n_chained):
     """Narrow and basic-block models end in a unit with an identity conv,
     the bf16-residual tail. The CUDA pipeline matches the CPU one on the
-    same weights and scales."""
+    same weights and scales; the narrow ResNet-50 runs its 11 stride-1
+    units on K8 (C 64 / M 16 in stage 1)."""
     dev = _cuda()
     model = pt.get_model(name, in_size=(64, 64), device="cpu", **kw)
     raw = torch.from_numpy(np.random.default_rng(3).integers(
@@ -208,7 +213,9 @@ def test_int8_pipeline_on_cuda_matches_cpu(name, kw, n_convs):
     assert LAUNCHES == {"preprocess": 1, "stem": 1, "int8_conv": n_convs,
                         "maxpool_i8": 1, "flash_attention": 0,
                         "deform_sample": 0, "dwconv": 0,
-                        "window_attention": 0}
+                        "window_attention": 0,
+                        "fused_bottleneck": n_chained, "stem_int8": 0,
+                        "patch_window_sum": 0}
     cos = float(torch.nn.functional.cosine_similarity(
         y_gpu.flatten(), y_cpu.flatten(), dim=0))
     assert cos >= 0.9999, cos
@@ -485,3 +492,150 @@ def test_propainter_sequencers_on_cuda_match_cpu():
     assert LAUNCHES["deform_sample"] == 2 * (5 + 10 + 6)
     err = float((y_gpu - y_cpu).abs().max() / y_cpu.abs().max())
     assert err <= 1e-4, err
+
+
+def _chain_inputs(rng, bsz, h, w, c, m, n_units, dev):
+    """K8's packed operands for ``n_units`` random units (int8 weights,
+    gains around 1/(127 sqrt(K)) so the int8 chain stays spread) and x."""
+    from pytorchcv_tpu_torch.kernels.fused_bottleneck import pack_units
+
+    def cell(cout, k, cin):
+        return {"wq": _i8(rng, (cout, k, k, cin), dev),
+                "gain": torch.from_numpy((rng.uniform(0.5, 1.5, cout) / (
+                    127.0 * np.sqrt(k * k * cin))).astype(np.float32)).to(dev),
+                "bias": torch.from_numpy((rng.standard_normal(cout) * 0.1)
+                                         .astype(np.float32)).to(dev)}
+    units = [{"conv1": cell(m, 1, c), "conv2": cell(m, 3, m),
+              "conv3": cell(c, 1, m)} for _ in range(n_units)]
+    s_chain = list(rng.uniform(1.0, 3.0, 3 * n_units + 1))
+    return _i8(rng, (bsz, h, w, c), dev), pack_units(units, s_chain)
+
+
+@pytest.mark.parametrize("bsz,h,w,c,m,n_units", [
+    (2, 7, 5, 64, 16, 3),          # odd map, narrow widths
+    (3, 30, 20, 256, 128, 2),      # several row tiles, a ragged last one
+    (2, 7, 7, 2048, 1024, 1),      # WRN-50-2's stage 4 (t1 81 KB, t2 49 KB)
+    (1, 56, 56, 256, 64, 2)])      # ResNet-50's stage 1
+def test_fused_bottleneck_kernel_matches_plain(bsz, h, w, c, m, n_units):
+    from pytorchcv_tpu_torch.kernels.fused_bottleneck import (
+        fused_bottleneck_chain, fused_bottleneck_chain_reference)
+    dev = _cuda()
+    x, packed = _chain_inputs(np.random.default_rng(h * w + m), bsz, h, w,
+                              c, m, n_units, dev)
+    reset_launch_counts()
+    got = fused_bottleneck_chain(x, packed)
+    assert LAUNCHES["fused_bottleneck"] == n_units
+    ref = fused_bottleneck_chain_reference(x, packed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert float((ref != 0).float().mean()) > 0.2
+
+
+def test_int8_stem_kernel_matches_plain():
+    """K9 at an image no 32-pixel tile divides and 32 output channels."""
+    from pytorchcv_tpu_torch.kernels.stem_conv import (
+        stem_conv7x7_s2, stem_conv7x7_s2_reference)
+    dev = _cuda()
+    g = torch.Generator().manual_seed(9)
+    x = (torch.randn((3, 70, 46, 3), generator=g) * 1.5).to(dev)
+    k7 = (torch.randn((7, 7, 3, 32), generator=g) * 0.1).to(dev)
+    gain = (torch.rand(32, generator=g) + 0.5).to(dev)
+    bias = (torch.randn(32, generator=g) * 0.1).to(dev)
+    reset_launch_counts()
+    got = stem_conv7x7_s2(x, k7, gain, bias, 3.0, 2.0)
+    assert LAUNCHES["stem_int8"] == 1
+    ref = stem_conv7x7_s2_reference(x, k7, gain, bias, 3.0, 2.0)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (3, 35, 23, 32) and torch.equal(got, ref)
+
+
+def test_patch_window_sum_kernel_matches_plain():
+    """K10 at an n no tile of 80 divides, 96 channels, starts outside the
+    map (clamped by both)."""
+    from pytorchcv_tpu_torch.kernels.patch_probe import (
+        patch_window_sum, patch_window_sum_reference)
+    dev = _cuda()
+    g = torch.Generator().manual_seed(10)
+    x = torch.randn((40, 70, 96), generator=g).to(dev, torch.bfloat16)
+    starts = torch.stack([torch.randint(-15, 55, (333,), generator=g),
+                          torch.randint(-20, 90, (333,), generator=g)], 1)
+    starts = starts.to(dev, torch.int32)
+    reset_launch_counts()
+    got = patch_window_sum(x, starts)
+    assert LAUNCHES["patch_window_sum"] == 1
+    ref = patch_window_sum_reference(x, starts)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    assert err <= 1e-5 * float(ref.abs().max()), err
+
+
+def test_resnet50_logits_with_and_without_chains_on_cuda():
+    """The chained plan (K8 on the 11 stride-1 units) and the K2-only plan
+    give the same logits bit for bit."""
+    dev = _cuda()
+    model = pt.get_model("resnet50", in_size=(64, 64), device=dev)
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((4, 3, 64, 64), generator=g).to(dev)
+    with no_tf32():
+        scales = calibrate_int8(model, [x])
+    infer, plan = prepare_int8_resnet(model, scales)
+    infer_k2, plan_k2 = prepare_int8_resnet(model, scales, chains=False)
+    xb = x.to(torch.bfloat16)
+    with torch.inference_mode():
+        reset_launch_counts()
+        got = infer(plan, xb)
+        assert (LAUNCHES["fused_bottleneck"], LAUNCHES["int8_conv"]) == \
+            (11, 19)
+        reset_launch_counts()
+        ref = infer_k2(plan_k2, xb)
+        assert (LAUNCHES["fused_bottleneck"], LAUNCHES["int8_conv"]) == \
+            (0, 52)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_danet_position_attention_gradients_match_cpu():
+    """PosAttBlock with grad on takes the plain attention on the card as on
+    the CPU (K4 has no backward): the conv gradients agree."""
+    from pytorchcv_tpu_torch.models.danet import PosAttBlock
+    dev = _cuda()
+    torch.manual_seed(12)
+    block = PosAttBlock(64)
+    with torch.no_grad():
+        block.scale.alpha.fill_(0.8)
+    x = torch.randn(2, 64, 12, 15)
+    grads = []
+    for d in ("cpu", dev):
+        b = copy.deepcopy(block).to(d)
+        reset_launch_counts()
+        with no_tf32():
+            b(x.to(d)).square().sum().backward()
+        assert LAUNCHES["flash_attention"] == 0
+        grads.append([m.weight.grad.cpu() for m in
+                      (b.query_conv, b.key_conv, b.value_conv)])
+    for g_cpu, g_gpu in zip(*grads):
+        err = float((g_gpu - g_cpu).abs().max() / g_cpu.abs().max())
+        assert err <= 1e-4, err
+
+
+def test_direct_forward_computes_f32_under_tf32_defaults():
+    """get_model's models pin f32: with torch's TF32 flags on, a direct
+    resnet50 forward equals the same forward under ``no_tf32()``."""
+    dev = _cuda()
+    model = pt.get_model("resnet50", in_size=(96, 96), device=dev)
+    x = torch.randn((2, 3, 96, 96), generator=torch.Generator().manual_seed(
+        13)).to(dev)
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with torch.inference_mode():
+            y_default = model(x)
+            with no_tf32():
+                y_f32 = model(x)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = old
+    assert torch.equal(y_default, y_f32)

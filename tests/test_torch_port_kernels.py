@@ -1,10 +1,12 @@
-"""The port's kernels K1-K3, through their plain PyTorch versions (CPU
-tensors), against the JAX package on the same numpy inputs.
+"""The port's kernels K1-K3, K9 and K10, through their plain PyTorch
+versions (CPU tensors), against the JAX package on the same numpy inputs.
 
 K1 (preprocess) vs ``preprocess_batch`` on its einsum and Pallas
 interpret paths; K2 (int8 conv + epilogue) bit-exact vs ``_cell``, the
 unit tail of ``_forward`` and ``fused_chain_xla_ref``; K3 (serving stem)
-vs the planar ``kf`` stem of ``_forward``.
+vs the planar ``kf`` stem of ``_forward``; K9 (int8 stem) bit-exact vs the
+Pallas ``stem_conv7x7_s2`` in interpret mode; K10 (window-sum probe) vs the
+probe tool's ``oracle``.
 """
 
 import numpy as np
@@ -213,3 +215,83 @@ def test_stem_matches_jax_planar_kf_stem():
     assert diff.max() <= 1
     assert (diff != 0).mean() <= 1e-3, (diff != 0).mean()
     assert (ref > 0).mean() > 0.3          # the test exercises the range
+
+
+# ---------------------------------------------------------------- K9
+
+def _stem_case():
+    """The shapes of tests/test_pallas_kernels.py:139-143."""
+    rng = np.random.RandomState(0)
+    x = rng.rand(2, 64, 64, 3).astype(np.float32)
+    k7 = (rng.randn(7, 7, 3, 64) * 0.1).astype(np.float32)
+    gain = (rng.rand(64) + 0.5).astype(np.float32)
+    bias = (rng.randn(64) * 0.1).astype(np.float32)
+    return x, k7, gain, bias
+
+
+def test_int8_stem_prepare_bit_equal_to_jax():
+    from pytorchcv_tpu.kernels.stem_conv import prepare_stem as jax_prepare
+    from pytorchcv_tpu_torch.kernels.stem_conv import prepare_stem
+    _, k7, gain, bias = _stem_case()
+    wq2, gain_l, _ = (np.asarray(a) for a in
+                      jax_prepare(k7, gain, bias, 2.0, 4.0))
+    s_w, wq, g = prepare_stem(torch.from_numpy(k7), torch.from_numpy(gain),
+                              torch.from_numpy(bias), 2.0, 4.0)
+    np.testing.assert_array_equal(
+        s_w.numpy(), np.maximum(np.abs(k7).max(axis=(0, 1, 2)), 1e-12) / 127.0)
+    np.testing.assert_array_equal(g.numpy(), gain_l[0, :64])
+    # the banded matrix's first column block: wq2[a, 3 b + c, o]
+    np.testing.assert_array_equal(wq.numpy().reshape(7, 21, 64),
+                                  wq2[:, :21, :64])
+
+
+def test_int8_stem_bit_exact_vs_jax_interpret():
+    from pytorchcv_tpu.kernels.stem_conv import stem_conv7x7_s2 as jax_stem
+    from pytorchcv_tpu_torch.kernels.stem_conv import stem_conv7x7_s2
+    x, k7, gain, bias = _stem_case()
+    want = np.asarray(jax_stem(jnp.asarray(x), jnp.asarray(k7),
+                               jnp.asarray(gain), jnp.asarray(bias), 2.0, 4.0,
+                               interpret=True))
+    got = stem_conv7x7_s2(*(torch.from_numpy(a) for a in (x, k7, gain, bias)),
+                          2.0, 4.0)
+    assert got.dtype == torch.int8 and tuple(got.shape) == (2, 32, 32, 64)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want > 0).mean() > 0.2
+    with pytest.raises(ValueError, match="even H"):
+        stem_conv7x7_s2(torch.zeros(1, 63, 64, 3), *(torch.from_numpy(a) for a
+                                                     in (k7, gain, bias)),
+                        2.0, 4.0)
+
+
+# ---------------------------------------------------------------- K10
+
+def _probe_tool():
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), "..", "tools",
+                        "exp_pallas_patch_probe.py")
+    spec = importlib.util.spec_from_file_location("exp_pallas_patch_probe",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_patch_window_sum_matches_the_tool_oracle():
+    """The tool's map (60, 128, 128) and start ranges, plus starts outside
+    them, which both clamp as the oracle's gather does."""
+    from pytorchcv_tpu_torch.kernels.patch_probe import patch_window_sum
+    tool = _probe_tool()
+    rs = np.random.RandomState(0)
+    h, w, c, n = 60, 128, 128, 240
+    x = jnp.asarray(rs.randn(h, w, c), jnp.bfloat16)
+    starts = np.stack([rs.randint(0, h - tool.P, n),
+                       rs.randint(0, w - tool.QW, n)], 1)
+    starts[:40] = np.stack([rs.randint(-20, h + 20, 40),
+                            rs.randint(-30, w + 30, 40)], 1)
+    starts = starts.astype(np.int32)
+    want = np.asarray(tool.oracle(x, jnp.asarray(starts)))
+    got = patch_window_sum(_t(x), torch.from_numpy(starts))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (n, c)
+    err = float(np.abs(got.numpy() - want).max())
+    assert err <= 1e-5 * float(np.abs(want).max()), err

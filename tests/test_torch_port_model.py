@@ -164,8 +164,9 @@ def test_prepare_raises_on_trees_it_does_not_walk(r50):
     _, tm = r50
     scales = {}
     bad = pt.get_model("resnet10", in_size=_SIZE, device="cpu")
-    bad.features.stage1.unit1.body.conv1.bn = None
-    with pytest.raises(UnsupportedTreeError, match="BN-less"):
+    bad.features.stage1.unit1.body.conv1.conv = torch.nn.Conv2d(
+        64, 64, 3, padding=1, groups=2, bias=False)
+    with pytest.raises(UnsupportedTreeError, match="grouped"):
         prepare_int8_resnet(bad, scales)
     bad = pt.get_model("resnet10", in_size=_SIZE, device="cpu")
     bad.features.stage2.unit1.se = torch.nn.Identity()
