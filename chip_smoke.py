@@ -27,7 +27,9 @@ use (one nvcc per source, in parallel). Phases, each ending in
    chains, one launch a unit), finite (B, 1000) logits, cosine >= 0.99
    against the f32 reference forward (no TF32);
 4. ResNet-50 timing with CUDA events at batch 128: serving images/s, each
-   kernel beside its plain version and its library call, K8 per chain,
+   kernel beside its plain version and its library call (K1 beside the
+   einsum of its two products), K1's registers, spills and shared memory
+   (``cudaFuncGetAttributes``), K8 per chain,
    and the chained units replayed on K2 from the K2-only plan
    (``prepare_int8_resnet(..., chains=False)``, whose logits must equal
    the chained plan's);
@@ -48,7 +50,8 @@ use (one nvcc per source, in parallel). Phases, each ending in
    (B, 19, 480, 480) maps; main map cosine >= 0.99 and per-pixel argmax
    agreement >= 0.97 against the f32 reference forward (no TF32);
 7. DANet timing at batch 8: serving images/s, each kernel beside its plain
-   version and its library call (SDPA beside K4), and the cuDNN bf16 head
+   version and its library call (SDPA beside K4), K1's and both K4
+   instances' registers, spills and shared memory, and the cuDNN bf16 head
    convs (recorded through the closure's ``head``);
 8. the RFC slice: ``get_model("propainter_rfc", device="cuda")`` on seed-0
    weights completes the flows of a synthetic 160-frame 240x432 clip
@@ -88,7 +91,8 @@ use (one nvcc per source, in parallel). Phases, each ending in
    TF32, depthwise blocks unfused: K6 0), top-1 agreement printed;
 14. EfficientNet timing at batch 128: serving images/s, K6 per forward and
    per call beside its plain version, cuDNN's depthwise conv with the
-   affine and swish in bf16 and its bound, K1, cuDNN's other convs, the
+   affine and swish in bf16 and its bound, K1 beside its plain version,
+   the einsum and its bound (and its resources), cuDNN's other convs, the
    SE blocks and the BN fold replayed alone, and the device's busy time
    and idle share (``torch.profiler``);
 15. the generator slice: ``get_model("propainter", device="cuda")`` on
@@ -337,6 +341,38 @@ def _bound(nbytes: float, ops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _plain_kw(k):
+    """A recorded K1 call's keywords for its plain version: the band tables
+    are the kernel's view of r and ct, which the plain version reads."""
+    return {key: val for key, val in k.items() if key != "bands"}
+
+
+def _print_info(card, what, info):
+    """A kernel's registers, spills and shared memory
+    (``cudaFuncGetAttributes``, and the launch's dynamic shared memory)."""
+    print(f"[{card}] {what}: {info['registers']} registers a thread, "
+          f"{info['spill_bytes']} bytes spilled (local), shared memory "
+          f"{info['static_smem']} static + {info['dynamic_smem']} dynamic "
+          f"bytes a block")
+
+
+def _preprocess_times(card, tag, a, k, out):
+    """Phases 4, 7 and 14: K1 beside its plain version, the one einsum call
+    that computes the same products, and its bound; its resources."""
+    from pytorchcv_tpu_torch.kernels.preprocess import (kernel_info,
+                                                        preprocess,
+                                                        preprocess_reference)
+    r, ct = a[1], a[2]
+    x32 = a[0].permute(0, 3, 1, 2).float()
+    times = (_cuda_ms(lambda: preprocess(*a, **k), 20),
+             _cuda_ms(lambda: preprocess_reference(*a, **_plain_kw(k)), 20),
+             _cuda_ms(lambda: torch.einsum("oh,bchw,wp->bcop", r, x32, ct),
+                      20), _work_preprocess(a, out))
+    _print_info(card, f"{tag} K1 preprocess", kernel_info(
+        k["bands"], a[0].shape[3]))
+    return times
+
+
 def _work_preprocess(a, out):
     """R X C^T needs only the non-zero taps of the banded resize matrices,
     multiplied in the cheaper of the two orders."""
@@ -390,7 +426,7 @@ def _check_preprocess(calls, max_err, tag, scaled=False):
                                                         bf16_ulp_error,
                                                         preprocess_reference)
     (a, k, out), = calls
-    ref = preprocess_reference(*a, **k)
+    ref = preprocess_reference(*a, **_plain_kw(k))
     per_elem = int(bf16_ulp_distance(out, ref).max())
     ulp = float(bf16_ulp_error(out, ref).max()) if scaled else per_elem
     max_err["preprocess"] = float((out.float() - ref.float()).abs().max())
@@ -574,8 +610,6 @@ def _int8_route(card, record, name: str) -> dict:
         fused_bottleneck_chain, fused_bottleneck_chain_reference)
     from pytorchcv_tpu_torch.kernels.int8_conv import (int8_conv,
                                                        int8_conv_reference)
-    from pytorchcv_tpu_torch.kernels.preprocess import (preprocess,
-                                                        preprocess_reference)
     from pytorchcv_tpu_torch.kernels.stem import (maxpool_i8,
                                                   maxpool_i8_reference,
                                                   stem_conv,
@@ -637,13 +671,7 @@ def _int8_route(card, record, name: str) -> dict:
         t = {}
         (a, k, out), = calls128["preprocess"]
         x128 = out
-        r, ct = a[1], a[2]
-        x32 = a[0].permute(0, 3, 1, 2).float()
-        t["preprocess"] = (
-            _cuda_ms(lambda: preprocess(*a, **k), 20),
-            _cuda_ms(lambda: preprocess_reference(*a, **k), 20),
-            _cuda_ms(lambda: torch.einsum("oh,bchw,wp->bcop", r, x32, ct),
-                     20), _work_preprocess(a, out))
+        t["preprocess"] = _preprocess_times(card, name, a, k, out)
         stem128 = calls128["stem"][0]
         (a, k, out), = calls128["stem"]
         xs = a[0].float()
@@ -653,7 +681,7 @@ def _int8_route(card, record, name: str) -> dict:
             _cuda_ms(lambda: stem_conv_reference(*a, **k), 5),
             _cuda_ms(lambda: F.conv2d(xs, ws, stride=2, padding=3), 20),
             _work_stem(a, k, out))
-        del xs, x32
+        del xs
         (a, k, out), = calls128["maxpool_i8"]
         t["maxpool_i8"] = (
             _cuda_ms(lambda: maxpool_i8(*a, **k), 20),
@@ -884,10 +912,10 @@ def _danet(card, record) -> None:
     from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from pytorchcv_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_reference)
+    from pytorchcv_tpu_torch.kernels.flash_attention import \
+        kernel_info as fa_kernel_info
     from pytorchcv_tpu_torch.kernels.int8_conv import (int8_conv,
                                                        int8_conv_reference)
-    from pytorchcv_tpu_torch.kernels.preprocess import (preprocess,
-                                                        preprocess_reference)
     from pytorchcv_tpu_torch.kernels.stem import (maxpool_i8,
                                                   maxpool_i8_reference,
                                                   stem_conv,
@@ -983,14 +1011,7 @@ def _danet(card, record) -> None:
             h.remove()
         t = {}
         (a, k, out), = calls8["preprocess"]
-        r, ct = a[1], a[2]
-        x32 = a[0].permute(0, 3, 1, 2).float()
-        t["preprocess"] = (
-            _cuda_ms(lambda: preprocess(*a, **k), 20),
-            _cuda_ms(lambda: preprocess_reference(*a, **k), 20),
-            _cuda_ms(lambda: torch.einsum("oh,bchw,wp->bcop", r, x32, ct),
-                     20), _work_preprocess(a, out))
-        del x32
+        t["preprocess"] = _preprocess_times(card, "danet", a, k, out)
         (a, k, out), = calls8["stem"]
         xs = a[0].float()
         ws = a[1].permute(3, 0, 1, 2).float()
@@ -1013,6 +1034,9 @@ def _danet(card, record) -> None:
             _cuda_ms(lambda: F.scaled_dot_product_attention(
                 qa, ka, va, scale=1.0), 10),
             _work_attention(a, out))
+        for dt in (torch.bfloat16, torch.float32):
+            _print_info(card, f"danet K4 flash attention d {qa.shape[-1]} "
+                        f"{str(dt)[6:]}", fa_kernel_info(qa.shape[-1], dt))
         convs = [(a, k) for a, k, _ in calls8["int8_conv"]]
         conv_bound = _work_convs(calls8["int8_conv"])
         del calls8
@@ -1534,7 +1558,7 @@ def _effnet(card, record) -> None:
         torch.cuda.synchronize()
         dws = [(a, k) for a, k, _ in calls128["dwconv"]]
         dw_bound = _work_dwconv(calls128["dwconv"])
-        (pa, pk, _), = calls128["preprocess"]
+        (pa, pk, pout), = calls128["preprocess"]
         se = [(m, x) for m, x in mods if isinstance(m, SEBlock)]
         se_convs = {id(c_) for m, _ in se for c_ in (m.conv1, m.conv2)}
         convs = [(m, x) for m, x in mods if isinstance(m, torch.nn.Conv2d)
@@ -1559,7 +1583,9 @@ def _effnet(card, record) -> None:
         plain_dw = _cuda_ms(lambda: [dwconv2d_bn_act_reference(*a, **k)
                                      for a, k in dws], 3, warmup=1)
         lib_dw = _cuda_ms(library_dw, 20)
-        ms_pre = _cuda_ms(lambda: pre_mod.preprocess(*pa, **pk), 20)
+        ms_pre, plain_pre, lib_pre, pre_bound = _preprocess_times(
+            card, EFF_NAME, pa, pk, pout)
+        del pout
         ms_conv = _cuda_ms(lambda: [m(x) for m, x in convs], 10)
         ms_se = _cuda_ms(lambda: [m(x) for m, x in se], 10)
         ms_fold = _cuda_ms(lambda: [fold_batchnorm(b) for b in bns], 20)
@@ -1601,10 +1627,18 @@ def _effnet(card, record) -> None:
     else:
         print(f"[{card}] {EFF_NAME} device busy and idle share: not measured "
               f"(the profiler saw no device activity)")
+    print(f"[{card}] {EFF_NAME} K1 preprocess batch {BATCH_TIME} (one call): "
+          f"kernel {ms_pre:.4f} ms, plain {plain_pre:.4f} ms, library "
+          f"(einsum) {lib_pre:.4f} ms, bound {pre_bound[0]:.4f} ms "
+          f"({pre_bound[1]})")
     record.append(_record_entry(
         "dwconv", EFF_NAME, "dwconv.cu", "pytorchcv_tpu/kernels/dwconv.py:124",
         launches["dwconv"], max_err["dwconv"], ms_dw, plain_dw, dw_bound,
         lib_dw))
+    record.append(_record_entry(
+        "preprocess", EFF_NAME, "preprocess.cu",
+        "pytorchcv_tpu/kernels/preprocess.py:133", launches["preprocess"],
+        max_err["preprocess"], ms_pre, plain_pre, pre_bound, lib_pre))
 
 
 def _pp_clip(seed: int):

@@ -39,12 +39,14 @@ _lib: Optional[ctypes.CDLL] = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "pcv_preprocess": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "pcv_preprocess": [_P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
+    "pcv_preprocess_info": [_I, _I, _I, _P],
     "pcv_int8_conv": [_P, _P, _P, _P, _P, _F, _I, _I, _F, _I, _P]
     + [_I] * 12 + [_P, _P],
     "pcv_stem": [_P, _P, _P, _F, _I, _P] + [_I] * 6 + [_P],
     "pcv_maxpool_i8": [_P, _P] + [_I] * 6 + [_P],
     "pcv_flash_attention": [_P, _P, _P, _P] + [_I] * 5 + [_F, _I, _P],
+    "pcv_flash_attention_info": [_I, _I, _P],
     "pcv_deform_sample": [_P, _P, _P, _P] + [_I] * 5 + [_P],
     "pcv_dwconv": [_P] * 5 + [_I] * 12 + [_P],
     "pcv_window_attention": [_P] * 5 + [_I] * 4 + [_F, _I, _P],

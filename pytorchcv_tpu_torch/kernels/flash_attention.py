@@ -4,20 +4,23 @@ DANet's position attention runs it over L = H*W tokens, 3600 at the 480x480
 Cityscapes protocol, where the dense (L, L) f32 score matrix is 52 MB per
 image. The kernel (``csrc/flash_attention.cu``) streams k and v tiles
 through shared memory with the running-max / running-sum rescaling, so the
-scores never reach device memory. Every step is f32 (bf16 inputs are
-widened exactly), as in the TPU kernel it replaces
-(``pytorchcv_tpu/kernels/flash_attention.py``), and the output is cast to
-q's type. Counterpart of that module's ``flash_attention``.
+scores never reach device memory. The function is f32's, as in the TPU
+kernel it replaces (``pytorchcv_tpu/kernels/flash_attention.py``): bf16
+inputs run on the tensor cores (exact bf16 products, f32 sums, p split
+into two bf16 terms for ``p v``), f32 inputs on the CUDA cores; the output
+is cast to q's type. Counterpart of that module's ``flash_attention``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ._build import (LAUNCHES, autograd_records, check, library, no_tf32,
                      require_cuda_or_cpu, stream_of)
 
-__all__ = ["flash_attention", "flash_attention_reference"]
+__all__ = ["flash_attention", "flash_attention_reference", "kernel_info"]
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _MAX_D = 128
@@ -77,3 +80,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             stream_of(q)), "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def kernel_info(d: int, dtype=torch.bfloat16) -> dict:
+    """Registers a thread, spilled (local) bytes, static and dynamic shared
+    memory a block of the instance K4 launches for head width ``d`` and
+    ``dtype`` (needs the card)."""
+    out = (ctypes.c_int * 4)()
+    check(library().pcv_flash_attention_info(
+        d, int(dtype == torch.bfloat16), out), "flash_attention info")
+    return dict(zip(("registers", "spill_bytes", "static_smem",
+                     "dynamic_smem"), out))

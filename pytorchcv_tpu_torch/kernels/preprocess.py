@@ -6,12 +6,16 @@ bilinear filter, centre-crop, normalize. A separable resize with static
 shapes is two interpolation matrices, ``R @ X @ Ct``; the crop folds into
 their rows and the normalization into the epilogue, so one kernel reads
 the uint8 frame once and writes the model input once
-(``csrc/preprocess.cu``). Counterpart of ``pytorchcv_tpu.kernels.preprocess``.
+(``csrc/preprocess.cu``). The matrices are banded, and the kernel reads
+only their bands (:func:`resize_bands`, made once per closure).
+Counterpart of ``pytorchcv_tpu.kernels.preprocess``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+import ctypes
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -20,7 +24,8 @@ from ._build import (LAUNCHES, check, library, no_tf32, require_cuda_or_cpu,
                      stream_of)
 
 __all__ = ["IMAGENET_MEAN", "IMAGENET_STD", "CIFAR_MEAN", "CIFAR_STD",
-           "resize_matrices", "eval_protocol", "preprocess",
+           "resize_matrices", "ResizeBands", "resize_bands", "kernel_info",
+           "eval_protocol", "preprocess",
            "preprocess_reference", "preprocess_batch",
            "classification_preprocess", "segmentation_preprocess",
            "bf16_ulp_distance", "bf16_ulp_error"]
@@ -31,6 +36,9 @@ CIFAR_MEAN = (0.4914, 0.4822, 0.4465)
 CIFAR_STD = (0.2023, 0.1994, 0.2010)
 
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
+# A block's output tile, rows x columns (csrc/preprocess.cu: kTO, kTP).
+_TILE = (8, 64)
+_MAX_C = 32
 
 
 def _pil_bilinear_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -115,6 +123,83 @@ def eval_protocol(model_name: str, model_in_size=None):
     return ("resize_crop", crop_hw, scale, IMAGENET_MEAN, IMAGENET_STD)
 
 
+def _bands(m: np.ndarray):
+    """Per row of ``m``: its first non-zero column, the count of columns up
+    to its last non-zero one (0 for a zero row), and those columns' values,
+    packed from the first on and zero-padded to the widest row."""
+    nz = m != 0
+    cols = m.shape[1]
+    has = nz.any(axis=1)
+    lo = np.where(has, nz.argmax(axis=1), 0)
+    hi = np.where(has, cols - 1 - nz[:, ::-1].argmax(axis=1), -1)
+    n = (hi - lo + 1).astype(np.int64)
+    k = max(int(n.max(initial=0)), 1)
+    at = lo[:, None] + np.arange(k)[None, :]
+    taps = np.where(np.arange(k)[None, :] < n[:, None],
+                    m[np.arange(m.shape[0])[:, None],
+                      np.minimum(at, cols - 1)], 0.0)
+    return lo, n, np.ascontiguousarray(taps, np.float32)
+
+
+def _span(lo: np.ndarray, n: np.ndarray, tile: int) -> int:
+    """The widest union of bands over ``tile`` consecutive rows."""
+    span = 0
+    for s in range(0, len(lo), tile):
+        keep = n[s:s + tile] > 0
+        if keep.any():
+            l_, n_ = lo[s:s + tile][keep], n[s:s + tile][keep]
+            span = max(span, int((l_ + n_).max() - l_.min()))
+    return span
+
+
+@dataclass(frozen=True)
+class ResizeBands:
+    """K1's view of ``R`` (crop_h, H) and ``Ct`` (W, crop_w): ``index``
+    int32 [first tap of each row of R, its tap count, first tap of each
+    column of Ct, its tap count]; ``r_taps`` (crop_h, KR) f32, each row's
+    taps from its first on; ``c_taps`` (KC, crop_w) f32, tap t of each
+    column of Ct (tap-major, so a warp of columns loads it coalesced);
+    ``row_span`` / ``col_span`` the widest union of bands over one block's
+    output rows / columns."""
+    index: torch.Tensor
+    r_taps: torch.Tensor
+    c_taps: torch.Tensor
+    in_hw: Tuple[int, int]
+    out_hw: Tuple[int, int]
+    row_span: int
+    col_span: int
+
+
+def resize_bands(r, ct, device=None) -> ResizeBands:
+    """Band tables of any ``r`` (crop_h, H) and ``ct`` (W, crop_w), numpy or
+    torch, on ``device`` (default: ``r``'s). Made on the host once per pair
+    of matrices; a tensor on the card is copied to the host (a sync)."""
+    if device is None:
+        device = r.device if isinstance(r, torch.Tensor) else "cpu"
+    r_np, ct_np = (np.asarray(m.detach().cpu() if isinstance(m, torch.Tensor)
+                              else m, np.float32) for m in (r, ct))
+    lo_r, n_r, r_taps = _bands(r_np)
+    lo_c, n_c, c_taps = _bands(np.ascontiguousarray(ct_np.T))
+    c_taps = np.ascontiguousarray(c_taps.T)
+    index = np.concatenate([lo_r, n_r, lo_c, n_c]).astype(np.int32)
+    return ResizeBands(
+        torch.from_numpy(index).to(device), torch.from_numpy(r_taps).to(device),
+        torch.from_numpy(c_taps).to(device), (r_np.shape[1], ct_np.shape[0]),
+        (r_np.shape[0], ct_np.shape[1]), _span(lo_r, n_r, _TILE[0]),
+        _span(lo_c, n_c, _TILE[1]))
+
+
+def kernel_info(bands: ResizeBands, channels: int = 3) -> dict:
+    """K1's registers a thread, spilled (local) bytes, static and dynamic
+    shared memory a block for a launch with ``bands`` (needs the card)."""
+    out = (ctypes.c_int * 4)()
+    check(library().pcv_preprocess_info(channels, bands.row_span,
+                                        bands.col_span, out),
+          "preprocess info")
+    return dict(zip(("registers", "spill_bytes", "static_smem",
+                     "dynamic_smem"), out))
+
+
 def preprocess_reference(images: torch.Tensor, r: torch.Tensor,
                          ct: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                          out_dtype=torch.bfloat16,
@@ -132,13 +217,16 @@ def preprocess_reference(images: torch.Tensor, r: torch.Tensor,
 
 def preprocess(images: torch.Tensor, r: torch.Tensor, ct: torch.Tensor,
                a: torch.Tensor, b: torch.Tensor, out_dtype=torch.bfloat16,
-               layout: str = "nhwc") -> torch.Tensor:
+               layout: str = "nhwc",
+               bands: Optional[ResizeBands] = None) -> torch.Tensor:
     """K1: ``images`` uint8 (B, H, W, C) -> (B, crop_h, crop_w, C), or
     (B, C, crop_h, crop_w) with ``layout="nchw"``, in ``out_dtype``.
 
     ``r``: f32 (crop_h, H); ``ct``: f32 (W, crop_w); ``a``, ``b``: f32 (C,)
     per-channel affine. CUDA tensors run the kernel, CPU tensors the plain
-    version."""
+    version. The kernel reads ``bands``, ``resize_bands(r, ct)``, which the
+    closures below make once; without it a CUDA call makes them itself,
+    copying ``r`` and ``ct`` to the host."""
     if images.dtype != torch.uint8 or images.dim() != 4:
         raise ValueError(f"preprocess: want uint8 (B,H,W,C), got "
                          f"{images.dtype} {tuple(images.shape)}")
@@ -156,23 +244,32 @@ def preprocess(images: torch.Tensor, r: torch.Tensor, ct: torch.Tensor,
         raise ValueError(f"preprocess: unknown layout {layout!r}")
     if not require_cuda_or_cpu("preprocess", images, r, ct, a, b):
         return preprocess_reference(images, r, ct, a, b, out_dtype, layout)
-    if not all(t.is_contiguous() for t in (images, r, ct, a, b)):
+    if not all(t.is_contiguous() for t in (images, a, b)):
         raise ValueError("preprocess: inputs must be contiguous")
-    if bsz * c > 65535:
-        raise ValueError("preprocess: batch * channels exceeds 65535")
+    if bsz > 65535 or c > _MAX_C:
+        raise ValueError(f"preprocess: batch exceeds 65535 or channels "
+                         f"exceed {_MAX_C}")
     oh, ow = r.shape[0], ct.shape[1]
+    if bands is None:
+        bands = resize_bands(r, ct)
+    if bands.in_hw != (h, w) or bands.out_hw != (oh, ow) or \
+            bands.index.device != images.device:
+        raise ValueError(f"preprocess: bands of {bands.in_hw} -> "
+                         f"{bands.out_hw} on {bands.index.device} do not "
+                         f"fit r, ct and images")
     planar = layout == "nchw"
     shape = (bsz, c, oh, ow) if planar else (bsz, oh, ow, c)
     out = torch.empty(shape, dtype=out_dtype, device=images.device)
-    scratch = torch.empty((bsz * c, oh, w), dtype=torch.float32,
-                          device=images.device)
     lib = library()
     with torch.cuda.device(images.device):
         check(lib.pcv_preprocess(
-            images.data_ptr(), r.data_ptr(), ct.data_ptr(), a.data_ptr(),
-            b.data_ptr(), scratch.data_ptr(), out.data_ptr(), bsz, c, h, w,
-            oh, ow, int(planar), int(out_dtype == torch.bfloat16),
-            stream_of(images)), "preprocess")
+            images.data_ptr(), bands.index.data_ptr(),
+            bands.r_taps.data_ptr(), bands.r_taps.shape[1],
+            bands.c_taps.data_ptr(), a.data_ptr(),
+            b.data_ptr(), out.data_ptr(), bsz, c, h, w, oh, ow,
+            bands.row_span, bands.col_span, int(planar),
+            int(out_dtype == torch.bfloat16), stream_of(images)),
+            "preprocess")
     LAUNCHES["preprocess"] += 1
     return out
 
@@ -194,8 +291,9 @@ def classification_preprocess(model_name_or_size, in_hw: Tuple[int, int],
                               out_dtype=torch.bfloat16, layout: str = "nhwc",
                               model_in_size=None, device=None):
     """``batch_u8 -> model input`` closure for a zoo name (its metainfo eval
-    protocol) or a crop size (ImageNet resize+crop). Matrices and affine
-    constants are made once, on ``device``."""
+    protocol) or a crop size (ImageNet resize+crop). Matrices, their band
+    tables and affine constants are made once, on ``device`` (the card
+    unless the caller asks for another, as every entry point)."""
     if isinstance(model_name_or_size, str):
         mode, crop_hw, scale, mean, std = eval_protocol(
             model_name_or_size, model_in_size)
@@ -207,15 +305,7 @@ def classification_preprocess(model_name_or_size, in_hw: Tuple[int, int],
         c = _pil_bilinear_matrix(in_hw[1], crop_hw[1])
     else:
         r, c = resize_matrices(in_hw, crop_hw, scale)
-    a, b = _affine(mean, std)
-    r_t = torch.from_numpy(np.ascontiguousarray(r)).to(device)
-    ct_t = torch.from_numpy(np.ascontiguousarray(c.T)).to(device)
-    a_t, b_t = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
-
-    def run(images_u8: torch.Tensor) -> torch.Tensor:
-        return preprocess(images_u8, r_t, ct_t, a_t, b_t, out_dtype, layout)
-
-    return run
+    return _closure(r, c, _affine(mean, std), out_dtype, layout, device)
 
 
 def segmentation_preprocess(out_hw: Tuple[int, int], in_hw: Tuple[int, int],
@@ -225,16 +315,25 @@ def segmentation_preprocess(out_hw: Tuple[int, int], in_hw: Tuple[int, int],
     """``batch_u8 -> model input`` closure of the dense-prediction protocol:
     PIL-bilinear resize straight to the model's fixed size (no aspect crop)
     and normalize, as K1's two interpolation products (JAX
-    ``kernels/preprocess.py:segmentation_preprocess``)."""
+    ``kernels/preprocess.py:segmentation_preprocess``), on ``device`` (the
+    card unless the caller asks for another)."""
     r = _pil_bilinear_matrix(in_hw[0], out_hw[0])
     c = _pil_bilinear_matrix(in_hw[1], out_hw[1])
-    a, b = _affine(mean, std)
+    return _closure(r, c, _affine(mean, std), out_dtype, layout, device)
+
+
+def _closure(r: np.ndarray, c: np.ndarray, affine, out_dtype, layout,
+             device):
+    from ..model_provider import resolve_device
+    device = resolve_device(device)
     r_t = torch.from_numpy(np.ascontiguousarray(r)).to(device)
     ct_t = torch.from_numpy(np.ascontiguousarray(c.T)).to(device)
-    a_t, b_t = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+    a_t, b_t = (torch.from_numpy(v).to(device) for v in affine)
+    bands = resize_bands(r, c.T, device)
 
     def run(images_u8: torch.Tensor) -> torch.Tensor:
-        return preprocess(images_u8, r_t, ct_t, a_t, b_t, out_dtype, layout)
+        return preprocess(images_u8, r_t, ct_t, a_t, b_t, out_dtype, layout,
+                          bands=bands)
 
     return run
 

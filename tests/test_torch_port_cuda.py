@@ -40,8 +40,9 @@ from pytorchcv_tpu_torch.kernels.flash_attention import (
 from pytorchcv_tpu_torch.kernels.int8_conv import (int8_conv,
                                                    int8_conv_reference)
 from pytorchcv_tpu_torch.kernels.preprocess import (
-    bf16_ulp_distance, bf16_ulp_error, classification_preprocess, preprocess,
-    preprocess_reference, resize_matrices)
+    _pil_bilinear_matrix, bf16_ulp_distance, bf16_ulp_error,
+    classification_preprocess, preprocess, preprocess_reference,
+    resize_bands, resize_matrices)
 from pytorchcv_tpu_torch.kernels.stem import (maxpool_i8, maxpool_i8_reference,
                                               stem_conv, stem_conv_reference)
 from pytorchcv_tpu_torch.nn.deform import deform_conv2d
@@ -116,50 +117,99 @@ def test_int8_conv_dilated_kernel_matches_plain(dilation, hw):
                                          .abs().max())
 
 
+@pytest.mark.parametrize("d,dv", [(32, 96), (64, 512), (16, 520),
+                                  (128, 520), (20, 97)])
 @pytest.mark.parametrize("lq", [63, 401, 3600])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_kernel_matches_plain(lq, dtype):
-    """bf16 within 1 ulp (``bf16_ulp_error``: outputs that average to near
-    zero round apart in f32); f32 within 1e-4 of the largest plain
-    value."""
+def test_flash_attention_kernel_matches_plain(lq, dtype, d, dv):
+    """bf16 (the tensor-core instance) within 1 ulp (``bf16_ulp_error``:
+    outputs that average to near zero round apart in f32); f32 (the CUDA
+    core instance) within 1e-4 of the largest plain value. d 16 and 128
+    pad to the instances' widths; dv 520 leaves a last chunk of 8; d 20
+    and dv 97 (rows not a whole number of 16 bytes) load element by
+    element."""
     dev = _cuda()
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(lq)
-    for d, dv in ((32, 96), (64, 512)):
-        q, k = (torch.randn((2, lq, d), generator=g).mul_(0.3).to(dev, dt)
-                for _ in range(2))
-        v = torch.randn((2, lq, dv), generator=g).to(dev, dt)
-        got = flash_attention(q, k, v, 0.9)
-        ref = flash_attention_reference(q, k, v, 0.9)
-        torch.cuda.synchronize()
-        assert got.dtype == dt and got.shape == ref.shape == (2, lq, dv)
-        if dt == torch.bfloat16:
-            assert float(bf16_ulp_error(got, ref).max()) <= 1, (d, dv)
-        else:
-            err = float((got - ref).abs().max() / ref.abs().max())
-            assert err <= 1e-4, (d, dv, err)
+    q, k = (torch.randn((2, lq, d), generator=g).mul_(0.3).to(dev, dt)
+            for _ in range(2))
+    v = torch.randn((2, lq, dv), generator=g).to(dev, dt)
+    got = flash_attention(q, k, v, 0.9)
+    ref = flash_attention_reference(q, k, v, 0.9)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == ref.shape == (2, lq, dv)
+    if dt == torch.bfloat16:
+        assert float(bf16_ulp_error(got, ref).max()) <= 1, (d, dv)
+    else:
+        err = float((got - ref).abs().max() / ref.abs().max())
+        assert err <= 1e-4, (d, dv, err)
 
 
+def _preprocess_case(case, rng):
+    """(images, r, ct) of one K1 case: a small crop (also from a frame
+    that starts 5 bytes past a 16-byte boundary), ResNet's 256 -> 224
+    crop (batch 4), DANet's 1024x2048 -> 480x480 (batch 1), dense random
+    matrices at DANet's shape, and ResNet's with an all-zero row of R and
+    column of Ct."""
+    hw, bsz = {"small": ((50, 70), 3), "offset": ((50, 70), 3),
+               "resnet": ((256, 256), 4),
+               "zero-row": ((256, 256), 4), "danet": ((1024, 2048), 1),
+               "dense": ((1024, 2048), 1)}[case]
+    if case in ("small", "offset"):
+        r, c = resize_matrices(hw, 33)
+    elif case in ("resnet", "zero-row"):
+        r, c = resize_matrices(hw, 224)
+    else:
+        r, c = _pil_bilinear_matrix(hw[0], 480), _pil_bilinear_matrix(
+            hw[1], 480)
+    if case == "dense":
+        r, c = (m / m.sum(1, keepdims=True) for m in (
+            rng.random(r.shape, dtype=np.float32),
+            rng.random(c.shape, dtype=np.float32)))
+    r, c = r.copy(), c.copy()
+    if case == "zero-row":
+        r[5] = 0.0
+        c[7] = 0.0
+    imgs = rng.integers(0, 256, (bsz, *hw, 3), dtype=np.uint8)
+    return imgs, r.astype(np.float32), np.ascontiguousarray(c.T, np.float32)
+
+
+@pytest.mark.parametrize("case", ["small", "offset", "resnet", "danet",
+                                  "dense", "zero-row"])
 @pytest.mark.parametrize("layout", ["nhwc", "nchw"])
-def test_preprocess_kernel_matches_plain(layout):
+def test_preprocess_kernel_matches_plain(layout, case):
+    """f32 within 1e-4; bf16 within 1 ulp, per element on the small cases and
+    with ``bf16_ulp_error``'s floor on the large ones (the affine cancels
+    to near zero on some of their pixels, as on DANet's path). The dense
+    case passes no band tables, so the wrapper makes them."""
     dev = _cuda()
-    rng = np.random.default_rng(1)
-    imgs = torch.from_numpy(rng.integers(0, 256, (3, 50, 70, 3),
-                                         dtype=np.uint8)).to(dev)
-    r, c = resize_matrices((50, 70), 33)
-    r_t = torch.from_numpy(r).to(dev)
-    ct_t = torch.from_numpy(np.ascontiguousarray(c.T)).to(dev)
+    imgs, r, ct = (torch.from_numpy(x).to(dev) for x in _preprocess_case(
+        case, np.random.default_rng(1)))
+    if case == "offset":
+        buf = torch.empty(imgs.numel() + 5, dtype=torch.uint8, device=dev)
+        imgs = buf[5:].view(imgs.shape).copy_(imgs)
+        assert imgs.data_ptr() % 16 == 5 and imgs.is_contiguous()
     a = torch.tensor([0.017, 0.018, 0.019], device=dev)
     b = torch.tensor([-2.1, -2.0, -1.8], device=dev)
+    bands = None if case == "dense" else resize_bands(r, ct)
     for dtype in (torch.float32, torch.bfloat16):
-        got = preprocess(imgs, r_t, ct_t, a, b, dtype, layout)
-        ref = preprocess_reference(imgs, r_t, ct_t, a, b, dtype, layout)
+        got = preprocess(imgs, r, ct, a, b, dtype, layout, bands=bands)
+        ref = preprocess_reference(imgs, r, ct, a, b, dtype, layout)
         torch.cuda.synchronize()
         assert got.shape == ref.shape
         if dtype == torch.float32:
             torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
-        else:
+        elif case in ("small", "offset"):
             assert int(bf16_ulp_distance(got, ref).max()) <= 1
+        else:
+            assert float(bf16_ulp_error(got, ref).max()) <= 1
+        if case == "zero-row":
+            # R's row 5 and Ct's column 7 have no taps: y = 0 * a + b
+            want = b.to(dtype).view((1, 1, 3) if layout == "nhwc"
+                                    else (1, 3, 1))
+            for edge in ((got[:, 5], got[:, :, 7]) if layout == "nhwc"
+                         else (got[:, :, 5], got[:, :, :, 7])):
+                assert torch.equal(edge, want.expand_as(edge))
 
 
 @pytest.mark.parametrize("k,shape", [(7, (2, 25, 23, 16)),

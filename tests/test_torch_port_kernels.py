@@ -2,7 +2,7 @@
 versions (CPU tensors), against the JAX package on the same numpy inputs.
 
 K1 (preprocess) vs ``preprocess_batch`` on its einsum and Pallas
-interpret paths; K2 (int8 conv + epilogue) bit-exact vs ``_cell``, the
+interpret paths, and the band tables K1's kernel reads; K2 (int8 conv + epilogue) bit-exact vs ``_cell``, the
 unit tail of ``_forward`` and ``fused_chain_xla_ref``; K3 (serving stem)
 vs the planar ``kf`` stem of ``_forward``; K9 (int8 stem) bit-exact vs the
 Pallas ``stem_conv7x7_s2`` in interpret mode; K10 (window-sum probe) vs the
@@ -22,8 +22,12 @@ from pytorchcv_tpu.kernels.preprocess import resize_matrices
 from pytorchcv_tpu.quant import resnet_int8 as jq
 from pytorchcv_tpu_torch.kernels.int8_conv import int8_conv
 from pytorchcv_tpu_torch.kernels.stem import maxpool_i8, stem_conv
-from pytorchcv_tpu_torch.kernels.preprocess import (bf16_ulp_distance,
-                                                    preprocess_batch)
+from pytorchcv_tpu_torch.kernels.preprocess import (_pil_bilinear_matrix,
+                                                    bf16_ulp_distance,
+                                                    preprocess_batch,
+                                                    resize_bands)
+from pytorchcv_tpu_torch.kernels.preprocess import \
+    resize_matrices as port_resize_matrices
 from pytorchcv_tpu_torch.quant.resnet_int8 import _cell, _f32
 
 torch.set_num_threads(1)
@@ -64,6 +68,56 @@ def test_preprocess_matches_jax(out_dtype, layout):
         else:
             dist = bf16_ulp_distance(out, _t(ref))
             assert int(dist.max()) <= 1, int(dist.max())
+
+
+def _resize_pair(case):
+    """(R, Ct) of the classification crop (ResNet's 256 -> 224 and a 4:3
+    frame), the segmentation resize (1024x2048 -> 480x480), the CIFAR
+    "direct" resize and a dense random pair with a zero row and column."""
+    if case.startswith("crop"):
+        hw = (256, 256) if case == "crop" else (375, 500)
+        r, c = port_resize_matrices(hw, 224)
+    elif case == "segmentation":
+        r, c = _pil_bilinear_matrix(1024, 480), _pil_bilinear_matrix(2048,
+                                                                    480)
+    elif case == "direct":
+        r, c = _pil_bilinear_matrix(32, 32), _pil_bilinear_matrix(36, 32)
+    else:
+        rng = np.random.default_rng(7)
+        r, c = rng.random((20, 45), np.float32), rng.random((30, 70),
+                                                           np.float32)
+        r[3], c[4] = 0.0, 0.0
+    return r, np.ascontiguousarray(c.T)
+
+
+@pytest.mark.parametrize("case", ["crop", "crop-4:3", "segmentation",
+                                  "direct", "dense"])
+def test_resize_bands_cover_every_nonzero(case):
+    """K1 reads only the band tables: rebuilt from them, R and Ct are the
+    matrices themselves (every non-zero inside a band, every value in
+    place), and no block's rows or columns reach past its span."""
+    r, ct = _resize_pair(case)
+    bands = resize_bands(r, ct)
+    oh, ow = bands.out_hw
+    idx = bands.index.numpy()
+    assert bands.in_hw == (r.shape[1], ct.shape[0]) and (oh, ow) == (
+        r.shape[0], ct.shape[1])
+    for m, lo, n, taps, tile, span in (
+            (r, idx[:oh], idx[oh:2 * oh], bands.r_taps.numpy(), 8,
+             bands.row_span),
+            (ct.T, idx[2 * oh:2 * oh + ow], idx[2 * oh + ow:],
+             bands.c_taps.numpy().T, 64, bands.col_span)):
+        rebuilt = np.zeros_like(m)
+        for i in range(m.shape[0]):
+            rebuilt[i, lo[i]:lo[i] + n[i]] = taps[i, :n[i]]
+            assert not taps[i, n[i]:].any()
+        np.testing.assert_array_equal(rebuilt, m)
+        for s in range(0, m.shape[0], tile):
+            cols = np.nonzero(m[s:s + tile].any(axis=0))[0]
+            assert cols.size == 0 or cols[-1] - cols[0] < span
+    if case == "dense":
+        assert idx[3] == 0 and idx[2 * oh + ow + 4] == 0   # no taps
+        assert bands.row_span == 45 and bands.col_span == 70
 
 
 # ---------------------------------------------------------------- K2

@@ -148,7 +148,8 @@ def test_int8_slice_matches_jax_pipeline(r50):
     # Jitted: op by op the JAX pipeline compiles every op alone (~8 s).
     ref = np.asarray(jax.jit(fn)(qtree, jpre(jnp.asarray(raw)))
                      .astype(jnp.float32))
-    tpre = classification_preprocess(56, (64, 64), layout="nchw")
+    tpre = classification_preprocess(56, (64, 64), layout="nchw",
+                                     device="cpu")
     infer, plan = prepare_int8_resnet(tm, scales)
     x = tpre(torch.from_numpy(raw))
     got_t = infer(plan, x)

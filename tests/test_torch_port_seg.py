@@ -1,7 +1,8 @@
 """The port's DANet segmentation slice against the JAX package, at 64x64 on
 the same weights (carried by ``load_jax_variables``) and the same numpy
 inputs: K2 dilated and its bend output, the deep stem (K3 3x3, K2,
-``maxpool_i8``), the flash-attention plain version (K4), the f32 model,
+``maxpool_i8``), the flash-attention plain version (K4), its tensor-core
+design's split of p and the patterns of its parts script, the f32 model,
 the int8 backbone, and the serving closure against its f32 oracle.
 
 One JAX DANet is built per module; its BatchNorm tensors and every
@@ -26,9 +27,12 @@ from pytorchcv_tpu.quant.seg_backbone_int8 import \
     prepare_int8_seg_backbone as jax_prepare_seg
 from pytorchcv_tpu.zoo.convert import convert_state_dict
 import pytorchcv_tpu_torch as pt
+from pytorchcv_tpu_torch.kernels._build import _CSRC
 from pytorchcv_tpu_torch.kernels.flash_attention import flash_attention
+from pytorchcv_tpu_torch.kernels.flash_attention_parts import variants
 from pytorchcv_tpu_torch.kernels.int8_conv import int8_conv
-from pytorchcv_tpu_torch.kernels.preprocess import bf16_ulp_distance
+from pytorchcv_tpu_torch.kernels.preprocess import (bf16_ulp_distance,
+                                                    bf16_ulp_error)
 from pytorchcv_tpu_torch.kernels.stem import maxpool_i8, stem_conv
 from pytorchcv_tpu_torch.quant import (UnsupportedTreeError, calibrate_int8,
                                        is_seg_resnetd_backbone,
@@ -222,6 +226,65 @@ def test_flash_attention_plain_matches_jax(dtype):
     else:
         ulp = bf16_ulp_distance(got, torch.from_numpy(_np(ref)))
         assert int(ulp.max()) <= 1, int(ulp.max())
+
+
+def _split_attention(q, k, v, scale, tile=64):
+    """K4's bf16 design in torch: f32 scores, the online softmax over
+    64-key tiles (running max from -1e30, running sum), p split into two
+    bf16 terms hi + lo, each multiplied by v in f32."""
+    q, k, v = (t.to(torch.float32) for t in (q, k, v))
+    s_all = q @ k.transpose(-1, -2) * scale
+    m = torch.full(q.shape[:-1] + (1,), -1e30)
+    den = torch.zeros_like(m)
+    acc = torch.zeros(q.shape[:-1] + (v.shape[-1],))
+    for k0 in range(0, k.shape[-2], tile):
+        s = s_all[..., k0:k0 + tile]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        hi = p.to(torch.bfloat16).to(torch.float32)
+        lo = (p - hi).to(torch.bfloat16).to(torch.float32)
+        vt = v[..., k0:k0 + tile, :]
+        acc = acc * alpha + hi @ vt + lo @ vt
+        den = den * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+    return acc / den
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_split_design_within_gates(dtype):
+    """The p = hi + lo split of K4's tensor-core design against the plain
+    version at L 67 (a ragged last tile): bf16 within 1 ulp
+    (``bf16_ulp_error``), f32 within 1e-4 of max |plain|, the kernel's
+    gates on the card."""
+    rng = np.random.default_rng(11)
+    td = getattr(torch, dtype)
+    q, k = (torch.from_numpy(rng.standard_normal((2, 67, 64)).astype(
+        np.float32) * 0.3).to(td) for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((2, 67, 96)).astype(
+        np.float32)).to(td)
+    ref = flash_attention(q, k, v, 0.9)
+    got = _split_attention(q, k, v, 0.9)
+    if dtype == "bfloat16":
+        assert float(bf16_ulp_error(got.to(td), ref).max()) <= 1
+    else:
+        err = float((got - ref).abs().max() / ref.abs().max())
+        assert err <= 1e-4, err
+
+
+def test_flash_attention_parts_match_the_kernel_source():
+    """``kernels/flash_attention_parts.py`` cuts K4's parts out of its
+    source by pattern: every variant removes what it names."""
+    src = (_CSRC / "flash_attention.cu").read_text()
+    v = variants(src)
+    count = {name: (t.count("mma_bf16("), t.count("exp2f(sv"))
+             for name, t in v.items()}
+    assert count["kernel"] == (7, 1)   # the definition and 6 products
+    assert count["no lo products"] == (5, 1)
+    assert count["no p v products"] == (3, 1)
+    assert count["no products"] == (1, 1)
+    assert count["no exp2f"] == (7, 0)
+    assert len(v["no p v products, no v loads"]) < len(v["no p v products"])
 
 
 # ---------------------------------------------------------------- slice
