@@ -29,7 +29,8 @@ use (one nvcc per source, in parallel). Phases, each ending in
 4. ResNet-50 timing with CUDA events at batch 128: serving images/s, each
    kernel beside its plain version and its library call (K1 beside the
    einsum of its two products), K1's registers, spills and shared memory
-   (``cudaFuncGetAttributes``), K8 per chain,
+   (``cudaFuncGetAttributes``), K8 per chain with its plan's tile
+   (rows x columns of one image) and its registers, spills and shared memory,
    and the chained units replayed on K2 from the K2-only plan
    (``prepare_int8_resnet(..., chains=False)``, whose logits must equal
    the chained plan's);
@@ -116,7 +117,9 @@ use (one nvcc per source, in parallel). Phases, each ending in
    tolerance);
 17. generator timing with CUDA events: frames/s over the clip, each
    generator call and IP window; K7 per call, full and local at t = 18,
-   beside its plain version, f32 SDPA and its bound; one generator call at
+   beside its plain version, f32 SDPA and its bounds (f32 on the CUDA
+   cores, the one in the JSON record; 3xTF32 on the tensor cores), with
+   its registers, spills and shared memory; one generator call at
    t = 18 split into encoder, feature propagation (K5 within it), soft
    split, the 8 blocks (attention against FFN), soft composite and
    decoder; the device's busy time and idle share.
@@ -214,7 +217,8 @@ ATTN_BIG_N = 65600             # problems of K7's check beyond 65,535
 # H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): HBM bytes/s and
 # operations/s by operand type.
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "tf32": 495e12,
+              "f32": 67e12}
 SRC = "pytorchcv_tpu_torch/csrc/"
 
 
@@ -600,6 +604,27 @@ def _work_chains(calls):
     return _bound(nbytes, ops, "int8")
 
 
+def _int8_max_pool_library(card, name, x, out):
+    """The one PyTorch call for ``maxpool_i8``'s function, if torch has it:
+    ``F.max_pool2d`` (3x3, stride 2, padding 1) on the int8 map as an NCHW
+    view. Its ms where it runs and equals the kernel's output; else None,
+    with torch's refusal printed."""
+    import torch.nn.functional as F
+    xn = x.permute(0, 3, 1, 2)
+    try:
+        y = F.max_pool2d(xn, 3, 2, 1)
+    except RuntimeError as err:
+        print(f"[{card}] {name} F.max_pool2d on an int8 CUDA tensor: "
+              f"refused ({str(err).splitlines()[0]}): no library call")
+        return None
+    _require(torch.equal(y.permute(0, 2, 3, 1), out),
+             f"{name} F.max_pool2d differs from maxpool_i8")
+    ms = _cuda_ms(lambda: F.max_pool2d(xn, 3, 2, 1), 20)
+    print(f"[{card}] {name} F.max_pool2d on the int8 CUDA tensor: equal to "
+          f"maxpool_i8's output, {ms:.4f} ms")
+    return ms
+
+
 def _int8_route(card, record, name: str) -> dict:
     """Phases 2-4 (resnet50) and 19-20 (wrn50_2): the int8 ResNet route of
     ``make_serving_fn(name, ...)``. Returns what phases 18 and 21 read."""
@@ -608,6 +633,8 @@ def _int8_route(card, record, name: str) -> dict:
     from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from pytorchcv_tpu_torch.kernels.fused_bottleneck import (
         fused_bottleneck_chain, fused_bottleneck_chain_reference)
+    from pytorchcv_tpu_torch.kernels.fused_bottleneck import \
+        kernel_info as fb_kernel_info
     from pytorchcv_tpu_torch.kernels.int8_conv import (int8_conv,
                                                        int8_conv_reference)
     from pytorchcv_tpu_torch.kernels.stem import (maxpool_i8,
@@ -685,7 +712,8 @@ def _int8_route(card, record, name: str) -> dict:
         (a, k, out), = calls128["maxpool_i8"]
         t["maxpool_i8"] = (
             _cuda_ms(lambda: maxpool_i8(*a, **k), 20),
-            _cuda_ms(lambda: maxpool_i8_reference(*a, **k), 20), None,
+            _cuda_ms(lambda: maxpool_i8_reference(*a, **k), 20),
+            _int8_max_pool_library(card, name, a[0], out),
             _work_pool(a, out))
         convs = [(a, k) for a, k, _ in calls128["int8_conv"]]
         t["int8_conv"] = (
@@ -736,8 +764,13 @@ def _int8_route(card, record, name: str) -> dict:
               f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
               f"{bound[0]:.4f} ms ({bound[1]})")
     for key, ms, bound in per_chain:
+        bsz, h, w, c = key[0]
+        info = fb_kernel_info(bsz, h, w, c, key[2])
         print(f"[{card}] {name} K8 chain x {key[0]}, {key[1]} unit(s), M "
-              f"{key[2]}: {ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+              f"{key[2]}: {ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); "
+              f"tiles of {info['rows']} rows x {info['cols']} columns of one "
+              f"image")
+        _print_info(card, f"{name} K8 at x {key[0]}, M {key[2]}", info)
     print(f"[{card}] {name} the {len(replay)} chained units on K2 (the "
           f"K2-only plan, {3 * len(replay)} launches, replayed): "
           f"{ms_k2_units:.4f} ms; on K8 ({launches['fused_bottleneck']} "
@@ -1787,6 +1820,8 @@ def _propainter(card, record) -> None:
     from pytorchcv_tpu_torch.kernels._build import no_tf32
     from pytorchcv_tpu_torch.kernels.attention import (
         fused_window_attention, fused_window_attention_reference)
+    from pytorchcv_tpu_torch.kernels.attention import \
+        kernel_info as k7_kernel_info
     from pytorchcv_tpu_torch.kernels.deform_patch import (
         deform_sample, deform_sample_reference)
 
@@ -1957,14 +1992,23 @@ def _propainter(card, record) -> None:
                 q3, k3, v3, scale=scale).view_as(o) - o).abs().max())
             nbytes, ops = _work_window_attention(q, kk, v, o)
             bound = _bound(nbytes, ops, "f32")
+            # the same work as three TF32 products on the tensor cores
+            bound_tc = _bound(nbytes, 3 * ops, "tf32")
             t7[name] = (ms, plain, lib, nbytes, ops)
             print(f"[{card}] propainter K7 {name} path n {n} Lq {lq} Lk {lk} "
                   f"D {d}: {ms:.4f} ms a call ({ops / ms / 1e9:.2f} TFLOP/s), "
                   f"plain {plain:.4f} ms, SDPA f32 {lib:.4f} ms (max |diff| "
                   f"to K7 {lib_err:.2e}), bound {bound[0]:.4f} ms "
-                  f"({bound[1]}, {100.0 * bound[0] / ms:.1f} % of it)")
+                  f"({bound[1]}, f32 on the CUDA cores; "
+                  f"{100.0 * bound[0] / ms:.1f} % of it), 3xTF32 bound "
+                  f"{bound_tc[0]:.4f} ms ({bound_tc[1]}, tensor cores at 495 "
+                  f"TFLOP/s; {100.0 * bound_tc[0] / ms:.1f} % of it)")
+            _print_info(card, f"propainter K7 {name} path",
+                        k7_kernel_info(d, q.dtype, lq))
         pair = [sum(t7[p][i] for p in t7) for i in range(5)]
-        pair_bound = _bound(pair[3], pair[4], "f32")
+        # the record's bound: the products as three TF32 products on the
+        # tensor cores, the fastest way the card computes them in f32
+        pair_bound = _bound(pair[3], 3 * pair[4], "tf32")
         # one generator call at the clip's largest t, split into its parts
         a_big = keep["largest"]
         tf = model.transformers.transformer

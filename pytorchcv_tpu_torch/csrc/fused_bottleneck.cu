@@ -20,97 +20,59 @@
 //
 // Bound on the H100: integer multiply-adds, 2 B H W (2 C M + 9 M^2)
 //   operations a unit (55.9 G at ResNet-50's batch 128: 28 us at the int8
-//   peak) against 2 B H W C bytes of activations (26 MB: 8 us). On CUDA-core
-//   __dp4a, as K2, it runs far from that peak.
-// Design: a block takes one image and a tile of TH output rows (TH from
-//   H, W and M, so that t1 and t2 fit in shared memory: 219 KB a block at
-//   most, 105 KB where two blocks fit on an SM, beside 8 KB of GEMM
-//   staging). It
-//   1. zeroes t1's tile with its 1-row / 1-column halo, (TH+2) x (W+2) x M
-//      int8, and computes t1 at the halo positions inside the image only:
-//      a halo position outside the image is the 3x3's zero padding and
-//      holds 0, not rq(relu(B1)); the two halo rows inside the image are
-//      computed again by the neighbouring tiles ((TH+2)/TH of conv1's work);
-//   2. computes t2, TH x W x M int8, reading the nine taps of t1 in place;
+//   peak) against 2 B H W C bytes of activations (26 MB: 8 us).
+// Design: a block takes a tile of TH output rows and TW columns of one
+//   image (the wrapper's plan: whole rows, TW = W, unless one row leaves
+//   the weight ring no room). It
+//   1. zeroes t1's tile with its 1-row / 1-column halo, (TH+2) x (TW+2)
+//      x M int8, and computes t1 at the halo positions inside the image
+//      only: a halo position outside the image is the 3x3's zero padding
+//      and holds 0, not rq(relu(B1)); the halo rows and columns inside the
+//      image are computed again by the neighbouring tiles;
+//   2. computes t2, TH x TW x M int8, reading the nine taps of t1 in
+//      place;
 //   3. computes conv3 and the residual tail straight to the output.
-//   Each step is K2's implicit GEMM: 64 pixels x 64 channels a pass, 8 K
-//   words (32 int8) a step staged in shared memory (double-buffered, the
-//   next step's words prefetched into registers), a 4x4 int32 sub-tile a
-//   thread. Weights stream from global memory (they stay in L2); only x
-//   is read and out written in device memory. Tensor cores and TMA rings
-//   of weight tiles are the next steps for speed.
+//   Each step is an implicit GEMM on the int8 tensor cores: mma.sync
+//   m16n8k32 s8 x s8 -> s32 (its sums are exact: |sum| <= 127^2 * 4608 <
+//   2^31, so the epilogues above stay as they were). 8 warps of 32 pixels
+//   x 32 channels make a pass of 64 pixels x 128 channels, 128 x 64 or
+//   256 x 32: the widest that the step's pixels fill, as every pass
+//   streams its channels' weights again; a warp skips its 16-pixel rows
+//   past the step's pixels. A is read by ldmatrix: for step 1 from x's
+//   pixels, staged by cp.async; for steps 2 and 3 in place from t1 and t2,
+//   whose pixels are channel-last rows of M (padded to 64) bytes with
+//   their 16-byte chunks XOR-swizzled by the pixel's index, so the 8 rows
+//   of an ldmatrix read 8 bank groups (a row pitch that is a multiple of
+//   128 bytes would put them on one); the epilogue stores follow the
+//   swizzle.
+//   B, the weights (N, K) with K contiguous, is mma's .col operand as
+//   stored: 64-byte K slices of each pass's rows stream from L2 through a
+//   3-stage cp.async ring (swizzled likewise), one stream over the three
+//   steps' passes, so the next step's weights load while the last pass of
+//   the step before finishes. Only x is read and out written in device
+//   memory; every block reads the unit's weights from L2 once a pass.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBM = 64;       // pixels per pass
-constexpr int kBN = 64;       // output channels per pass
-constexpr int kBKW = 8;       // K words (4 int8 each) per step
-constexpr int kThreads = 256;
+using pcv::cp_async16;
+using pcv::cp_async4;
+using pcv::cp_async_commit;
+using pcv::cp_async_wait;
+using pcv::ldmatrix_x4;
 
-// One 64 x 64 pass of C[p][n] = sum_k A(p, k) B(n, k) over Kw words:
-// ``base(p)`` locates pixel p's row of A (called once per pass), ``load``
-// reads word k of it; B is row n of ``w`` (Kw words each). The K steps
-// are double-buffered in shared memory, and each thread loads its words
-// of step s + 1 into registers before it multiplies step s, so that the
-// weights' trip from L2 overlaps the arithmetic: K8 keeps only one or two
-// blocks on an SM (its t1 and t2 fill shared memory), too few warps to
-// hide that latency by switching.
-template <class Base, class Load>
-__device__ __forceinline__ void gemm_pass(int (&acc)[4][4], int p0, int n0,
-                                          int P, int N, int Kw,
-                                          const Base& base, const Load& load,
-                                          const int* __restrict__ w,
-                                          int (*sA)[kBKW][kBM],
-                                          int (*sB)[kBKW][kBN]) {
-  const int tid = threadIdx.x;
-  const int kk = tid % kBKW;
-  const int ty = tid / 16, tx = tid % 16;
-  long long a_base[2];
-  const int* b_row[2];
-  for (int l = 0; l < 2; ++l) {
-    const int row = tid / kBKW + l * (kThreads / kBKW);
-    a_base[l] = p0 + row < P ? base(p0 + row) : -1;
-    b_row[l] = n0 + row < N ? w + static_cast<size_t>(n0 + row) * Kw
-                            : nullptr;
-  }
-  int ra[2], rb[2];
-  auto fetch = [&](int k0) {
-    const int kword = k0 + kk;
-    const bool k_ok = kword < Kw;
-    for (int l = 0; l < 2; ++l) {
-      ra[l] = (k_ok && a_base[l] >= 0) ? load(a_base[l], kword) : 0;
-      rb[l] = (k_ok && b_row[l] != nullptr) ? b_row[l][kword] : 0;
-    }
-  };
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-  fetch(0);
-  int buf = 0;
-  for (int k0 = 0; k0 < Kw; k0 += kBKW, buf ^= 1) {
-    for (int l = 0; l < 2; ++l) {
-      const int row = tid / kBKW + l * (kThreads / kBKW);
-      sA[buf][kk][row] = ra[l];
-      sB[buf][kk][row] = rb[l];
-    }
-    __syncthreads();
-    if (k0 + kBKW < Kw) fetch(k0 + kBKW);
-#pragma unroll
-    for (int k = 0; k < kBKW; ++k) {
-      const int4 a4 = *reinterpret_cast<const int4*>(&sA[buf][k][ty * 4]);
-      const int4 b4 = *reinterpret_cast<const int4*>(&sB[buf][k][tx * 4]);
-      const int av[4] = {a4.x, a4.y, a4.z, a4.w};
-      const int bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-    }
-  }
-  // The next pass writes buffer 0 again: every thread must be done here.
-  __syncthreads();
+constexpr int kThreads = 256;       // 8 warps
+constexpr int kStages = 3;          // ring slots
+constexpr int kKS = 64;             // K bytes a ring stage
+constexpr int kSlot = 192 * kKS;    // a stage's B rows and (step 1) A rows
+
+// c += a (16x32, row) * b (32x8, col), s8 in, s32 accumulate.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // _cell's int8 path: clip(rint(max(f32(acc) * A + B, 0) * q)).
@@ -120,139 +82,368 @@ __device__ __forceinline__ int8_t requant(int acc, float a, float b, float q) {
   return pcv::quant_i8(y, q);
 }
 
-__device__ __forceinline__ char4 pack(const int8_t (&v)[4]) {
-  return make_char4(v[0], v[1], v[2], v[3]);
+// One GEMM step of the unit: its pixels, outputs, K bytes a tap and taps;
+// passes of (256 >> wsh) pixels x (32 << wsh) channels, the widest that
+// the step's pixels fill, since each pass streams its channels' weights
+// (64 x 128 or 128 x 64 for step 1, which stages x beside the weights).
+struct Step {
+  int P, N, K, taps, kpt, wsh, bm, bn, mpass, npass;
+};
+
+__device__ __forceinline__ Step make_step(int st, int P1, int P, int C,
+                                          int M) {
+  Step f;
+  f.P = st == 0 ? P1 : P;
+  f.N = st == 2 ? C : M;
+  f.K = st == 0 ? C : M;
+  f.taps = st == 1 ? 9 : 1;
+  f.kpt = (f.K + kKS - 1) / kKS;
+  f.wsh = f.P <= 64 ? 2 : f.P <= 128 ? 1 : 0;
+  if (f.N <= 64) f.wsh = min(f.wsh, 1);
+  if (f.N <= 32) f.wsh = 0;
+  if (st == 0) f.wsh = max(f.wsh, 1);
+  f.bm = 256 >> f.wsh;
+  f.bn = 32 << f.wsh;
+  f.mpass = (f.P + f.bm - 1) / f.bm;
+  f.npass = (f.N + f.bn - 1) / f.bn;
+  return f;
 }
 
-__global__ void __launch_bounds__(kThreads) bottleneck_unit_kernel(
-    const int8_t* __restrict__ x, const int* __restrict__ w1,
-    const int* __restrict__ w2, const int* __restrict__ w3,
+// Where a stream of ring stages stands: step, pass (m, n), tap, K stage of
+// the tap; and the step's pass counts and shape (make_step's kpt, mpass,
+// npass, wsh; the rest follows from st).
+struct Cursor {
+  int st, mp, np, tap, kc, kpt, mpass, npass, wsh;
+  __device__ void start(int s, int P1, int P, int C, int M) {
+    const Step f = make_step(s, P1, P, C, M);
+    st = s;
+    kpt = f.kpt;
+    mpass = f.mpass;
+    npass = f.npass;
+    wsh = f.wsh;
+  }
+  __device__ bool pass_start() const { return tap == 0 && kc == 0; }
+  __device__ bool pass_end() const {
+    return tap == (st == 1 ? 8 : 0) && kc == kpt - 1;
+  }
+  __device__ void next(int P1, int P, int C, int M) {
+    if (++kc < kpt) return;
+    kc = 0;
+    if (++tap < (st == 1 ? 9 : 1)) return;
+    tap = 0;
+    if (++np < npass) return;
+    np = 0;
+    if (++mp < mpass) return;
+    mp = 0;
+    if (st < 2) start(st + 1, P1, P, C, M);
+    else ++st;
+  }
+};
+
+// Byte offset of channel chunk `chunk` (16 bytes) of pixel `pos` in t1 or
+// t2 (pitch MP bytes): chunks XOR-swizzled within aligned groups of 8
+// (MP a multiple of 128) or of 4 (by pos / 2), so 8 consecutive pixels'
+// same chunk lie in 8 different bank groups.
+__device__ __forceinline__ int chunk_at(int pos, int chunk, int MP, int sh,
+                                        int mk) {
+  return pos * MP + ((chunk ^ ((pos >> sh) & mk)) << 4);
+}
+
+// A stage's row (64 bytes, 4 chunks) chunk, swizzled by row / 2.
+__device__ __forceinline__ int slot_at(int row, int chunk) {
+  return row * kKS + ((chunk ^ ((row >> 1) & 3)) << 4);
+}
+
+// 16 bytes of a K slice into the ring, zeros past `valid` bytes.
+template <bool VEC16>
+__device__ __forceinline__ void load_chunk(int8_t* dst, const int8_t* src,
+                                           int valid, const int8_t* any) {
+  if (VEC16) {
+    cp_async16(dst, valid > 0 ? src : any, valid > 0 ? 16 : 0);
+  } else {
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      cp_async4(dst + 4 * w, 4 * w < valid ? src + 4 * w : any,
+                4 * w < valid ? 4 : 0);
+  }
+}
+
+template <bool VEC16>
+__global__ void __launch_bounds__(kThreads, 2) bottleneck_unit_kernel(
+    const int8_t* __restrict__ x, const int8_t* __restrict__ w1,
+    const int8_t* __restrict__ w2, const int8_t* __restrict__ w3,
     const float* __restrict__ a1, const float* __restrict__ b1,
     const float* __restrict__ a2, const float* __restrict__ b2,
     const float* __restrict__ a3, const float* __restrict__ b3, float q1,
     float q2, float q3, float r, int8_t* __restrict__ out, int H, int W,
-    int C, int M, int TH, int t1_bytes) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(16) int sA[2][kBKW][kBM];
-  __shared__ __align__(16) int sB[2][kBKW][kBN];
-  int* t1w = reinterpret_cast<int*>(smem);
-  int* t2w = reinterpret_cast<int*>(smem + t1_bytes);
+    int C, int M, int TH, int TW) {
+  extern __shared__ __align__(128) int8_t smem[];
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int r0 = blockIdx.x * TH;
-  const int rows = min(TH, H - r0);
-  const int b = blockIdx.y;
-  const int W2 = W + 2;
-  const int C4 = C >> 2, M4 = M >> 2;
-  const long long img = static_cast<long long>(b) * H * W;
-  const int* xw = reinterpret_cast<const int*>(x);
-  int acc[4][4];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int MP = (M + 63) / 64 * 64;
+  const int sh = (MP / 16) % 8 == 0 ? 0 : 1, mk = sh ? 3 : 7;
+  const int ncol = (W + TW - 1) / TW, img = blockIdx.y;
+  const int r0 = blockIdx.x / ncol * TH, rows = min(TH, H - r0);
+  const int c0 = blockIdx.x % ncol * TW, cols = min(TW, W - c0);
+  const int W2 = TW + 2, T1 = (TH + 2) * W2;
+  // step 1's pixels: the tile with its halo inside the image
+  const int lo = max(r0 - 1, 0), rows1 = min(r0 + rows, H - 1) - lo + 1;
+  const int cl = max(c0 - 1, 0), cols1 = min(c0 + cols, W - 1) - cl + 1;
+  const int P1 = rows1 * cols1, P = rows * cols;
+  int8_t* t1 = smem;
+  int8_t* t2 = t1 + T1 * MP;
+  int8_t* ring = t2 + TH * TW * MP;
 
-  // 1. t1 over the tile and its halo; positions outside the image stay 0.
-  for (int i = tid; i < (rows + 2) * W2 * M4; i += kThreads) t1w[i] = 0;
-  __syncthreads();
-  const int lo = max(r0 - 1, 0);
-  const int hi = min(r0 + rows, H - 1);
-  const int P1 = (hi - lo + 1) * W;
-  auto x_base = [&](int p) {
-    return (img + static_cast<long long>(lo + p / W) * W + p % W) * C4;
-  };
-  auto x_load = [&](long long base, int k) { return xw[base + k]; };
-  for (int p0 = 0; p0 < P1; p0 += kBM)
-    for (int n0 = 0; n0 < M; n0 += kBN) {
-      gemm_pass(acc, p0, n0, P1, M, C4, x_base, x_load, w1, sA, sB);
-      const int n = n0 + tx * 4;
-      if (n >= M) continue;
-      for (int i = 0; i < 4; ++i) {
-        const int p = p0 + ty * 4 + i;
-        if (p >= P1) continue;
-        const int hr = lo + p / W - (r0 - 1);
-        const int cs = p % W + 1;
-        int8_t v[4];
-        for (int j = 0; j < 4; ++j)
-          v[j] = requant(acc[i][j], a1[n + j], b1[n + j], q1);
-        reinterpret_cast<char4*>(t1w)[((hr * W2 + cs) * M + n) >> 2] = pack(v);
+  // 1. t1 starts as zeros: its halo outside the image stays so.
+  for (int i = tid; i < T1 * MP / 16; i += kThreads)
+    reinterpret_cast<int4*>(t1)[i] = make_int4(0, 0, 0, 0);
+  int total = 0;
+#pragma unroll
+  for (int st = 0; st < 3; ++st) {
+    const Step f = make_step(st, P1, P, C, M);
+    total += f.mpass * f.npass * f.taps * f.kpt;
+  }
+
+  // ---- the loader: one ring stage, kStages - 1 ahead of the arithmetic.
+  // Thread tid fills chunk tid % 4 of B rows tid / 4 and tid / 4 + 64 and,
+  // in step 1, of A rows tid / 4 and tid / 4 + 64 (after the B rows).
+  Cursor lc{0, 0, 0, 0, 0, 0, 0, 0, 0};
+  lc.start(0, P1, P, C, M);
+  int lslot = 0;
+  const int lrow = tid / 4, lchunk = tid % 4;
+  int boffs[2], aoffs[2];      // this thread's rows in w and x, or -1
+  auto load_stage = [&]() {
+    const int bm = 256 >> lc.wsh, bn = 32 << lc.wsh;
+    const int N = lc.st == 2 ? C : M, K = lc.st == 0 ? C : M;
+    const int8_t* w = lc.st == 0 ? w1 : lc.st == 1 ? w2 : w3;
+    if (lc.pass_start()) {
+      const int ld = lc.st == 1 ? 9 * M : K;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = lrow + 64 * i, n = lc.np * bn + row;
+        boffs[i] = row < bn && n < N ? n * ld : -1;
+        const int p = lc.mp * bm + row;
+        aoffs[i] = -1;
+        if (lc.st == 0 && row < bm && p < P1)
+          aoffs[i] = ((img * H + lo + p / cols1) * W + cl + p % cols1) * C;
       }
     }
-  __syncthreads();
-
-  // 2. t2 = the 3x3 over t1, its nine taps read in place.
-  const int P = rows * W;
-  auto t1_base = [&](int p) {
-    return static_cast<long long>((p / W) * W2 + p % W) * M4;
-  };
-  auto t1_load = [&](long long base, int k) {
-    const int tap = k / M4;
-    const int rr = tap / 3;
-    return t1w[base + (rr * W2 + tap - 3 * rr) * M4 + (k - tap * M4)];
-  };
-  for (int p0 = 0; p0 < P; p0 += kBM)
-    for (int n0 = 0; n0 < M; n0 += kBN) {
-      gemm_pass(acc, p0, n0, P, M, 9 * M4, t1_base, t1_load, w2, sA, sB);
-      const int n = n0 + tx * 4;
-      if (n >= M) continue;
-      for (int i = 0; i < 4; ++i) {
-        const int p = p0 + ty * 4 + i;
-        if (p >= P) continue;
-        int8_t v[4];
-        for (int j = 0; j < 4; ++j)
-          v[j] = requant(acc[i][j], a2[n + j], b2[n + j], q2);
-        reinterpret_cast<char4*>(t2w)[(p * M + n) >> 2] = pack(v);
-      }
+    const int kb = lc.kc * kKS + lchunk * 16;
+    const int valid = min(16, K - kb);
+    const int koff = lc.tap * M + kb;
+    int8_t* sB = ring + lslot * kSlot;
+    int8_t* sA = sB + bn * kKS;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int at = slot_at(lrow + 64 * i, lchunk);
+      if (lrow + 64 * i < bn)
+        load_chunk<VEC16>(sB + at, boffs[i] >= 0 ? w + boffs[i] + koff : w,
+                          boffs[i] >= 0 ? valid : 0, w);
+      if (lc.st == 0 && lrow + 64 * i < bm)
+        load_chunk<VEC16>(sA + at, aoffs[i] >= 0 ? x + aoffs[i] + kb : x,
+                          aoffs[i] >= 0 ? valid : 0, x);
     }
-  __syncthreads();
+    lc.next(P1, P, C, M);
+    lslot = lslot + 1 == kStages ? 0 : lslot + 1;
+  };
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total) load_stage();
+    cp_async_commit();
+  }
 
-  // 3. conv3 and the unit tail (resnet_int8.py:339-365), to the output.
-  auto t2_base = [&](int p) { return static_cast<long long>(p) * M4; };
-  auto t2_load = [&](long long base, int k) { return t2w[base + k]; };
-  for (int p0 = 0; p0 < P; p0 += kBM)
-    for (int n0 = 0; n0 < C; n0 += kBN) {
-      gemm_pass(acc, p0, n0, P, C, M4, t2_base, t2_load, w3, sA, sB);
-      const int n = n0 + tx * 4;
-      if (n >= C) continue;
-      for (int i = 0; i < 4; ++i) {
-        const int p = p0 + ty * 4 + i;
-        if (p >= P) continue;
-        const long long g =
-            (img + static_cast<long long>(r0 + p / W) * W + p % W) * C + n;
-        const char4 x4 = *reinterpret_cast<const char4*>(x + g);
-        const int8_t xv[4] = {x4.x, x4.y, x4.z, x4.w};
-        int8_t v[4];
-        for (int j = 0; j < 4; ++j) {
-          const float t = pcv::round_bf16(
-              __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j]), a3[n + j]),
-                        b3[n + j]));
-          const float id = pcv::round_bf16(__fmul_rn(__int2float_rn(xv[j]), r));
-          v[j] = pcv::quant_i8(fmaxf(__fadd_rn(t, id), 0.f), q3);
+  // ---- the arithmetic: warp (wm, wn) of a pass computes 32 pixels x 32
+  // channels, 2 x 4 mma tiles, accumulators acc[mt][nt]. What a pass's
+  // stages share is set at its first stage: the warp's first pixel m0,
+  // its ldmatrix offsets into a ring slot (boff: B by n-tile pair and
+  // k-step; aoff: step 1's A by m-tile and k-step) and its A pixels in t1
+  // or t2 (apos).
+  Cursor cc{0, 0, 0, 0, 0, 0, 0, 0, 0};
+  cc.start(0, P1, P, C, M);
+  int cslot = 0;
+  int acc[2][4][4];
+  int m0 = 0, wnn = 0;
+  int boff[2][2], aoff[2][2], apos[2];
+  const int arow = (lane & 7) + ((lane >> 3) & 1) * 8, ahalf = lane >> 4;
+  const int mi = lane >> 3;
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (it + kStages - 1 < total) load_stage();
+    cp_async_commit();
+
+    const int Ps = cc.st == 0 ? P1 : P;      // the step's pixels
+    const int bn = 32 << cc.wsh;
+    if (cc.pass_start()) {
+      const int wm = warp >> cc.wsh;
+      wnn = warp & ((1 << cc.wsh) - 1);
+      m0 = cc.mp * (256 >> cc.wsh) + wm * 32;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+        const int p = min(m0 + mt * 16 + arow, Ps - 1);
+        // step 2: t1's pixel of tap 0; step 3: t2's pixel; step 1: unused
+        apos[mt] = cc.st == 1 ? p / cols * W2 + p % cols : p;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          // n-tiles 2 jj and 2 jj + 1 (jj = mt here), and m-tile mt.
+          boff[mt][kk] = slot_at(wnn * 32 + (2 * mt + (mi >> 1)) * 8 +
+                                     (lane & 7),
+                                 2 * kk + (mi & 1));
+          aoff[mt][kk] = bn * kKS +
+                         slot_at(wm * 32 + mt * 16 + arow, 2 * kk + ahalf);
         }
-        *reinterpret_cast<char4*>(out + g) = pack(v);
       }
     }
+    const int8_t* slot = ring + cslot * kSlot;
+    const int tapoff = (cc.tap / 3) * W2 + cc.tap % 3;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t b[4][2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t v[4];
+        ldmatrix_x4(v, slot + boff[jj][kk]);
+        b[2 * jj][0] = v[0];
+        b[2 * jj][1] = v[1];
+        b[2 * jj + 1][0] = v[2];
+        b[2 * jj + 1][1] = v[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if (m0 + mt * 16 >= Ps) continue;
+        const int chunk = cc.kc * 4 + 2 * kk + ahalf;
+        const int8_t* pa;
+        if (cc.st == 0)
+          pa = slot + aoff[mt][kk];
+        else if (cc.st == 1)
+          pa = t1 + chunk_at(apos[mt] + tapoff, chunk, MP, sh, mk);
+        else
+          pa = t2 + chunk_at(apos[mt], chunk, MP, sh, mk);
+        uint32_t a[4];
+        ldmatrix_x4(a, pa);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_s8(acc[mt][nt], a, b[nt][0], b[nt][1]);
+      }
+    }
+
+    if (cc.pass_end()) {
+      // The pass's epilogue, element (pixel p, channels n, n + 1). Its
+      // loads (the channels' A and B; a pixel's residual x) go out
+      // together before their use, so their latency is paid once.
+      const float* ea = cc.st == 0 ? a1 : cc.st == 1 ? a2 : a3;
+      const float* eb = cc.st == 0 ? b1 : cc.st == 1 ? b2 : b3;
+      const float q = cc.st == 0 ? q1 : cc.st == 1 ? q2 : q3;
+      const int N = cc.st == 2 ? C : M;
+      const int n0 = cc.np * bn + wnn * 32 + 2 * t;
+      float2 av[4], bv[4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = min(n0 + nt * 8, N - 2);
+        av[nt] = make_float2(__ldg(ea + n), __ldg(ea + n + 1));
+        bv[nt] = make_float2(__ldg(eb + n), __ldg(eb + n + 1));
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int p = m0 + mt * 16 + g + 8 * hr;
+          if (p >= Ps) continue;
+          int pos;                // t1 / t2 pixel, or x's pixel (step 3)
+          char2 xv[4];
+          if (cc.st == 0) {
+            pos = (lo + p / cols1 - r0 + 1) * W2 + cl + p % cols1 - c0 + 1;
+          } else if (cc.st == 1) {
+            pos = p;
+          } else {
+            pos = (img * H + r0 + p / cols) * W + c0 + p % cols;
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+              xv[nt] = *reinterpret_cast<const char2*>(
+                  x + static_cast<size_t>(pos) * C +
+                  min(n0 + nt * 8, N - 2));
+          }
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int n = n0 + nt * 8;
+            if (n >= N) continue;
+            const int v0 = acc[mt][nt][2 * hr], v1 = acc[mt][nt][2 * hr + 1];
+            if (cc.st < 2) {
+              const char2 o = make_char2(requant(v0, av[nt].x, bv[nt].x, q),
+                                         requant(v1, av[nt].y, bv[nt].y, q));
+              *reinterpret_cast<char2*>(
+                  (cc.st == 0 ? t1 : t2) +
+                  chunk_at(pos, n >> 4, MP, sh, mk) + (n & 15)) = o;
+            } else {
+              // The unit tail (resnet_int8.py:339-365), to the output.
+              const float av2[2] = {av[nt].x, av[nt].y};
+              const float bv2[2] = {bv[nt].x, bv[nt].y};
+              const int vv[2] = {v0, v1};
+              const int8_t xe[2] = {xv[nt].x, xv[nt].y};
+              int8_t o[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float tt = pcv::round_bf16(__fadd_rn(
+                    __fmul_rn(__int2float_rn(vv[e]), av2[e]), bv2[e]));
+                const float id =
+                    pcv::round_bf16(__fmul_rn(__int2float_rn(xe[e]), r));
+                o[e] = pcv::quant_i8(fmaxf(__fadd_rn(tt, id), 0.f), q);
+              }
+              *reinterpret_cast<char2*>(
+                  out + static_cast<size_t>(pos) * C + n) =
+                  make_char2(o[0], o[1]);
+            }
+          }
+        }
+    }
+    cc.next(P1, P, C, M);
+    cslot = cslot + 1 == kStages ? 0 : cslot + 1;
+  }
+  cp_async_wait<0>();
 }
 
 }  // namespace
 
-// One unit over x (B, H, W, C) -> out, row tiles of TH; t1_bytes is t1's
-// tile, (TH + 2) (W + 2) M rounded up to 16, and t2's follows it.
+// One unit over x (B, H, W, C) -> out in blocks of TH x TW output pixels of
+// one image; smem_bytes: the plan's t1, t2 and ring, ((TH + 2)(TW + 2) +
+// TH TW) MP + 3 x 12,288, MP = M rounded up to 64.
 extern "C" int pcv_fused_bottleneck(
     const void* x, const void* w1, const void* w2, const void* w3,
     const void* a1, const void* b1, const void* a2, const void* b2,
     const void* a3, const void* b3, float q1, float q2, float q3, float r,
-    void* out, int B, int H, int W, int C, int M, int TH, int t1_bytes,
+    void* out, int B, int H, int W, int C, int M, int TH, int TW,
     int smem_bytes, void* stream) {
+  const bool vec16 = C % 16 == 0 && M % 16 == 0;
+  const auto kernel = vec16 ? bottleneck_unit_kernel<true>
+                            : bottleneck_unit_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      bottleneck_unit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((H + TH - 1) / TH, B);
-  bottleneck_unit_kernel<<<grid, kThreads, smem_bytes,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int*>(w1),
-      static_cast<const int*>(w2), static_cast<const int*>(w3),
+  dim3 grid((H + TH - 1) / TH * ((W + TW - 1) / TW), B);
+  kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w1),
+      static_cast<const int8_t*>(w2), static_cast<const int8_t*>(w3),
       static_cast<const float*>(a1), static_cast<const float*>(b1),
       static_cast<const float*>(a2), static_cast<const float*>(b2),
       static_cast<const float*>(a3), static_cast<const float*>(b3), q1, q2, q3,
-      r, static_cast<int8_t*>(out), H, W, C, M, TH, t1_bytes);
+      r, static_cast<int8_t*>(out), H, W, C, M, TH, TW);
   return static_cast<int>(cudaGetLastError());
+}
+
+// out: registers a thread, local (spill) bytes and static shared bytes of
+// the instance (16-byte or 4-byte weight loads) that (C, M) launches.
+extern "C" int pcv_fused_bottleneck_info(int C, int M, int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &attr, C % 16 == 0 && M % 16 == 0 ? bottleneck_unit_kernel<true>
+                                        : bottleneck_unit_kernel<false>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  return 0;
 }

@@ -50,7 +50,9 @@ _SIGNATURES = {
     "pcv_deform_sample": [_P, _P, _P, _P] + [_I] * 5 + [_P],
     "pcv_dwconv": [_P] * 5 + [_I] * 12 + [_P],
     "pcv_window_attention": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
+    "pcv_window_attention_info": [_I, _I, _I, _P],
     "pcv_fused_bottleneck": [_P] * 10 + [_F] * 4 + [_P] + [_I] * 8 + [_P],
+    "pcv_fused_bottleneck_info": [_I, _I, _P],
     "pcv_stem_int8": [_P] * 4 + [_F] * 2 + [_P] + [_I] * 6 + [_P],
     "pcv_patch_window_sum": [_P] * 3 + [_I] * 4 + [_P],
 }

@@ -9,12 +9,15 @@ full path: Lq 810, Lk 2142 at 18 frames), and within each frame's window
 streams k and v tiles through shared memory with the running-max /
 running-sum rescaling, so the (Lq, Lk) scores never reach device memory;
 the TPU kernel it replaces (``pytorchcv_tpu/kernels/attention.py``) held a
-problem's whole score tile in VMEM. Every step is f32 and the output is
-q's type. Counterpart of that module's ``fused_window_attention``.
+problem's whole score tile in VMEM. The function is f32's: the kernel runs
+both products on the tensor cores as three TF32 products each (x = hi +
+lo, a b = a_lo b_hi + a_hi b_lo + a_hi b_hi), the softmax in f32, and the
+output is q's type. Counterpart of that module's ``fused_window_attention``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -23,11 +26,12 @@ import torch
 from ._build import (LAUNCHES, autograd_records, check, library, no_tf32,
                      require_cuda_or_cpu, stream_of)
 
-__all__ = ["fused_window_attention", "fused_window_attention_reference"]
+__all__ = ["fused_window_attention", "fused_window_attention_reference",
+           "kernel_info"]
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _MAX_D = 128
-_BQ = 64                       # query rows per block of the kernel
+_BQ = 64                       # query rows a block of the kernel (Lq > 48)
 
 
 def fused_window_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -101,3 +105,14 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             stream_of(q)), "window_attention")
     LAUNCHES["window_attention"] += 1
     return out
+
+
+def kernel_info(d: int, dtype=torch.float32, lq: int = 810) -> dict:
+    """Registers a thread, spilled (local) bytes, static and dynamic shared
+    memory a block of the instance K7 launches for head width ``d``,
+    ``dtype`` and ``lq`` query rows (needs the card)."""
+    out = (ctypes.c_int * 4)()
+    check(library().pcv_window_attention_info(
+        d, int(dtype == torch.bfloat16), lq, out), "window_attention info")
+    return dict(zip(("registers", "spill_bytes", "static_smem",
+                     "dynamic_smem"), out))

@@ -18,14 +18,13 @@ from __future__ import annotations
 import ctypes
 import json
 import re
-import subprocess
 import tempfile
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from ._build import _ARCH, _CSRC, _nvcc
+from ._build import _CSRC
+from ._parts import build, card, cuda_ms
 
 _PV = r".*mma_bf16\(o\[[^\n]*b\[h\][^\n]*\n"
 _S = r".*mma_bf16\(s\[[^\n]*\n"
@@ -53,33 +52,6 @@ def variants(src: str) -> dict:
     return out
 
 
-def _time(lib_path: Path, q, k, v, out) -> float:
-    fn = ctypes.CDLL(str(lib_path)).pcv_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    n, lq, d = q.shape
-    lk, dv = v.shape[1:]
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def call():
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n,
-                 lq, lk, d, dv, 1.0, 1, stream)
-        if err:
-            raise RuntimeError(f"{lib_path.name}: CUDA error {err}")
-
-    for _ in range(3):
-        call()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(20):
-        call()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / 20
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("flash_attention_parts needs a CUDA card")
@@ -90,26 +62,25 @@ def main() -> None:
     v = torch.from_numpy(rng.standard_normal((8, 3600, 512)).astype(
         np.float32)).to("cuda", torch.bfloat16)
     out = torch.empty_like(v)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    name_card = card()
+    stream = torch.cuda.current_stream().cuda_stream
     times = {}
     with tempfile.TemporaryDirectory() as tmp:
-        jobs = {}
-        for i, (name, text) in enumerate(variants(src).items()):
-            cu, so = Path(tmp) / f"v{i}.cu", Path(tmp) / f"v{i}.so"
-            cu.write_text(text)
-            jobs[name] = (so, subprocess.Popen(
-                [_nvcc(), *_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-                 "-shared", f"-I{_CSRC}", str(cu), "-o", str(so)]))
-        for name, (so, proc) in jobs.items():
-            if proc.wait() != 0:
-                raise RuntimeError(f"nvcc failed on variant {name!r}")
-            times[name] = _time(so, q, k, v, out)
-            print(f"[{card}] K4 bf16 (8, 3600, 64) x (8, 3600, 512), "
+        for name, lib in build(variants(src), tmp).items():
+            fn = lib.pcv_flash_attention
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+            def call():
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), 8, 3600, 3600, 64, 512, 1.0, 1,
+                         stream)
+                if err:
+                    raise RuntimeError(f"{name}: CUDA error {err}")
+            times[name] = cuda_ms(call, 20, 3)
+            print(f"[{name_card}] K4 bf16 (8, 3600, 64) x (8, 3600, 512), "
                   f"{name}: {times[name]:.4f} ms")
-    print(json.dumps({"card": card, "ms": times}))
+    print(json.dumps({"card": name_card, "ms": times}))
 
 
 if __name__ == "__main__":

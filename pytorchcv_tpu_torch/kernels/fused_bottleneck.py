@@ -18,13 +18,16 @@ version (the JAX module's ``fused_chain_xla_ref``).
 
 Limits (the widths are checked when a plan is prepared, :func:`fits`): C and
 M multiples of 4, M at most 1024. The feature map's width W is checked per
-call: one output row's tile, ``3 (W + 2) M + W M`` bytes, must fit in the
-219 KB of dynamic shared memory a block may hold beside its 8 KB of GEMM
-staging (W <= 53 at M = 1024), or the call raises.
+call: one output row's t1 and t2, ``3 (W + 2) M`` (rounded up to 16) plus
+``W M`` bytes, must fit in 219 KB (W <= 53 at M = 1024, W <= 108 at M =
+512), or the call raises. :func:`plan` picks a block's output tile: whole
+rows, or where one row leaves no room for the kernel's 36 KB weight ring
+(W > 46 at M = 1024), one row in column tiles.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, Sequence
 
 import torch
@@ -34,15 +37,23 @@ from ._build import (LAUNCHES, autograd_records, check, f32, library,
 from .int8_conv import int8_conv_reference
 
 __all__ = ["pack_units", "fused_bottleneck_chain",
-           "fused_bottleneck_chain_reference", "fits", "takes_unit",
-           "row_tile"]
+           "fused_bottleneck_chain_reference", "fits", "takes_unit", "plan",
+           "kernel_info"]
 
 MAX_M = 1024
-# Dynamic shared memory a block may hold beside its 8 KB of static GEMM
-# staging; the second figure lets two blocks share an SM's 228 KB (1 KB
-# each kept by the hardware).
-_SMEM_ONE = 232_448 - 8_192
-_SMEM_TWO = 233_472 // 2 - 1_024 - 8_192
+_SMS = 132                     # the H100's SMs
+_RING = 3 * 192 * 64           # the weight ring: 3 stages of 192 64-byte rows
+# The widest row K8 takes: one row's t1 and t2 within 219 KB.
+_ROW_LIMIT = 232_448 - 8_192
+# Dynamic shared memory a block may hold (t1, t2 and the ring); the second
+# figure lets two blocks share an SM's 228 KB (1 KB each kept by the
+# hardware).
+_SMEM_ONE = 232_448
+_SMEM_TWO = 233_472 // 2 - 1_024
+# A pass's epilogue takes about as long as this many ring stages (K8 with
+# and without its epilogues, on the H100 at ResNet-50's and WRN-50-2's
+# chain shapes: 3.8-4.6 us against 0.7-0.9 us a stage).
+_EPILOGUE_STAGES = 5
 
 
 def fits(c: int, m: int) -> bool:
@@ -65,44 +76,67 @@ def takes_unit(cells: Dict) -> bool:
             and fits(c, m))
 
 
-def _t1_bytes(th: int, w: int, m: int) -> int:
-    return -(-((th + 2) * (w + 2) * m) // 16) * 16
+def _smem(th: int, tw: int, m: int) -> int:
+    """Dynamic shared bytes of a block of ``th`` x ``tw`` output pixels: t1
+    with its halo, t2 (channels padded to 64) and the weight ring."""
+    mp = -(-m // 64) * 64
+    return ((th + 2) * (tw + 2) + th * tw) * mp + _RING
 
 
-def _smem(th: int, w: int, m: int) -> int:
-    return _t1_bytes(th, w, m) + th * w * m
+def _splits(n: int) -> List[int]:
+    """The even splits of ``n``: ``ceil(n / k)`` for k = 1 .. n."""
+    return sorted({-(-n // k) for k in range(1, n + 1)})
 
 
-def _passes(h: int, w: int, c: int, m: int, th: int) -> int:
-    """K8's multiply-add work for one image in tiles of ``th`` rows, costed
-    as the tile count times one full tile: each conv runs in passes of 64
-    pixels, so ragged pixel counts and conv1's two halo rows cost whole
-    passes, and the blocks of one launch run side by side, so the largest
-    tile sets the time."""
-    halo = min(th + 2, h)
-    return -(-h // th) * (-(-halo * w // 64) * c * m +
-                          -(-th * w // 64) * (9 * m * m + m * c))
+def _block_cost(th: int, tw: int, h: int, w: int, c: int, m: int) -> int:
+    """A block's time in ring stages: its stages, and its passes'
+    epilogues at ``_EPILOGUE_STAGES`` each, with the kernel's pass shapes
+    (``make_step`` in ``csrc/fused_bottleneck.cu``): 256 >> wsh pixels x
+    32 << wsh channels, the widest the step's pixels fill."""
+    stages = passes = 0
+    for p, n, k, taps, first in ((min(th + 2, h) * min(tw + 2, w), m, c, 1,
+                                  True),
+                                 (th * tw, m, m, 9, False),
+                                 (th * tw, c, m, 1, False)):
+        wsh = 2 if p <= 64 else 1 if p <= 128 else 0
+        if n <= 64:
+            wsh = min(wsh, 1)
+        if n <= 32:
+            wsh = 0
+        if first:
+            wsh = max(wsh, 1)
+        n_pass = -(-p // (256 >> wsh)) * -(-n // (32 << wsh))
+        stages += n_pass * taps * -(-k // 64)
+        passes += n_pass
+    return stages + _EPILOGUE_STAGES * passes
 
 
-def row_tile(h: int, w: int, c: int, m: int) -> int:
-    """Output rows a block takes: of the even splits of H (``ceil(H / n)``
-    rows a tile) whose t1 and t2 fit in shared memory, the one with the
-    least ``_passes``, among those that leave room for a second block on
-    the SM unless a one-block tile needs under 3/4 of their work."""
-    splits = sorted({-(-h // n) for n in range(1, h + 1)}, reverse=True)
+def _plan_cost(b, h, w, c, m, th, tw) -> int:
+    """A call's time under a plan, in ring stages: waves of blocks (two an
+    SM where their shared memory fits; co-resident blocks run at about
+    their own speed, as a block waits mostly on latency) times a block's
+    time."""
+    blocks = -(-h // th) * -(-w // tw) * b
+    slots = _SMS * (2 if _smem(th, tw, m) <= _SMEM_TWO else 1)
+    return -(-blocks // slots) * _block_cost(th, tw, h, w, c, m)
 
-    def best(budget):
-        fit = [t for t in splits if _smem(t, w, m) <= budget]
-        return min(fit, key=lambda t: _passes(h, w, c, m, t), default=None)
-    two, one = best(_SMEM_TWO), best(_SMEM_ONE)
-    if one is None:
+
+def plan(b: int, h: int, w: int, c: int, m: int):
+    """(rows, columns) of a block's output tile for a unit of width ``c``,
+    mid width ``m`` on ``b`` images of ``h`` x ``w``: whole rows,
+    ``ceil(h / n)`` a tile, or where not one whole row fits beside the
+    weight ring, one row in ``ceil(w / n)`` columns. Of the tiles whose
+    shared memory fits, the one of least :func:`_plan_cost`, and of those
+    the largest. Raises where one row is wider than K8 takes."""
+    if -(-3 * (w + 2) * m // 16) * 16 + w * m > _ROW_LIMIT:
         raise ValueError(f"fused_bottleneck: one row of W {w} at M {m} "
-                         f"needs {_smem(1, w, m)} bytes of shared memory, "
-                         f"more than the {_SMEM_ONE} a block may hold")
-    if two is None or _passes(h, w, c, m, one) < \
-            0.75 * _passes(h, w, c, m, two):
-        return one
-    return two
+                         f"needs more than the {_ROW_LIMIT} bytes of shared "
+                         f"memory K8 gives a row")
+    fit = [(t, w) for t in _splits(h) if _smem(t, w, m) <= _SMEM_ONE]
+    if not fit:
+        fit = [(1, t) for t in _splits(w) if _smem(1, t, m) <= _SMEM_ONE]
+    return min(fit, key=lambda p: (_plan_cost(b, h, w, c, m, *p),
+                                   -p[0] * p[1]))
 
 
 def pack_units(units: Sequence[Dict], s_chain: Sequence[float]) -> Dict:
@@ -191,9 +225,17 @@ def fused_bottleneck_chain(xq: torch.Tensor, packed: Dict) -> torch.Tensor:
     if bsz > 65535 or xq.numel() >= 2 ** 31:
         raise ValueError(f"fused_bottleneck: x {tuple(xq.shape)} exceeds the "
                          f"kernel's grid")
-    th = row_tile(h, w, c, m)
+    return _launch(xq, packed, plan(bsz, h, w, c, m))
+
+
+def _launch(x: torch.Tensor, packed: Dict, tile) -> torch.Tensor:
+    """The chain on the card, one launch a unit, in output tiles of ``tile``
+    = (rows, columns) (checked operands; :func:`plan`'s tile, or another
+    that fits for ``kernels/fused_bottleneck_plans.py``)."""
+    th, tw = tile
+    bsz, h, w, c = x.shape
+    m = packed["w1"].shape[1]
     lib = library()
-    x = xq
     for u, (q1, q2, q3) in enumerate(packed["q"]):
         out = torch.empty_like(x)
         args = [packed[k][u].data_ptr() for k in
@@ -201,8 +243,20 @@ def fused_bottleneck_chain(xq: torch.Tensor, packed: Dict) -> torch.Tensor:
         with torch.cuda.device(x.device):
             check(lib.pcv_fused_bottleneck(
                 x.data_ptr(), *args, q1, q2, q3, packed["r"][u],
-                out.data_ptr(), bsz, h, w, c, m, th, _t1_bytes(th, w, m),
-                _smem(th, w, m), stream_of(x)), "fused_bottleneck")
+                out.data_ptr(), bsz, h, w, c, m, th, tw,
+                _smem(th, tw, m), stream_of(x)), "fused_bottleneck")
         LAUNCHES["fused_bottleneck"] += 1
         x = out
     return x
+
+
+def kernel_info(b: int, h: int, w: int, c: int, m: int) -> dict:
+    """Registers a thread, spilled (local) bytes, static and dynamic shared
+    memory a block of K8 on ``b`` images of (h, w, c) at mid width ``m``,
+    with its plan's rows and columns a tile (needs the card)."""
+    out = (ctypes.c_int * 3)()
+    check(library().pcv_fused_bottleneck_info(c, m, out),
+          "fused_bottleneck info")
+    th, tw = plan(b, h, w, c, m)
+    return dict(zip(("registers", "spill_bytes", "static_smem"), out),
+                dynamic_smem=_smem(th, tw, m), rows=th, cols=tw)

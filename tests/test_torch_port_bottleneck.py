@@ -127,11 +127,105 @@ def test_chain_refuses_what_k8_does_not_take():
         fb.pack_units(bad, s_chain)
     assert fb.fits(256, 64) and not fb.fits(256, 6) and \
         not fb.fits(2048, 2048)
-    # one row of t1 and t2 must fit in a block's shared memory
-    assert fb.row_tile(7, 7, 2048, 1024) == 7       # one block an SM
-    assert fb.row_tile(56, 56, 256, 64) == 8        # two blocks an SM
-    with pytest.raises(ValueError, match="shared memory"):
-        fb.row_tile(4, 60, 2048, 1024)
+    # one row of t1 and t2 must fit in 219 KB: W <= 53 at M 1024, 108 at 512
+    assert fb.plan(128, 7, 7, 2048, 1024) == (7, 7)     # one block an SM
+    assert fb._smem(*fb.plan(128, 56, 56, 256, 64), 64) <= \
+        fb._SMEM_TWO                                     # two blocks an SM
+    for w, m in ((60, 1024), (54, 1024), (109, 512)):
+        with pytest.raises(ValueError, match="shared memory"):
+            fb.plan(1, 4, w, 2048, m)
+
+
+# The stride-1 chains of ResNet-50 and WRN-50-2 at 224x224: (H, W, C, M).
+_CHAINS = {"resnet50": [(56, 56, 256, 64), (28, 28, 512, 128),
+                        (14, 14, 1024, 256), (7, 7, 2048, 512)],
+           "wrn50_2": [(56, 56, 256, 128), (28, 28, 512, 256),
+                       (14, 14, 1024, 512), (7, 7, 2048, 1024)]}
+
+
+def _blocks_cover_once(bsz, h, w, m, tile):
+    """The kernel's grid under ``tile`` = (rows, columns): block (x, image)
+    takes rows from (x // column tiles) * rows and columns from (x % column
+    tiles) * columns. Each (image, row, column) is covered exactly once,
+    within a block's shared memory."""
+    th, tw = tile
+    assert fb._smem(th, tw, m) <= fb._SMEM_ONE
+    ncol = -(-w // tw)
+    seen = np.zeros((bsz, h, w), np.int64)
+    for bx in range(-(-h // th) * ncol):
+        r0, c0 = bx // ncol * th, bx % ncol * tw
+        seen[:, r0:r0 + th, c0:c0 + tw] += 1
+    return bool((seen == 1).all())
+
+
+@pytest.mark.parametrize("name", sorted(_CHAINS))
+@pytest.mark.parametrize("bsz", [128, 32, 3])
+def test_plan_covers_every_row_once_within_shared_memory(name, bsz):
+    """K8's plan (rows, columns a tile) on every chain shape and on the last
+    stage at a 64x64 input (a 2x2 map): whole rows, each (image, row)
+    covered exactly once, the shared bytes within a block's budget. A block
+    takes one image: at ResNet-50's 7x7 stage 4 two images fit, but on the
+    H100 two images a block took 0.942 ms a unit against 0.484 for one at
+    batch 128 (64 blocks for 132 SMs)."""
+    h4, w4, c4, m4 = _CHAINS[name][-1]
+    for h, w, c, m in _CHAINS[name] + [(2, 2, c4, m4)]:
+        tile = fb.plan(bsz, h, w, c, m)
+        assert tile[1] == w and _blocks_cover_once(bsz, h, w, m, tile), \
+            (h, w, c, m, tile)
+    if name == "resnet50":
+        assert fb.plan(bsz, 7, 7, 2048, 512) == (7, 7)
+
+
+@pytest.mark.parametrize("h,w,c,m,whole_rows", [(4, 53, 2048, 1024, False),
+                                                (3, 108, 2048, 512, False),
+                                                (5, 46, 2048, 1024, True)])
+def test_plan_takes_the_widest_rows_in_column_tiles(h, w, c, m, whole_rows):
+    """Rows as wide as K8 takes (W 53 at M 1024, 108 at M 512) leave the
+    weight ring no room beside one row's t1 and t2: the plan cuts one row
+    into column tiles that cover each pixel once. At W 46 and M 1024 one
+    row still fits."""
+    th, tw = fb.plan(2, h, w, c, m)
+    assert _blocks_cover_once(2, h, w, m, (th, tw))
+    assert (tw == w) == whole_rows and (whole_rows or th == 1)
+
+
+@pytest.mark.parametrize("name", sorted(_CHAINS))
+@pytest.mark.parametrize("size", [224, 256, 320, 384, 448, 512, 640, 800,
+                                  1024, 1280, 1472, 1696, 1728])
+def test_plan_takes_every_chain_map_up_to_the_width_limit(name, size):
+    """ResNet-50 and WRN-50-2 served at ``size`` x ``size``: their chain
+    maps (``size`` / 4, 8, 16, 32) in tiles that cover each pixel once
+    within shared memory, up to the widest row K8 takes. WRN-50-2's stage 4
+    at 1728 px (W 54 at M 1024) is past it and raises; at 1696 px (W 53)
+    and below every map is taken."""
+    for (_, _, c, m), stride in zip(_CHAINS[name], (4, 8, 16, 32)):
+        s = size // stride
+        if (name, size, stride) == ("wrn50_2", 1728, 32):
+            with pytest.raises(ValueError, match="shared memory"):
+                fb.plan(2, s, s, c, m)
+            continue
+        assert _blocks_cover_once(2, s, s, m, fb.plan(2, s, s, c, m)), s
+
+
+def test_fused_bottleneck_parts_match_the_kernel_source():
+    """``kernels/fused_bottleneck_parts.py`` cuts K8's parts out of its
+    source by pattern: every variant removes what it names."""
+    from pytorchcv_tpu_torch.kernels._build import _CSRC
+    from pytorchcv_tpu_torch.kernels.fused_bottleneck_parts import variants
+    src = (_CSRC / "fused_bottleneck.cu").read_text()
+    v = variants(src)
+    count = {name: (t.count("mma_s8(acc"), t.count("cp_async16(dst"),
+                    t.count("__ldg(e"), t.count("ldmatrix_x4(a, pa)"),
+                    t.count("reinterpret_cast<const char2*>"))
+             for name, t in v.items()}
+    assert count["kernel"] == (1, 1, 4, 1, 1)
+    assert count["no residual x loads"] == (1, 1, 4, 1, 0)
+    assert count["no A, B loads"] == (1, 1, 0, 1, 1)
+    assert count["no ring copies"] == (1, 0, 4, 1, 1)
+    assert count["no products"] == (0, 1, 4, 1, 1)
+    assert count["no products, no A ldmatrix"] == (0, 1, 4, 0, 1)
+    assert count["no products, no ring copies"] == (0, 0, 4, 1, 1)
+    assert "123456789" in v["no epilogues"] and "123456789" not in src
 
 
 def _exact_stem_pair(name, size, classes, seed, **kw):

@@ -425,32 +425,38 @@ def test_efficientnet_bf16_on_cuda_matches_cpu(name):
     assert cos >= 0.999, cos
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("lq,lk,masked", [
-    (1, 1, False), (1, 300, True), (45, 45, False), (70, 129, True),
-    (200, 63, False)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_window_attention_kernel_matches_plain(d, lq, lk, masked, dtype):
+@pytest.mark.parametrize("lead,d,lq,lk,masked,dtype", [
+    ((3, 2), d, lq, lk, masked, dtype)
+    for d in (16, 32, 64, 128)
+    for lq, lk, masked in ((1, 1, False), (1, 300, True), (45, 45, False),
+                           (70, 129, True), (200, 63, False))
+    for dtype in ("float32", "bfloat16")] + [
+    ((4, 1), 128, 810, 2142, True, "float32")])    # the generator's full path
+def test_window_attention_kernel_matches_plain(lead, d, lq, lk, masked,
+                                               dtype):
     """Lq = 1, Lk no tile divides, masks of 0 and -1e9 broadcast over the
-    heads: f32 within 2e-5 of the largest plain value, bf16 within 1
-    ulp."""
+    heads, and the generator's full-path shape: f32 within 2e-5 of the
+    largest plain value, bf16 within 1 ulp; the instance spills
+    nothing."""
+    from pytorchcv_tpu_torch.kernels.attention import kernel_info
     dev = _cuda()
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(d * 1000 + lq + lk)
-    q = torch.randn((3, 2, lq, d), generator=g).to(dev, dt)
-    k, v = (torch.randn((3, 2, lk, d), generator=g).to(dev, dt)
+    q = torch.randn((*lead, lq, d), generator=g).to(dev, dt)
+    k, v = (torch.randn((*lead, lk, d), generator=g).to(dev, dt)
             for _ in range(2))
     mask = None
     if masked:
-        mask = torch.where(torch.rand((3, 1, lq, lk), generator=g) > 0.4,
-                           0.0, -1e9).to(dev)
+        mask = torch.where(torch.rand((lead[0], 1, lq, lk), generator=g)
+                           > 0.4, 0.0, -1e9).to(dev)
     reset_launch_counts()
     got = fused_window_attention(q, k, v, 0.7, mask)
     ref = fused_window_attention_reference(
-        q, k, v, 0.7, None if mask is None else mask.expand(3, 2, lq, lk))
+        q, k, v, 0.7, None if mask is None else mask.expand(*lead, lq, lk))
     torch.cuda.synchronize()
     assert LAUNCHES["window_attention"] == 1
-    assert got.dtype == dt and got.shape == (3, 2, lq, d)
+    assert kernel_info(d, dt, lq)["spill_bytes"] == 0
+    assert got.dtype == dt and got.shape == (*lead, lq, d)
     if dt == torch.bfloat16:
         assert float(bf16_ulp_error(got, ref).max()) <= 1
     else:
@@ -565,11 +571,18 @@ def _chain_inputs(rng, bsz, h, w, c, m, n_units, dev):
     (2, 7, 5, 64, 16, 3),          # odd map, narrow widths
     (3, 30, 20, 256, 128, 2),      # several row tiles, a ragged last one
     (2, 7, 7, 2048, 1024, 1),      # WRN-50-2's stage 4 (t1 81 KB, t2 49 KB)
-    (1, 56, 56, 256, 64, 2)])      # ResNet-50's stage 1
+    (1, 56, 56, 256, 64, 2),       # ResNet-50's stage 1
+    (3, 14, 14, 1024, 256, 2),     # ResNet-50's stage 3
+    (3, 7, 7, 2048, 512, 1),       # ResNet-50's stage 4, an odd batch
+    (2, 4, 53, 256, 1024, 1),      # the widest row at M 1024: column tiles
+    (1, 3, 108, 128, 512, 1)])     # the widest row at M 512: column tiles
 def test_fused_bottleneck_kernel_matches_plain(bsz, h, w, c, m, n_units):
+    """Bit-exact against the plain version; the kernel spills nothing."""
     from pytorchcv_tpu_torch.kernels.fused_bottleneck import (
-        fused_bottleneck_chain, fused_bottleneck_chain_reference)
+        fused_bottleneck_chain, fused_bottleneck_chain_reference,
+        kernel_info)
     dev = _cuda()
+    assert kernel_info(bsz, h, w, c, m)["spill_bytes"] == 0
     x, packed = _chain_inputs(np.random.default_rng(h * w + m), bsz, h, w,
                               c, m, n_units, dev)
     reset_launch_counts()

@@ -113,6 +113,94 @@ def test_attention_plain_matches_jax(d, masked, route):
     _close(got.numpy(), ref, 2e-5)
 
 
+def _tf32(x):
+    """f32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32``: half of the dropped 13 bits' range added
+    to the magnitude, then the 13 bits masked."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b as K7's mma.sync products: k-steps of 8, each three TF32
+    products (x = hi + lo, lo = tf32(x - hi)), the small ones a_lo b_hi +
+    a_hi b_lo summed apart from a_hi b_hi, in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    big = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    small = torch.zeros_like(big)
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        small = small + al[..., ks] @ bh[..., ks, :]
+        small = small + ah[..., ks] @ bl[..., ks, :]
+        big = big + ah[..., ks] @ bh[..., ks, :]
+    return big + small
+
+
+def _k7_design(q, k, v, scale, mask=None, tile=32):
+    """K7's f32 design in torch: the head columns of q k^T permuted as the
+    kernel's fragments take them (k-step 2i: 16i + 4t, then 16i + 4t + 1;
+    k-step 2i + 1: + 2, + 3), the online softmax over 32-key tiles in base
+    2 (running max from -1e30), p v with each 8 keys in the order (0, 2, 4,
+    6, 1, 3, 5, 7) of the A fragment's columns, both products in 3xTF32."""
+    d, lk = q.shape[-1], k.shape[-2]
+    dp = [16 * (j // 16) + 4 * (j % 4) + 2 * ((j // 8) % 2) + (j % 8) // 4
+          for j in range(d)]
+    kp = [8 * (j // 8) + 2 * (j % 4) + (j % 8) // 4 for j in range(tile)]
+    pad = -lk % tile
+    kz = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    vz = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    s_all = _mm3(q[..., dp], kz[..., dp].transpose(-1, -2))
+    log2e = float(np.float32(1.4426950408889634))
+    m = torch.full(q.shape[:-1] + (1,), -1e30)
+    den = torch.zeros_like(m)
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, lk, tile):
+        s = s_all[..., k0:k0 + tile]
+        if mask is None:
+            s = s * float(np.float32(scale) * np.float32(log2e))
+        else:
+            mk = torch.nn.functional.pad(mask, (0, pad))[..., k0:k0 + tile]
+            s = (s * float(np.float32(scale)) + mk) * log2e
+        keys = torch.arange(k0, k0 + tile)
+        s = torch.where(keys < lk, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        den = den * alpha + p.sum(-1, keepdim=True)
+        vt = vz[..., k0:k0 + tile, :]
+        acc = torch.addcmul(_mm3(p[..., kp], vt[..., kp, :]), acc, alpha)
+        m = m_new
+    return acc / den
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10                 # a TF32 value; its ulp 2^-10
+    x = torch.tensor([one, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -11 - 2.0 ** -20])
+    want = [one, one, 1.0 + 2.0 ** -9, -one, 1.0]
+    assert _tf32(x).tolist() == want
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_tf32x3_design_within_gate(masked):
+    """K7's 3xTF32 tensor-core design against the plain version at D 128,
+    Lq 70, a ragged Lk 150 (five 32-key tiles, the last 22 keys), with and
+    without a mask of 0 and -1e9: within 2e-5 of max |plain|, the kernel's
+    gate on the card. A single TF32 product misses that gate."""
+    rs = np.random.RandomState(5)
+    q, k, v = (_t(rs.randn(2, n, 128)) for n in (70, 150, 150))
+    mask = _t(np.where(rs.rand(2, 70, 150) > 0.5, 0.0, -1e9)) \
+        if masked else None
+    scale = 128 ** -0.5
+    ref = fused_window_attention(q, k, v, scale, mask)
+    got = _k7_design(q, k, v, scale, mask)
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert err <= 2e-5, err
+    one = torch.softmax(_tf32(q) @ _tf32(k).transpose(-1, -2) * scale + (
+        0 if mask is None else mask), -1) @ _tf32(v)
+    assert float((one - ref).abs().max() / ref.abs().max()) > 2e-5
+
+
 def test_attention_wrapper_contract():
     """Default scale D ** -0.5; a mask broadcast from (Lq, Lk); bf16 out in
     q's type; D > 128, mismatched shapes or dtypes and calls autograd would
