@@ -28,8 +28,14 @@ use (one nvcc per source, in parallel). Phases, each ending in
    against the f32 reference forward (no TF32);
 4. ResNet-50 timing with CUDA events at batch 128: serving images/s, each
    kernel beside its plain version and its library call (K1 beside the
-   einsum of its two products), K1's registers, spills and shared memory
-   (``cudaFuncGetAttributes``), K8 per chain with its plan's tile
+   einsum of its two products; K2 beside ``torch._int_mm``, cuBLASLt's
+   int8 product without epilogue, on the operands of its 1x1 stride-1
+   convs only), K1's registers, spills and shared memory
+   (``cudaFuncGetAttributes``), K2 at each distinct conv (k, stride,
+   dilation, Cin, Cout, H, residual mode) with its ms, TOP/s, bound, the
+   plan's tile and the instance's registers, spills (any fails the run)
+   and shared memory, K3's rows a tile and resources (a spill fails),
+   K8 per chain with its plan's tile
    (rows x columns of one image) and its registers, spills and shared memory,
    and the chained units replayed on K2 from the K2-only plan
    (``prepare_int8_resnet(..., chains=False)``, whose logits must equal
@@ -51,9 +57,10 @@ use (one nvcc per source, in parallel). Phases, each ending in
    (B, 19, 480, 480) maps; main map cosine >= 0.99 and per-pixel argmax
    agreement >= 0.97 against the f32 reference forward (no TF32);
 7. DANet timing at batch 8: serving images/s, each kernel beside its plain
-   version and its library call (SDPA beside K4), K1's and both K4
-   instances' registers, spills and shared memory, and the cuDNN bf16 head
-   convs (recorded through the closure's ``head``);
+   version and its library call (SDPA beside K4, ``torch._int_mm`` beside
+   K2 as in phase 4), K1's and both K4 instances' registers, spills and
+   shared memory, K2 at each distinct conv and K3 as in phase 4, and the
+   cuDNN bf16 head convs (recorded through the closure's ``head``);
 8. the RFC slice: ``get_model("propainter_rfc", device="cuda")`` on seed-0
    weights completes the flows of a synthetic 160-frame 240x432 clip
    (smooth sinusoidal flows up to 10 px, a moving ellipse masking ~10 % of
@@ -625,6 +632,89 @@ def _int8_max_pool_library(card, name, x, out):
     return ms
 
 
+def _int_mm_library(a):
+    """``torch._int_mm`` (cuBLASLt's int8 tensor cores, int32 out, no
+    epilogue) on a 1x1 stride-1 conv's int8 operands: x as (M, Cin) times
+    w as (Cin, Cout). Its ms, or None with torch's refusal printed."""
+    x, w = a[0], a[1]
+    xa = x.reshape(-1, x.shape[3])
+    wb = w.reshape(w.shape[0], -1).t()
+    try:
+        acc = torch._int_mm(xa, wb)
+    except RuntimeError as err:
+        print(f"torch._int_mm on x {tuple(xa.shape)}, w {tuple(wb.shape)}: "
+              f"refused ({str(err).splitlines()[0]})")
+        return None
+    _require(acc.dtype == torch.int32, acc.dtype)
+    return _cuda_ms(lambda: torch._int_mm(xa, wb), 10)
+
+
+def _k2_per_shape(card, tag, calls):
+    """K2 at each distinct conv of a path's recorded calls: its device ms
+    (``torch.profiler``; a short conv's back-to-back calls wait on the
+    wrapper's host time, printed beside it), TOP/s, bound and by what, the
+    plan's tile and the instance's registers, spills (any fails the run)
+    and shared memory; and ``torch._int_mm`` on the operands of every 1x1
+    stride-1 conv, summed over the path's calls of those shapes beside
+    K2's device time for the same calls. Returns the library sum (None
+    where torch refused a shape)."""
+    from pytorchcv_tpu_torch.kernels.int8_conv import int8_conv, kernel_info
+    seen = {}
+    for a, k, out in calls:
+        key = _conv_key(a, k)
+        if key not in seen:
+            seen[key] = [a, k, out, 0]
+        seen[key][3] += 1
+    lib_sum, k2_sum, device_sum = 0.0, 0.0, 0.0
+    for key, (a, k, out, count) in sorted(seen.items()):
+        x, w = a[0], a[1]
+        o = out[0] if isinstance(out, tuple) else out
+        m = o.shape[0] * o.shape[1] * o.shape[2]
+        kernels, _, wall, _ = _device_kernels(lambda: int8_conv(*a, **k), 10)
+        ms = sum(v for name, v in kernels.items() if "int8_conv_kernel" in name)
+        if ms == 0.0:
+            print(f"[{card}] {tag} K2: the profiler saw no device time; "
+                  f"CUDA events instead")
+            ms = wall
+        device_sum += count * ms
+        bound = _work_convs([(a, k, out)])
+        ops = 2 * m * w.shape[0] * w.shape[1] * w.shape[2] * w.shape[3]
+        info = kernel_info(m, w.shape[0], x.shape[3], w.shape[1])
+        lib = None
+        if key[0] == 1 and key[1] == 1:
+            lib = _int_mm_library(a)
+            lib_sum = None if lib is None or lib_sum is None else \
+                lib_sum + count * lib
+            k2_sum += count * ms
+        print(f"[{card}] {tag} K2 k={key[0]} s={key[1]} d={key[2]} "
+              f"cin={key[3]} cout={key[4]} h={key[5]} {key[6]} (x{count}): "
+              f"{ms:.4f} ms on the device ({wall:.4f} back to back), "
+              f"{ops / ms / 1e9:.1f} TOP/s, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}), tile {info['bm']}x"
+              f"{info['bn']}, {info['registers']} registers, "
+              f"{info['spill_bytes']} bytes spilled, shared "
+              f"{info['static_smem']} + {info['dynamic_smem']} bytes"
+              + ("" if lib is None else f"; torch._int_mm {lib:.4f} ms"))
+        _require(info["spill_bytes"] == 0, f"{tag} K2 spills at {key}")
+    print(f"[{card}] {tag} K2 on the device, the {len(calls)} convs of a "
+          f"forward: {device_sum:.4f} ms")
+    print(f"[{card}] {tag} K2 library (1x1 s1 products only): "
+          f"torch._int_mm {'refused' if lib_sum is None else f'{lib_sum:.4f} ms'}"
+          f" against K2 {k2_sum:.4f} ms on the same calls (with epilogues)")
+    return lib_sum
+
+
+def _stem_info(card, tag, a):
+    """K3's registers, spills (any fails the run) and shared memory at a
+    recorded call's shape, with its plan's rows a tile."""
+    from pytorchcv_tpu_torch.kernels.stem import kernel_info
+    x, kf = a[0], a[1]
+    info = kernel_info(x.shape[0], x.shape[2], x.shape[3], kf.shape[1])
+    print(f"[{card}] {tag} K3 tiles of {info['rows']} output rows")
+    _print_info(card, f"{tag} K3 stem", info)
+    _require(info["spill_bytes"] == 0, f"{tag} K3 spills")
+
+
 def _int8_route(card, record, name: str) -> dict:
     """Phases 2-4 (resnet50) and 19-20 (wrn50_2): the int8 ResNet route of
     ``make_serving_fn(name, ...)``. Returns what phases 18 and 21 read."""
@@ -709,6 +799,7 @@ def _int8_route(card, record, name: str) -> dict:
             _cuda_ms(lambda: F.conv2d(xs, ws, stride=2, padding=3), 20),
             _work_stem(a, k, out))
         del xs
+        _stem_info(card, name, a)
         (a, k, out), = calls128["maxpool_i8"]
         t["maxpool_i8"] = (
             _cuda_ms(lambda: maxpool_i8(*a, **k), 20),
@@ -716,11 +807,12 @@ def _int8_route(card, record, name: str) -> dict:
             _int8_max_pool_library(card, name, a[0], out),
             _work_pool(a, out))
         convs = [(a, k) for a, k, _ in calls128["int8_conv"]]
+        k2_lib = _k2_per_shape(card, name, calls128["int8_conv"])
         t["int8_conv"] = (
             _cuda_ms(lambda: [int8_conv(*a, **k) for a, k in convs], 5),
             _cuda_ms(lambda: [int8_conv_reference(*a, **k)
                               for a, k in convs], 2, warmup=1),
-            None, _work_convs(calls128["int8_conv"]))
+            k2_lib, _work_convs(calls128["int8_conv"]))
         chains = [(a, k) for a, k, _ in calls128["fused_bottleneck"]]
         t["fused_bottleneck"] = (
             _cuda_ms(lambda: [fused_bottleneck_chain(*a, **k)
@@ -756,7 +848,8 @@ def _int8_route(card, record, name: str) -> dict:
         ms_k2_units = _cuda_ms(lambda: [rq._unit(*a) for a in replay], 5)
         del calls128
     for kname, (ms, plain, lib, bound) in t.items():
-        what = {"int8_conv": f"{len(convs)} convs of one forward",
+        what = {"int8_conv": f"{len(convs)} convs of one forward; library: "
+                             f"torch._int_mm, 1x1 s1 products only",
                 "fused_bottleneck": f"{len(chains)} chains of one forward"
                 }.get(kname, "one call")
         print(f"[{card}] {name} {kname} batch {BATCH_TIME} ({what}): kernel "
@@ -1054,6 +1147,7 @@ def _danet(card, record) -> None:
             _cuda_ms(lambda: F.conv2d(xs, ws, stride=2, padding=1), 20),
             _work_stem(a, k, out))
         del xs
+        _stem_info(card, "danet", a)
         (a, k, out), = calls8["maxpool_i8"]
         t["maxpool_i8"] = (
             _cuda_ms(lambda: maxpool_i8(*a, **k), 20),
@@ -1072,18 +1166,20 @@ def _danet(card, record) -> None:
                         f"{str(dt)[6:]}", fa_kernel_info(qa.shape[-1], dt))
         convs = [(a, k) for a, k, _ in calls8["int8_conv"]]
         conv_bound = _work_convs(calls8["int8_conv"])
+        k2_lib = _k2_per_shape(card, "danet", calls8["int8_conv"])
         del calls8
         t["int8_conv"] = (
             _cuda_ms(lambda: [int8_conv(*a, **k) for a, k in convs], 3),
             _cuda_ms(lambda: [int8_conv_reference(*a, **k)
                               for a, k in convs], 1, warmup=1),
-            None, conv_bound)
+            k2_lib, conv_bound)
         del convs
         ms_head = _cuda_ms(lambda: [m_(x_) for m_, x_ in head_convs], 3)
         n_head = len(head_convs)
         del head_convs
     for name, (ms, plain, lib, bound) in t.items():
-        what = "54 convs of one forward" if name == "int8_conv" else "one call"
+        what = ("54 convs of one forward; library: torch._int_mm, 1x1 s1 "
+                "products only") if name == "int8_conv" else "one call"
         print(f"[{card}] danet {name} batch {SEG_BATCH_TIME} ({what}): kernel "
               f"{ms:.4f} ms, plain {plain:.4f} ms, library "
               f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "

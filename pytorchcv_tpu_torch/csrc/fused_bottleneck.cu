@@ -60,20 +60,12 @@ using pcv::cp_async4;
 using pcv::cp_async_commit;
 using pcv::cp_async_wait;
 using pcv::ldmatrix_x4;
+using pcv::mma_s8;
 
 constexpr int kThreads = 256;       // 8 warps
 constexpr int kStages = 3;          // ring slots
 constexpr int kKS = 64;             // K bytes a ring stage
 constexpr int kSlot = 192 * kKS;    // a stage's B rows and (step 1) A rows
-
-// c += a (16x32, row) * b (32x8, col), s8 in, s32 accumulate.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // _cell's int8 path: clip(rint(max(f32(acc) * A + B, 0) * q)).
 __device__ __forceinline__ int8_t requant(int acc, float a, float b, float q) {

@@ -12,96 +12,275 @@
 //   Both pools run as a launch of their own, pcv_maxpool_i8.
 //
 // Bound on the H100: with 3 input channels the conv is 27 or 147 MACs per
-//   output value: small for the card, so the limit is moving the planar
-//   bf16 image in and the int8 map out, plus the f32 CUDA-core FMAs.
-// Design: kernel 1 (templated on the kernel size) gives each block one
-//   output row of 32 pixels for one image. The block stages the input
-//   window it needs (f32, zero padded) and the whole folded weight
-//   (3*k*k taps x Cout, <= 37.6 KB) in shared memory; each of its 64
-//   threads owns 4 pixels x 8 channels, so per tap 4 scalar and 2 vector
-//   shared loads feed 32 FMAs. It sums the exact bf16 x bf16 products in
-//   f32, adds the bias, applies ReLU and quantizes to int8, writing the
-//   NHWC map. Kernel 2 max-pools an int8 NHWC map 3x3/s2 with pad value
-//   -128. The int8 intermediate is a quarter of an f32 one; fusing the
-//   pool into kernel 1 (halo rows) is left for later.
+//   output value: small for the card (30 GFLOP at ResNet-50's batch 128,
+//   0.03 ms at the bf16 tensor-core peak), so the limit is moving the
+//   planar bf16 image in and the int8 map out (0.042 ms).
+// Design (kernel 1, templated on the kernel size): an implicit GEMM on the
+//   bf16 tensor cores, mma.sync m16n8k16 with f32 accumulation: M = output
+//   pixels, N = Cout (<= 64), K = the 3 k k taps, laid out as 3 k rows
+//   (plane, kernel row) of SP = 8 (7x7) or 4 (3x3) taps, each row starting
+//   one column left of the kernel's (that tap's weight is 0) and the tail
+//   zero, so K = 176 or 48. A bf16 x bf16 product is exact in f32, as the
+//   old kernel's FMAs were; only the order of the f32 sums moves (16 taps a
+//   step), which the gate allows. Persistent blocks (two an SM) stage the
+//   padded kernel once, as ldmatrix's B operand ([Cout][K], rows padded by
+//   16 bytes so 8 rows read 8 bank groups), then walk tiles of R output
+//   rows of one image (the host's plan). A tile's window, 3 planes x (2 R +
+//   k - 2) input rows, zero padded, arrives by cp.async (16 bytes where W %
+//   8 == 0) into one of two buffers while the block computes the tile
+//   before. Each warp takes 32 pixels at a time and gathers its A fragments
+//   from the window (im2col in registers): a K pair (s, s + 1) of one row
+//   is 4 aligned bytes (the one-column shift makes every pair start at an
+//   even column), and the mma row g holds pixel 4 g (+ 1, + 2, + 3 for the
+//   other rows of the two m16 tiles), so the 32 lanes' 32-bit loads fall
+//   in 32 different banks. The epilogue is the old one: the f32 bias,
+//   ReLU and quant_i8, staged per warp in shared memory and written as
+//   16-byte (8-byte where Cout % 16 != 0) stores of the warp's contiguous
+//   32 x Cout bytes. Kernel 2 max-pools an int8 NHWC map 3x3/s2 with pad
+//   value -128. Fusing the pool into kernel 1 (halo rows) is left for
+//   later.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTileW = 32;                    // output pixels per block
+using pcv::cp_async16;
+using pcv::cp_async_commit;
+using pcv::cp_async_wait;
+using pcv::ldmatrix_x4;
+using pcv::mma_bf16;
+
 constexpr int kMaxCout = 64;
-constexpr int kThreads = 64;                  // 8 pixel groups x 8 channel groups
-constexpr int kPix = 4;                       // pixels per thread
+constexpr int kThreads = 256;                // 8 warps
+constexpr int kStagePitch = kMaxCout + 16;   // bytes a staged pixel
 
-// KS x KS conv, stride 2, pad KS / 2.
+// K layout of a KS x KS stem: 3 KS rows of SP taps (tap 0 one column left
+// of the kernel), K padded to whole k16 steps.
 template <int KS>
-__global__ void __launch_bounds__(kThreads) stem_conv_kernel(
+struct Geom {
+  static constexpr int kPad = KS / 2;
+  static constexpr int SP = KS == 7 ? 8 : 4;
+  static constexpr int kLogSP = KS == 7 ? 3 : 2;
+  static constexpr int kRows = 3 * KS;
+  static constexpr int KP = (kRows * SP + 15) / 16 * 16;   // 176 or 48
+  static constexpr int KC = KP / 16;
+  static constexpr int kWPitch = KP * 2 + 16;   // bytes a weight row
+  static constexpr int kKoffBytes = (KP / 2 * 4 + 15) / 16 * 16;
+  static constexpr int kFixed = kMaxCout * kWPitch + kMaxCout * 4 +
+                                kKoffBytes + 8 * 32 * kStagePitch;
+};
+
+// A window row's bf16 elements: 8 zero columns, the image row, >= 8 zeros.
+__host__ __device__ constexpr int window_pitch(int w) {
+  return (w + 16 + 7) / 8 * 8;
+}
+
+// Dynamic shared bytes: the weights, bias, K-pair offsets, the warps'
+// output staging and two windows of 3 (2 rows + KS - 2) rows.
+template <int KS>
+__host__ __device__ constexpr int stem_smem(int rows, int w) {
+  return Geom<KS>::kFixed + 2 * 3 * (2 * rows + KS - 2) * window_pitch(w) * 2;
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// KS x KS conv, stride 2, pad KS / 2, in tiles of R output rows.
+template <int KS, bool VEC16>
+__global__ void __launch_bounds__(kThreads, 2) stem_conv_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wt,
-    const float* __restrict__ bias, float q, int8_t* __restrict__ y, int H,
-    int W, int Ho, int Wo, int Cout) {
-  constexpr int kPad = KS / 2;
-  constexpr int kInW = 2 * kTileW + KS - 2;   // input columns a tile reads
-  constexpr int kTaps = 3 * KS * KS;
-  __shared__ float s_in[3][KS][kInW];
-  __shared__ __align__(16) float s_w[kTaps * kMaxCout];
+    const float* __restrict__ bias, float q, int8_t* __restrict__ y, int B,
+    int H, int W, int Ho, int Wo, int Cout, int R) {
+  using G = Geom<KS>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* s_w = smem;
+  float* s_bias = reinterpret_cast<float*>(s_w + kMaxCout * G::kWPitch);
+  int* s_koff = reinterpret_cast<int*>(s_bias + kMaxCout);
+  unsigned char* s_stage =
+      reinterpret_cast<unsigned char*>(s_koff) + G::kKoffBytes;
+  __nv_bfloat16* win = reinterpret_cast<__nv_bfloat16*>(
+      s_stage + 8 * 32 * kStagePitch);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int pitch = window_pitch(W);
+  const int wrows = 2 * R + KS - 2;
+  const int win_elems = 3 * wrows * pitch;
+  const int per_img = (Ho + R - 1) / R;
+  const int tiles = B * per_img;
 
-  const int tid = threadIdx.x;
-  const int ow0 = blockIdx.x * kTileW;
-  const int oh = blockIdx.y;
-  const int b = blockIdx.z;
-
-  for (int i = tid; i < kTaps * Cout; i += kThreads)
-    s_w[i] = __bfloat162float(wt[i]);
-  for (int i = tid; i < 3 * KS * kInW; i += kThreads) {
-    const int c = i / (KS * kInW);
-    const int r = (i / kInW) % KS;
-    const int col = i % kInW;
-    const int ih = oh * 2 - kPad + r;
-    const int iw = ow0 * 2 - kPad + col;
-    float v = 0.f;
-    if (ih >= 0 && ih < H && iw >= 0 && iw < W)
-      v = __bfloat162float(x[((static_cast<size_t>(b) * 3 + c) * H + ih) * W + iw]);
-    s_in[c][r][col] = v;
+  // The padded kernel, [n][k]; the bias; each K pair's window offset.
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  for (int i = tid; i < kMaxCout * G::KP; i += kThreads) {
+    const int n = i % kMaxCout, k = i / kMaxCout;   // kf's reads coalesce
+    const int row = k >> G::kLogSP, sp = k & (G::SP - 1);
+    __nv_bfloat16 v = zero;
+    if (n < Cout && row < G::kRows && sp >= 1 && sp <= KS)
+      v = wt[(row * KS + sp - 1) * Cout + n];
+    reinterpret_cast<__nv_bfloat16*>(s_w + n * G::kWPitch)[k] = v;
   }
-  __syncthreads();
+  for (int i = tid; i < kMaxCout; i += kThreads)
+    s_bias[i] = i < Cout ? bias[i] : 0.f;
+  for (int i = tid; i < G::KP / 2; i += kThreads) {
+    const int row = (2 * i) >> G::kLogSP, sp = (2 * i) & (G::SP - 1);
+    // Pairs past the taps meet zero weights: any finite element will do.
+    s_koff[i] = row < G::kRows
+                    ? ((row / KS) * wrows + row % KS) * pitch + sp
+                    : 0;
+  }
+  // The windows' pad columns stay zero; copies write columns 8 .. 8 + W.
+  const int pads = pitch - W;
+  for (int i = tid; i < 2 * 3 * wrows * pads; i += kThreads) {
+    const int row = i / pads, col = i - row * pads;
+    win[row * pitch + (col < 8 ? col : W + col)] = zero;
+  }
 
-  // Pixels pg, pg+8, pg+16, pg+24 of the tile; channels c0 .. c0+7.
-  const int pg = tid / 8;
-  const int c0 = (tid % 8) * 8;
-  if (c0 >= Cout) return;
-  float acc[kPix][8];
+  auto load_window = [&](int ti, __nv_bfloat16* buf) {
+    const int img = ti / per_img;
+    const int ih0 = 2 * (ti % per_img) * R - G::kPad;
+    if (VEC16) {
+      const int cw = W / 8;
+      for (int i = tid; i < 3 * wrows * cw; i += kThreads) {
+        const int rr = i / cw, col = i - rr * cw;     // rr: plane x row
+        const int ih = ih0 + rr % wrows;
+        const bool in = static_cast<unsigned>(ih) < static_cast<unsigned>(H);
+        cp_async16(buf + rr * pitch + 8 + col * 8,
+                   in ? x + ((static_cast<size_t>(img) * 3 + rr / wrows) * H +
+                             ih) * W + col * 8
+                      : x,
+                   in ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < 3 * wrows * W; i += kThreads) {
+        const int rr = i / W, col = i - rr * W;
+        const int ih = ih0 + rr % wrows;
+        buf[rr * pitch + 8 + col] =
+            static_cast<unsigned>(ih) < static_cast<unsigned>(H)
+                ? x[((static_cast<size_t>(img) * 3 + rr / wrows) * H + ih) *
+                        W + col]
+                : zero;
+      }
+    }
+  };
+
+  const int mi = lane >> 3;
+  const int brow = ((mi >> 1) * 8 + (lane & 7)) * G::kWPitch + (mi & 1) * 16;
+  unsigned char* stage = s_stage + warp * 32 * kStagePitch;
+  int ti = blockIdx.x;
+  if (ti < tiles) load_window(ti, win);
+  cp_async_commit();
+  for (int it = 0; ti < tiles; ++it, ti += gridDim.x) {
+    const __nv_bfloat16* cur = win + (it & 1) * win_elems;
+    if (ti + gridDim.x < tiles)
+      load_window(ti + gridDim.x, win + ((it + 1) & 1) * win_elems);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const int img = ti / per_img, oh0 = (ti % per_img) * R;
+    const int P = min(R, Ho - oh0) * Wo;
+    int8_t* out = y + (static_cast<size_t>(img) * Ho + oh0) * Wo * Cout;
+    for (int p0 = warp * 32; p0 < P; p0 += 8 * 32) {
+      // Rows g and g + 8 of m-tile mt: pixels p0 + 4 g + 2 mt (+ 1).
+      int base[2][2];
 #pragma unroll
-  for (int i = 0; i < kPix; ++i)
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int c = 0; c < 3; ++c)
-    for (int r = 0; r < KS; ++r)
+        for (int h = 0; h < 2; ++h) {
+          const int p = min(p0 + 4 * g + 2 * mt + h, P - 1);
+          const int ohl = p / Wo, ow = p - ohl * Wo;
+          base[mt][h] = 2 * ohl * pitch + 2 * ow + 7 - G::kPad;
+        }
+      float acc[2][8][4];
 #pragma unroll
-      for (int s = 0; s < KS; ++s) {
-        // Cout % 8 == 0 and c0 % 8 == 0 keep these float4 loads aligned.
-        const float4* wrow = reinterpret_cast<const float4*>(
-            &s_w[((c * KS + r) * KS + s) * Cout + c0]);
-        const float4 w0 = wrow[0], w1 = wrow[1];
-        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int i = 0; i < kPix; ++i) {
-          const float xv = s_in[c][r][2 * (pg + 8 * i) + s];
+        for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv, wv[j], acc[i][j]);
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < G::KC; ++kc) {
+        const int k0 = s_koff[8 * kc + t], k1 = s_koff[8 * kc + t + 4];
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          a[mt][0] = lds32(cur + base[mt][0] + k0);
+          a[mt][1] = lds32(cur + base[mt][1] + k0);
+          a[mt][2] = lds32(cur + base[mt][0] + k1);
+          a[mt][3] = lds32(cur + base[mt][1] + k1);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          if (16 * jj >= Cout) break;
+          uint32_t v[4];
+          ldmatrix_x4(v, s_w + brow + 16 * jj * G::kWPitch + kc * 32);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_bf16(acc[mt][2 * jj], a[mt], v[0], v[1]);
+            if (16 * jj + 8 < Cout)
+              mma_bf16(acc[mt][2 * jj + 1], a[mt], v[2], v[3]);
+          }
         }
       }
+      // Bias, ReLU, quant to the warp's staging: pixel 4 g + 2 mt + h at
+      // row g + 8 (2 mt + h), so the 8 g's stores hit 8 bank groups.
 #pragma unroll
-  for (int i = 0; i < kPix; ++i) {
-    const int ow = ow0 + pg + 8 * i;
-    if (ow >= Wo) continue;
-    int8_t* dst =
-        y + ((static_cast<size_t>(b) * Ho + oh) * Wo + ow) * Cout + c0;
+      for (int nt = 0; nt < 8; ++nt) {
+        const int n = nt * 8 + 2 * t;
+        if (n >= Cout) break;
+        const float b0 = s_bias[n], b1 = s_bias[n + 1];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float v = fmaxf(__fadd_rn(acc[i][j], bias[c0 + j]), 0.f);
-      dst[j] = pcv::quant_i8(v, q);
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int8_t o0 = pcv::quant_i8(
+                fmaxf(__fadd_rn(acc[mt][nt][2 * h], b0), 0.f), q);
+            const int8_t o1 = pcv::quant_i8(
+                fmaxf(__fadd_rn(acc[mt][nt][2 * h + 1], b1), 0.f), q);
+            *reinterpret_cast<char2*>(
+                stage + (g + 8 * (2 * mt + h)) * kStagePitch + n) =
+                make_char2(o0, o1);
+          }
+      }
+      __syncwarp();
+      // The warp's pixels p0 .. p0 + 31 are 32 x Cout contiguous bytes.
+      const int np = min(32, P - p0);
+      const int vb = Cout % 16 == 0 ? 16 : 8, per = Cout / vb;
+      for (int i = lane; i < np * per; i += 32) {
+        const int pl = i / per, c = i - pl * per;
+        const unsigned char* src =
+            stage + (8 * (pl & 3) + (pl >> 2)) * kStagePitch + c * vb;
+        int8_t* dst = out + static_cast<size_t>(p0 + pl) * Cout + c * vb;
+        if (vb == 16)
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        else
+          *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+      }
+      __syncwarp();
     }
+    __syncthreads();
   }
+  cp_async_wait<0>();
+}
+
+template <int KS>
+auto pick(bool vec16) {
+  return vec16 ? stem_conv_kernel<KS, true> : stem_conv_kernel<KS, false>;
+}
+
+using StemKernel = decltype(pick<7>(true));
+
+bool stem_instance(int ksize, bool vec16, int rows, int w, StemKernel* kernel,
+                   int* smem) {
+  if (ksize == 7) {
+    *kernel = pick<7>(vec16);
+    *smem = stem_smem<7>(rows, w);
+  } else if (ksize == 3) {
+    *kernel = pick<3>(vec16);
+    *smem = stem_smem<3>(rows, w);
+  } else {
+    return false;
+  }
+  return true;
 }
 
 // 3x3 / stride 2 / pad 1 max-pool of an int8 NHWC map, pad value -128.
@@ -131,24 +310,59 @@ __global__ void maxpool_i8_kernel(const int8_t* __restrict__ src,
 
 }  // namespace
 
+// The stem over x (B, 3, H, W) in tiles of `rows` output rows (the host's
+// plan), two persistent blocks an SM; window copies are 16 bytes where W %
+// 8 == 0 and x is 16-byte aligned.
 extern "C" int pcv_stem(const void* x, const void* wt, const void* bias,
                         float q, int ksize, void* conv_out, int B, int H,
-                        int W, int Ho, int Wo, int Cout, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((Wo + kTileW - 1) / kTileW, Ho, B);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* wb = static_cast<const __nv_bfloat16*>(wt);
-  const auto* bb = static_cast<const float*>(bias);
-  auto* yb = static_cast<int8_t*>(conv_out);
-  if (ksize == 7)
-    stem_conv_kernel<7><<<grid, kThreads, 0, st>>>(xb, wb, bb, q, yb, H, W,
-                                                   Ho, Wo, Cout);
-  else if (ksize == 3)
-    stem_conv_kernel<3><<<grid, kThreads, 0, st>>>(xb, wb, bb, q, yb, H, W,
-                                                   Ho, Wo, Cout);
-  else
+                        int W, int Ho, int Wo, int Cout, int rows,
+                        void* stream) {
+  const bool vec16 =
+      W % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  StemKernel kernel;
+  int smem;
+  if (Cout % 8 != 0 || Cout > kMaxCout || rows < 1 ||
+      !stem_instance(ksize, vec16, rows, W, &kernel, &smem))
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  static int sms_of[64] = {};  // SMs of each device, asked once
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (sms_of[dev] == 0 &&
+      (err = cudaDeviceGetAttribute(&sms_of[dev],
+                                    cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
+  const int sms = sms_of[dev];
+  const int tiles = B * ((Ho + rows - 1) / rows);
+  const int grid = tiles < 2 * sms ? tiles : 2 * sms;
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(wt), static_cast<const float*>(bias),
+      q, static_cast<int8_t*>(conv_out), B, H, W, Ho, Wo, Cout, rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+// out: registers a thread, local (spill) bytes, static and dynamic shared
+// bytes of the k x k instance (16-byte or element window copies) at `rows`
+// output rows a tile of an image W wide.
+extern "C" int pcv_stem_info(int ksize, int vec16, int rows, int w,
+                             int* out) {
+  StemKernel kernel;
+  int smem;
+  if (!stem_instance(ksize, vec16 != 0, rows, w, &kernel, &smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  out[3] = smem;
+  return 0;
 }
 
 extern "C" int pcv_maxpool_i8(const void* src, void* dst, int B, int Hi,

@@ -42,8 +42,10 @@ _SIGNATURES = {
     "pcv_preprocess": [_P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
     "pcv_preprocess_info": [_I, _I, _I, _P],
     "pcv_int8_conv": [_P, _P, _P, _P, _P, _F, _I, _I, _F, _I, _P]
-    + [_I] * 12 + [_P, _P],
-    "pcv_stem": [_P, _P, _P, _F, _I, _P] + [_I] * 6 + [_P],
+    + [_I] * 12 + [_P, _I, _I, _P],
+    "pcv_int8_conv_info": [_I, _I, _I, _P],
+    "pcv_stem": [_P, _P, _P, _F, _I, _P] + [_I] * 7 + [_P],
+    "pcv_stem_info": [_I] * 4 + [_P],
     "pcv_maxpool_i8": [_P, _P] + [_I] * 6 + [_P],
     "pcv_flash_attention": [_P, _P, _P, _P] + [_I] * 5 + [_F, _I, _P],
     "pcv_flash_attention_info": [_I, _I, _P],

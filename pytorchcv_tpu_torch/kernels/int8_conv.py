@@ -18,11 +18,19 @@ in the same launch. ``dilation`` spreads the taps (pad ``dilation * (k //
 
 ``acc`` is the exact int32 sum, ``A`` and ``B`` are f32 per output channel
 and every step follows the JAX reference's f32 op order, so the kernel
-(``csrc/int8_conv.cu``) and the plain version are bit-exact against it.
+(``csrc/int8_conv.cu``, an implicit GEMM on the int8 tensor cores) and the
+plain version are bit-exact against it.
+
+The kernel computes an output tile of BM pixels x BN channels a block;
+:func:`plan` picks the tile per conv from :data:`TILES` (the least
+:func:`plan_cost`, a cost in estimated clocks) and :func:`block_tile` maps
+a block to its tile as the kernel does.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
@@ -30,9 +38,71 @@ import torch.nn.functional as F
 
 from ._build import LAUNCHES, check, library, require_cuda_or_cpu, stream_of
 
-__all__ = ["int8_conv", "int8_conv_reference"]
+__all__ = ["int8_conv", "int8_conv_reference", "plan", "plan_cost",
+           "block_tile", "blocks", "smem_bytes", "kernel_info",
+           "instance_info", "TILES"]
 
 _RES_NONE, _RES_I8, _RES_I8_BF16, _RES_BF16 = 0, 1, 2, 3
+
+# Block tiles (output pixels, output channels) the kernel is built for.
+TILES: Tuple[Tuple[int, int], ...] = ((128, 128), (128, 64), (64, 128),
+                                      (64, 64))
+_SMS = 132                     # the H100's SMs
+_STAGES, _KS = 4, 64           # the ring: 4 stages of 64 K bytes
+# The cost model's clocks (an estimate for the H100, relative): a ring
+# stage takes its products (_MMA_CLK a m16n8k32 mma on each of the 4 warp
+# schedulers) or its copies (_COPY_BYTES_CLK bytes a clock from L2),
+# whichever is more, plus _FIXED (barrier, exposed latency); a tile's
+# epilogue _EPI_CLK per 128 x 128 outputs plus _FIXED.
+_MMA_CLK = 6
+_COPY_BYTES_CLK = 48
+_FIXED = 100
+_EPI_CLK = 2000
+
+
+def smem_bytes(bm: int, bn: int) -> int:
+    """Dynamic shared bytes of a ``bm`` x ``bn`` block: the 4-stage ring of
+    (bm + bn) 64-byte rows, or over it the epilogue's int32 tile (rows
+    padded by 8 words), then A and B per channel (``smem_bytes`` in
+    ``csrc/int8_conv.cu``)."""
+    return max(_STAGES * (bm + bn) * _KS, bm * (bn + 8) * 4) + 8 * bn
+
+
+def plan_cost(m: int, cout: int, cin: int, k: int, bm: int, bn: int) -> float:
+    """A conv's time under tile ``bm`` x ``bn`` in estimated clocks: the
+    blocks an SM runs in turn (the grid over 132 SMs) times a block's ring
+    stages and epilogue (the ``_MMA_CLK`` ... ``_EPI_CLK`` model)."""
+    blocks = -(-m // bm) * -(-cout // bn)
+    steps = k * k * -(-cin // _KS)
+    stage = max(_MMA_CLK * bm * bn / 256,
+                (bm + bn) * _KS / _COPY_BYTES_CLK) + _FIXED
+    epilogue = _EPI_CLK * bm * bn / (128 * 128) + _FIXED
+    return -(-blocks // _SMS) * (steps * stage + epilogue)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(m: int, cout: int, cin: int, k: int) -> Tuple[int, int]:
+    """(BM, BN) for a conv of ``m`` output pixels (batch x Ho x Wo), ``cout``
+    output channels, ``cin`` input channels and a ``k`` x ``k`` kernel: the
+    tile of :data:`TILES` with the least :func:`plan_cost`, and of those
+    the largest. Cached: the wrapper asks once a call."""
+    return min(TILES, key=lambda t: (plan_cost(m, cout, cin, k, *t),
+                                     -t[0] * t[1]))
+
+
+def block_tile(m: int, cout: int, tile: Tuple[int, int],
+               block: int) -> Tuple[int, int]:
+    """(first pixel, first channel) of block ``block`` under ``tile``, as
+    the kernel maps ``blockIdx.x`` (channel tiles of one pixel tile are
+    neighbours, so they read its activations from L2)."""
+    bm, bn = tile
+    n_tiles = -(-cout // bn)
+    return block // n_tiles * bm, block % n_tiles * bn
+
+
+def blocks(m: int, cout: int, tile: Tuple[int, int]) -> int:
+    """The grid of a conv under ``tile``."""
+    return -(-m // tile[0]) * -(-cout // tile[1])
 
 
 def _quant_i8(y: torch.Tensor, q: float) -> torch.Tensor:
@@ -135,6 +205,25 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
                                    bend)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("int8_conv: inputs must be contiguous")
+    m = bsz * ho * wo
+    if m >= 2 ** 31 or x.numel() >= 2 ** 31:
+        raise ValueError(f"int8_conv: {tuple(x.shape)} -> {m} pixels "
+                         "exceeds the kernel's indexing")
+    return _launch(x, w, gain_a, bias_b, stride, relu, q, residual,
+                   res_scale, res_mode, dilation, bend,
+                   plan(m, cout, cin, k))
+
+
+def _launch(x, w, gain_a, bias_b, stride, relu, q, residual, res_scale,
+            res_mode, dilation, bend, tile):
+    """K2 on the card in blocks of ``tile`` = (BM, BN) (checked operands;
+    :func:`plan`'s tile, or another of :data:`TILES` for the card tests
+    and the plans tool)."""
+    bsz, h, wd, cin = x.shape
+    cout, k = w.shape[0], w.shape[1]
+    pad = dilation * (k // 2)
+    ho = (h + 2 * pad - dilation * (k - 1) - 1) // stride + 1
+    wo = (wd + 2 * pad - dilation * (k - 1) - 1) // stride + 1
     out = torch.empty((bsz, ho, wo, cout),
                       dtype=torch.int8 if q is not None else torch.bfloat16,
                       device=x.device)
@@ -148,6 +237,26 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
             float(res_scale or 0.0), res_mode, int(relu), float(q or 0.0),
             int(q is not None), out.data_ptr(), bsz, h, wd, cin, ho, wo,
             cout, k, k, stride, pad, dilation,
-            out_bf16.data_ptr() if bend else None, stream_of(x)), "int8_conv")
+            out_bf16.data_ptr() if bend else None, tile[0], tile[1],
+            stream_of(x)), "int8_conv")
     LAUNCHES["int8_conv"] += 1
     return (out, out_bf16) if bend else out
+
+
+def instance_info(bm: int, bn: int, vec16: bool) -> dict:
+    """Registers a thread, spilled (local) bytes, static and dynamic shared
+    memory a block of the K2 instance of tile ``bm`` x ``bn`` with 16-byte
+    (``vec16``) or 4-byte copies (needs the card)."""
+    out = (ctypes.c_int * 4)()
+    check(library().pcv_int8_conv_info(bm, bn, int(vec16), out),
+          "int8_conv info")
+    return dict(zip(("registers", "spill_bytes", "static_smem",
+                     "dynamic_smem"), out))
+
+
+def kernel_info(m: int, cout: int, cin: int, k: int) -> dict:
+    """:func:`instance_info` of the instance that a conv of ``m`` output
+    pixels, ``cout`` x ``cin`` channels and a ``k`` x ``k`` kernel
+    launches, with its plan's tile ``bm`` x ``bn``."""
+    bm, bn = plan(m, cout, cin, k)
+    return dict(instance_info(bm, bn, cin % 16 == 0), bm=bm, bn=bn)

@@ -7,9 +7,17 @@ f32), the f32 bias is added, ReLU applied and the result quantized to int8
 NHWC with ``clip(rint(y * q), +-127)``. ``maxpool_i8`` is the 3x3/s2/pad-1
 int8 max-pool (pad value -128) that follows it (the ResNet stem) or the
 deep stem's int8 conv2 and conv3. Both run ``csrc/stem.cu``.
+
+The stem kernel runs on the bf16 tensor cores with K = 3 k k taps padded to
+:func:`stem_k_layout`'s order; persistent blocks walk tiles of
+:func:`stem_plan`'s output rows of one image.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -18,10 +26,79 @@ from ._build import (LAUNCHES, check, library, no_tf32, require_cuda_or_cpu,
                      stream_of)
 
 __all__ = ["stem_conv", "stem_conv_reference", "maxpool_i8",
-           "maxpool_i8_reference"]
+           "maxpool_i8_reference", "stem_plan", "stem_smem",
+           "stem_k_layout", "kernel_info"]
 
 _MAX_COUT = 64
 _KSIZES = (3, 7)
+_SMS = 132                     # the H100's SMs
+_SMEM_ONE = 232_448            # dynamic shared memory a block may hold
+_SMEM_TWO = 233_472 // 2 - 1_024   # ... with two blocks an SM
+_STAGE_PITCH = _MAX_COUT + 16  # bytes a pixel of a warp's output staging
+# A tile's time beside its 32-pixel rounds of 8 warps: the window's wait
+# and the barriers, in rounds (an estimate).
+_TILE_ROUNDS = 0.5
+
+
+@functools.lru_cache(maxsize=None)
+def stem_k_layout(k: int) -> Tuple[Tuple[int, int, int], ...]:
+    """The kernel's K order: entry i is the (plane, kernel row, kernel
+    column) of K index i, or None for a zero weight. 3 k rows of SP = 8
+    (k 7) or 4 (k 3) taps, tap 0 one column left of the kernel (weight 0),
+    then zeros to a multiple of 16 (176 or 48 in all)."""
+    sp = 8 if k == 7 else 4
+    layout = []
+    for row in range(3 * k):
+        for t in range(sp):
+            s = t - 1
+            layout.append((row // k, row % k, s) if 0 <= s < k else None)
+    return tuple(layout + [None] * (-len(layout) % 16))
+
+
+def _window_pitch(w: int) -> int:
+    return (w + 16 + 7) // 8 * 8
+
+
+def stem_smem(k: int, rows: int, w: int) -> int:
+    """Dynamic shared bytes of a block (``stem_smem`` in ``csrc/stem.cu``):
+    the padded kernel ([64][K] bf16, rows padded by 16 bytes), the bias,
+    the K pairs' window offsets, 8 warps' output staging (32 pixels of 80
+    bytes) and two windows of 3 x (2 rows + k - 2) input rows."""
+    kp = len(stem_k_layout(k))
+    koff = -(-(kp // 2 * 4) // 16) * 16
+    fixed = _MAX_COUT * (2 * kp + 16) + 4 * _MAX_COUT + koff + \
+        8 * 32 * _STAGE_PITCH
+    return fixed + 2 * 3 * (2 * rows + k - 2) * _window_pitch(w) * 2
+
+
+def _stem_cost(b: int, ho: int, wo: int, rows: int, smem: int) -> float:
+    """A call's time in 32-pixel rounds of a block's 8 warps: the tiles a
+    persistent block walks (the grid is min(tiles, 2 x 132)) in waves of
+    the blocks that fit at once, each tile its rounds plus
+    ``_TILE_ROUNDS``."""
+    tiles = b * -(-ho // rows)
+    grid = min(tiles, 2 * _SMS)
+    slots = _SMS * (2 if smem <= _SMEM_TWO else 1)
+    rounds = -(-(-(-min(rows, ho) * wo // 32)) // 8)
+    return -(-grid // slots) * -(-tiles // grid) * (rounds + _TILE_ROUNDS)
+
+
+@functools.lru_cache(maxsize=256)
+def stem_plan(b: int, h: int, w: int, k: int) -> int:
+    """Output rows a tile for the k x k stem on ``b`` images of ``h`` x
+    ``w``: of 1 .. 32 rows whose shared memory fits a block, the least
+    :func:`_stem_cost`, and of those the most rows (the fewest halo rows
+    read twice). Raises where one row's window does not fit. Cached: the
+    wrapper asks once a call."""
+    ho = (h + 2 * (k // 2) - k) // 2 + 1
+    wo = (w + 2 * (k // 2) - k) // 2 + 1
+    fit = [r for r in range(1, min(ho, 32) + 1)
+           if stem_smem(k, r, w) <= _SMEM_ONE]
+    if not fit:
+        raise ValueError(f"stem: an image {w} wide leaves no room for one "
+                         f"row's window in shared memory")
+    return min(fit, key=lambda r: (_stem_cost(b, ho, wo, r,
+                                              stem_smem(k, r, w)), -r))
 
 
 def maxpool_i8_reference(x: torch.Tensor) -> torch.Tensor:
@@ -68,15 +145,26 @@ def stem_conv(x: torch.Tensor, kf: torch.Tensor, bias: torch.Tensor,
     if not all(t.is_contiguous() for t in (x, kf, bias)):
         raise ValueError("stem: inputs must be contiguous")
     bsz, _, h, w = x.shape
-    if bsz > 65535:
-        raise ValueError("stem: batch exceeds 65535")
+    pad = k // 2
+    ho, wo = (h + 2 * pad - k) // 2 + 1, (w + 2 * pad - k) // 2 + 1
+    if x.numel() >= 2 ** 31 or bsz * ho * wo * cout >= 2 ** 40:
+        raise ValueError(f"stem: x {tuple(x.shape)} exceeds the kernel's "
+                         f"indexing")
+    return _launch(x, kf, bias, q, stem_plan(bsz, h, w, k))
+
+
+def _launch(x, kf, bias, q, rows):
+    """K3 on the card in tiles of ``rows`` output rows (checked operands;
+    :func:`stem_plan`'s rows, or others for the plans tool)."""
+    bsz, _, h, w = x.shape
+    k, cout = kf.shape[1], kf.shape[3]
     pad = k // 2
     ho, wo = (h + 2 * pad - k) // 2 + 1, (w + 2 * pad - k) // 2 + 1
     out = torch.empty((bsz, ho, wo, cout), dtype=torch.int8, device=x.device)
     with torch.cuda.device(x.device):
         check(library().pcv_stem(x.data_ptr(), kf.data_ptr(), bias.data_ptr(),
                                  float(q), k, out.data_ptr(), bsz, h, w, ho,
-                                 wo, cout, stream_of(x)), "stem")
+                                 wo, cout, rows, stream_of(x)), "stem")
     LAUNCHES["stem"] += 1
     return out
 
@@ -101,3 +189,16 @@ def maxpool_i8(x: torch.Tensor) -> torch.Tensor:
               "maxpool_i8")
     LAUNCHES["maxpool_i8"] += 1
     return out
+
+
+def kernel_info(b: int, h: int, w: int, k: int) -> dict:
+    """Registers a thread, spilled (local) bytes, static and dynamic shared
+    memory a block of the stem instance that ``b`` images of ``h`` x ``w``
+    under a k x k kernel launch (16-byte window copies where w % 8 == 0),
+    with the plan's rows a tile (needs the card)."""
+    rows = stem_plan(b, h, w, k)
+    out = (ctypes.c_int * 4)()
+    check(library().pcv_stem_info(k, int(w % 8 == 0), rows, w, out),
+          "stem info")
+    return dict(zip(("registers", "spill_bytes", "static_smem",
+                     "dynamic_smem"), out), rows=rows)

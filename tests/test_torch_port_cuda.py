@@ -11,7 +11,9 @@ ProPainter generator on the card against the CPU, the fused bottleneck
 chain (K8) at odd maps, ragged row tiles and WRN-50-2's widest stage, the
 int8 stem (K9) and the window-sum probe (K10) at odd sizes, the ResNet-50
 logits with and without K8 chains, DANet's position-attention gradients
-against the CPU's and a direct f32 forward under torch's TF32 defaults.
+against the CPU's and a direct f32 forward under torch's TF32 defaults;
+K2 under each of its block tiles at sizes no tile divides, and K3 at the
+paths' stem shapes; no K2 or K3 instance spills.
 
 Each test carries the ``cuda`` marker, needs a CUDA card and nvcc, and
 skips without a card. On a machine without JAX, run them without the
@@ -115,6 +117,88 @@ def test_int8_conv_dilated_kernel_matches_plain(dilation, hw):
         for g_, r_ in zip(got, ref):
             assert torch.equal(g_, r_), (kw.keys(), (g_.float() - r_.float())
                                          .abs().max())
+
+
+@pytest.mark.parametrize("cin", [32, 20])
+@pytest.mark.parametrize("tile", [(128, 128), (128, 64), (64, 128),
+                                  (64, 64)])
+def test_int8_conv_every_tile_matches_plain(tile, cin):
+    """Each of K2's block tiles, forced, at M = 3 x 11 x 13 = 429 pixels
+    and Cout 200 (neither a multiple of any tile), 3x3 stride 1 and 1x1
+    stride 2, with 16-byte (Cin 32) and 4-byte (Cin 20) copies, every
+    residual mode and the bend: bit-exact against the plain version."""
+    from pytorchcv_tpu_torch.kernels import int8_conv as k2
+    dev = _cuda()
+    rng = np.random.default_rng(tile[0] + tile[1] + cin)
+    cout = 200
+    a = torch.from_numpy(rng.uniform(2e-5, 2e-4, cout).astype(np.float32)
+                         ).to(dev)
+    b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(dev)
+    for k, stride, hw in ((3, 1, (11, 13)), (1, 2, (21, 25))):
+        x = _i8(rng, (3, *hw, cin), dev)
+        w = _i8(rng, (cout, k, k, cin), dev)
+        shape = (3, 11, 13, cout)
+        res_i8 = _i8(rng, shape, dev)
+        res_bf = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        for kw, mode in ((dict(relu=True, q=0.7), k2._RES_NONE),
+                         (dict(relu=False), k2._RES_NONE),
+                         (dict(relu=False, q=0.7, residual=res_i8,
+                               res_scale=0.01, round_res=True, bend=True),
+                          k2._RES_I8_BF16),
+                         (dict(relu=False, q=0.7, residual=res_i8,
+                               res_scale=0.01), k2._RES_I8),
+                         (dict(relu=False, residual=res_bf), k2._RES_BF16)):
+            got = k2._launch(x, w, a, b, stride, kw["relu"], kw.get("q"),
+                             kw.get("residual"), kw.get("res_scale"), mode,
+                             1, kw.get("bend", False), tile)
+            ref = int8_conv_reference(x, w, a, b, stride, **kw)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            for g_, r_ in zip(got, ref):
+                assert torch.equal(g_, r_), (k, kw.keys(), (
+                    g_.float() - r_.float()).abs().max())
+
+
+def test_int8_conv_and_stem_instances_spill_nothing():
+    """Every K2 instance (4 tiles x 16- or 4-byte copies) and every K3
+    instance (7x7 and 3x3 x 16-byte or element window copies) holds its
+    registers: at most 128 (two blocks of 256 threads an SM), no spills."""
+    from pytorchcv_tpu_torch.kernels import int8_conv as k2
+    from pytorchcv_tpu_torch.kernels import stem as k3
+    _cuda()
+    for bm, bn in k2.TILES:
+        for vec in (True, False):
+            info = k2.instance_info(bm, bn, vec)
+            assert info["spill_bytes"] == 0 and info["registers"] <= 128, \
+                (bm, bn, vec, info)
+            assert info["dynamic_smem"] == k2.smem_bytes(bm, bn)
+    for k, w in ((7, 224), (3, 480), (7, 46), (3, 46)):  # W % 8: 16 bytes
+        info = k3.kernel_info(2, w, w, k)
+        assert info["spill_bytes"] == 0 and info["registers"] <= 128, info
+        assert info["dynamic_smem"] == k3.stem_smem(k, info["rows"], w)
+
+
+@pytest.mark.parametrize("k,bsz,hw,cout", [(7, 2, 224, 64), (3, 2, 480, 64),
+                                           (3, 2, 480, 32)])
+def test_stem_kernel_matches_plain_at_path_shapes(k, bsz, hw, cout):
+    """K3 at the ResNet stem (224 -> 112, Cout 64) and at DANet's 3x3
+    (480 -> 240; its deep stem is 64 wide, and Cout 32): within the gate."""
+    dev = _cuda()
+    rng = np.random.default_rng(k * cout)
+    x = torch.from_numpy(rng.standard_normal((bsz, 3, hw, hw)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    kf = torch.from_numpy((rng.standard_normal((3, k, k, cout)) * 0.1)
+                          .astype(np.float32)).to(dev, torch.bfloat16)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)
+                            ).to(dev)
+    got = stem_conv(x, kf, bias, 40.0)
+    ref = stem_conv_reference(x, kf, bias, 40.0)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (bsz, hw // 2, hw // 2, cout)
+    diff = (got.int() - ref.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff != 0).float().mean()) <= 1e-3
 
 
 @pytest.mark.parametrize("d,dv", [(32, 96), (64, 512), (16, 520),
