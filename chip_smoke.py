@@ -71,7 +71,8 @@ use (one nvcc per source, in parallel). Phases, each ending in
 9. K5 (deformable sampling) against its plain version at every distinct
    shape of the path (f32, within 1e-5 of max|x|) and at the flow-guided
    shape (1, 128, 60, 108), G 16, residue bound 3, centers of std 6
-   (f32 as above, bf16 within 1 bf16 ulp at the tensor's scale);
+   (f32 as above, bf16 within 1 bf16 ulp at the tensor's scale), with x
+   NCHW (transposed in the launch) and channels-last (read as it lies);
 10. end to end: the completed flows against the same model with
    ``deform_conv2d`` patched here to its general route, max |delta| <= 1e-3
    of max |flow| (f32, no TF32); and the card against a CPU copy of the
@@ -79,9 +80,10 @@ use (one nvcc per source, in parallel). Phases, each ending in
    |flow| (on random weights the recurrence grows over the clip: the
    window's flows reach ~6e11, and the JAX model grows alike);
 11. RFC timing with CUDA events: completed-flow frames/s over the clip and
-   per window, K5 a call beside its plain version and ``F.grid_sample``
-   times the mask, and one RFC call split into its 3-D and 2-D convs and
-   K5;
+   per window, K5 a call (back to back, and on the device by the
+   profiler) beside its plain version and ``F.grid_sample`` times the
+   mask, K5's registers, spills (any fails the run) and shared memory, and
+   one RFC call split into its 3-D and 2-D convs and K5;
 12. K6 (depthwise conv + folded BN + activation) against its plain
    version on the calls of phase 13's run (every depthwise call of one
    batch-32 ``efficientnet_b0`` bf16 serving batch), in bf16 as run and
@@ -129,7 +131,9 @@ use (one nvcc per source, in parallel). Phases, each ending in
    its registers, spills and shared memory; one generator call at
    t = 18 split into encoder, feature propagation (K5 within it), soft
    split, the 8 blocks (attention against FFN), soft composite and
-   decoder; the device's busy time and idle share.
+   decoder; the device's busy time and idle share; K5 at the generator's
+   shape back to back and on the device, with its registers, spills (any
+   fails the run) and shared memory.
 
 18. K8 against its plain version, bit-exact, on every distinct chain call
    of the batch-32 resnet50 and wrn50_2 forwards and at the JAX test's
@@ -144,8 +148,10 @@ use (one nvcc per source, in parallel). Phases, each ending in
    its plain version, bit-exact, on the resnet50 and wrn50_2 stems at
    batch 128 (the preprocess output as NHWC f32, ``s_img`` the stem conv's
    calibrated scale, ``s_out`` stage 1's input scale), timed beside K3 and
-   cuDNN's f32 conv of the same image; its agreement with K3's int8 output
-   printed for information (the input quantization differs);
+   cuDNN's f32 conv of the same image, with its plan's rows a tile and its
+   registers, spills (any fails the run) and shared memory; its agreement
+   with K3's int8 output printed for information (the input quantization
+   differs);
 22. K10 (the window-sum probe, ``kernels.patch_probe.patch_window_sum``)
    against its plain version at the probe tool's shapes (H 60, W 128, C
    128, n 6480, numpy seed 0), within 1e-5 of max |plain|, timed, with
@@ -218,6 +224,10 @@ PP_FRAMES = 80                 # the middle windows reach t = 18 (11 local)
 PP_HW = (240, 432)             # ProPainter's default input
 PP_E2E_TOL = 1e-4              # generated frames: max |delta| / max |out|
 PP_K5_CHECKED = 10             # K5 calls held against the plain version
+# Back-to-back calls a timing of K5 and of its library call: both are
+# host-bound (~20-30 us of Python and launches a call), and 50 calls
+# (~1.5 ms) let one host stall move the mean by a third.
+K5_REPS = 500
 ATTN_WIN_TOL = 2e-5            # K7: max |err| / max |plain|
 ATTN_BIG_N = 65600             # problems of K7's check beyond 65,535
 
@@ -937,6 +947,8 @@ def _stem_int8(card, routes, record) -> None:
         classification_preprocess
     from pytorchcv_tpu_torch.kernels.stem_conv import (
         stem_conv7x7_s2, stem_conv7x7_s2_reference)
+    from pytorchcv_tpu_torch.kernels.stem_conv import \
+        kernel_info as k9_kernel_info
     for name, st in routes.items():
         model, scales = st["model"], st["scales"]
         pre = classification_preprocess(name, SOURCE_HW,
@@ -982,6 +994,10 @@ def _stem_int8(card, routes, record) -> None:
             o = k7.shape[3]
             bound = _bound(_nbytes(x, k7, gain, bias, out),
                            2 * bsz * (h // 2) * (w // 2) * o * 147, "int8")
+        info = k9_kernel_info(bsz, h, w)
+        print(f"[{card}] {name} K9 tiles of {info['rows']} output rows")
+        _print_info(card, f"{name} K9 int8 stem", info)
+        _require(info["spill_bytes"] == 0, f"{name} K9 spills")
         print(f"[{card}] {name} K9 int8 stem batch {BATCH_TIME}: kernel "
               f"{ms:.4f} ms, plain {plain:.4f} ms, K3 (bf16 stem, phase "
               f"4/20) {st['k3_ms']:.4f} ms, cuDNN f32 conv {lib:.4f} ms, "
@@ -1296,6 +1312,32 @@ def _work_deform(a, out):
     return _bound(_nbytes(*a[:3], out), 10 * out.numel(), "f32")
 
 
+def _k5_info(card, tag, x, groups) -> None:
+    """K5's registers, spills (any fails the run) and shared memory for the
+    instance ``x`` launches (its type, C/G's vector, its layout)."""
+    from pytorchcv_tpu_torch.kernels.deform_patch import kernel_info
+    nhwc = x.is_contiguous(memory_format=torch.channels_last)
+    info = kernel_info(x.shape[1], groups, x.dtype, nhwc)
+    print(f"[{card}] {tag} K5 instance: {x.dtype}, "
+          f"{'channels-last' if nhwc else 'NCHW (transposed in the launch)'}"
+          f" x, {info['vec']} channels a vector")
+    _print_info(card, f"{tag} K5", info)
+    _require(info["spill_bytes"] == 0, f"{tag} K5 spills")
+
+
+def _k5_device_ms(fn, tries: int = 3):
+    """K5's device ms a call by the profiler from the first of ``tries``
+    windows in which it saw exactly one device operation a call (one K5
+    launch: it has been seen to lose most of a window's launches), or
+    None."""
+    for _ in range(tries):
+        dev, n_ops = _device_kernels(fn, 20)[:2]
+        k5 = [v for n_, v in dev.items() if "deform_sample" in n_]
+        if k5 and n_ops == 1:
+            return sum(k5)
+    return None
+
+
 def _deform_library(a, out):
     """K5's library yardstick: ``F.grid_sample`` over x as (G, C/G, H, W)
     at the same (y, x) positions (align_corners=True, zeros), times the
@@ -1311,7 +1353,7 @@ def _deform_library(a, out):
     mg = m[0].permute(2, 0, 1)[:, None]
     ms = _cuda_ms(lambda: F.grid_sample(
         xg, grid, mode="bilinear", padding_mode="zeros",
-        align_corners=True) * mg, 50)
+        align_corners=True) * mg, K5_REPS)
     err = float((F.grid_sample(xg, grid, align_corners=True) * mg
                  - out.view(h * w, 9, groups, c // groups)
                  .permute(2, 3, 0, 1)).abs().max())
@@ -1409,6 +1451,10 @@ def _rfc(card, record) -> None:
                  fg_groups, fg_rb)
             errs.append(_check_deform(a, deform_sample(*a),
                                       "flow-guided, centers std 6"))
+            a = (a[0].contiguous(memory_format=torch.channels_last),
+                 *a[1:])
+            errs.append(_check_deform(a, deform_sample(*a),
+                                      "flow-guided, channels-last x"))
     torch.cuda.synchronize()
 
     # -- 10. end to end: the same model with deform_conv2d routed to its
@@ -1462,7 +1508,7 @@ def _rfc(card, record) -> None:
     (key, (a, k, out)), = seen.items()
     x, groups = a[0], a[3]
     with torch.inference_mode():
-        ms = _cuda_ms(lambda: deform_sample(*a, **k), 50)
+        ms = _cuda_ms(lambda: deform_sample(*a, **k), K5_REPS)
         plain = _cuda_ms(lambda: deform_sample_reference(*a[:4]), 20)
         lib, lib_err = _deform_library(a, out)
         bound = _work_deform(a, out)
@@ -1493,19 +1539,18 @@ def _rfc(card, record) -> None:
         del convs, conv3, conv2, conv2r, conv2d
         # device time (profiler): K5's kernel alone, and every kernel of
         # one RFC call against its wall time
-        k5_dev = [v for n_, v in _device_kernels(
-            lambda: deform_sample(*a, **k), 20)[0].items()
-            if "deform_sample" in n_]
+        k5_dev = _k5_device_ms(lambda: deform_sample(*a, **k))
         call_dev = _device_kernels(lambda: model(f1, m1), 1)[0]
     n_k5 = per_window[0] // 2
     print(f"[{card}] rfc K5 at x {tuple(x.shape)} G {groups}: wrapper "
           f"{ms:.4f} ms a call (CUDA events, back to back; the kernel alone "
           f"on the device: "
-          f"{f'{sum(k5_dev):.4f} ms' if k5_dev else 'not measured'}, "
+          f"{'not measured' if k5_dev is None else f'{k5_dev:.4f} ms'}, "
           f"profiler), plain {plain:.4f} ms, "
           f"grid_sample x mask {lib:.4f} ms (max |diff| to K5 "
           f"{lib_err:.2e}), bound {bound[0]:.4f} ms ({bound[1]}); per "
           f"window {per_window[0]} x {ms:.4f} = {per_window[0] * ms:.3f} ms")
+    _k5_info(card, "rfc", x, groups)
     print(f"[{card}] rfc one call (T = {t_w.stop - t_w.start}, one "
           f"direction): {ms_call:.3f} ms; replayed alone: 3-D convs "
           f"({n_conv[0]}) {ms3:.3f} ms ({100.0 * ms3 / ms_call:.1f} %), "
@@ -2145,7 +2190,8 @@ def _propainter(card, record) -> None:
             torch.backends.cudnn.benchmark = old_bench
         # K5 at the generator's shape
         (a5, k5k, o5) = k5[0]
-        ms5 = _cuda_ms(lambda: deform_sample(*a5, **k5k), 50)
+        ms5 = _cuda_ms(lambda: deform_sample(*a5, **k5k), K5_REPS)
+        k5_dev5 = _k5_device_ms(lambda: deform_sample(*a5, **k5k))
         plain5 = _cuda_ms(lambda: deform_sample_reference(*a5[:4]), 20)
         lib5, lib5_err = _deform_library(a5, o5)
         bound5 = _work_deform(a5, o5)
@@ -2187,9 +2233,13 @@ def _propainter(card, record) -> None:
         print(f"[{card}] propainter device busy and idle share: not measured "
               f"(the profiler saw no device activity)")
     print(f"[{card}] propainter K5 at x {tuple(a5[0].shape)} G {a5[3]}: "
-          f"{ms5:.4f} ms a call, plain {plain5:.4f} ms, grid_sample x mask "
+          f"{ms5:.4f} ms a call (CUDA events, back to back; the kernel "
+          f"alone on the device: "
+          f"{'not measured' if k5_dev5 is None else f'{k5_dev5:.4f} ms'}, "
+          f"profiler), plain {plain5:.4f} ms, grid_sample x mask "
           f"{lib5:.4f} ms (max |diff| to K5 {lib5_err:.2e}), bound "
           f"{bound5[0]:.4f} ms ({bound5[1]})")
+    _k5_info(card, "propainter", a5[0], a5[3])
     record.append(_record_entry(
         "window_attention", "propainter", "window_attention.cu",
         "pytorchcv_tpu/kernels/attention.py:91",

@@ -49,13 +49,15 @@ _SIGNATURES = {
     "pcv_maxpool_i8": [_P, _P] + [_I] * 6 + [_P],
     "pcv_flash_attention": [_P, _P, _P, _P] + [_I] * 5 + [_F, _I, _P],
     "pcv_flash_attention_info": [_I, _I, _P],
-    "pcv_deform_sample": [_P, _P, _P, _P] + [_I] * 5 + [_P],
+    "pcv_deform_sample": [_P] * 5 + [_I] * 8 + [_P],
+    "pcv_deform_sample_info": [_I] * 3 + [_P],
     "pcv_dwconv": [_P] * 5 + [_I] * 12 + [_P],
     "pcv_window_attention": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
     "pcv_window_attention_info": [_I, _I, _I, _P],
     "pcv_fused_bottleneck": [_P] * 10 + [_F] * 4 + [_P] + [_I] * 8 + [_P],
     "pcv_fused_bottleneck_info": [_I, _I, _P],
-    "pcv_stem_int8": [_P] * 4 + [_F] * 2 + [_P] + [_I] * 6 + [_P],
+    "pcv_stem_int8": [_P] * 4 + [_F] * 2 + [_P] + [_I] * 7 + [_P],
+    "pcv_stem_int8_info": [_I] * 3 + [_P],
     "pcv_patch_window_sum": [_P] * 3 + [_I] * 4 + [_P],
 }
 
@@ -148,8 +150,20 @@ def check(err: int, what: str) -> None:
 
 
 def stream_of(t) -> int:
+    """The raw handle of the current stream on ``t``'s card (no Stream
+    object is built: a wrapper asks on every call)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def device_of(t):
+    """A context that makes ``t``'s card current: nothing to do when it is
+    already (the common case; ``torch.cuda.device`` costs host time on
+    every call), else ``torch.cuda.device``."""
+    import torch
+    if t.get_device() == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 @contextlib.contextmanager

@@ -10,23 +10,98 @@ route calls it (it changes the stem's quantization; the routes run K3's
 bf16 stem): the function is its entry point. The kernel is
 ``csrc/stem_int8.cu``; on CPU tensors the plain version runs.
 
+The kernel runs on the int8 tensor cores with K in :func:`stem_k_layout`'s
+order; persistent blocks walk tiles of :func:`stem_int8_plan`'s output rows
+of one image. The quantized kernel and its gain are prepared once per
+weight: :func:`prepared` caches them on the ``k7`` and ``gain`` tensors and
+their in-place version counters.
+
 Contract: 3 channels, even H and W, O a multiple of 8 and at most 64. The
 JAX function's ``wout % 16`` was a TPU layout limit; K9 does not have it.
 """
 
 from __future__ import annotations
 
+import collections
+import ctypes
+import functools
+import weakref
 from typing import Tuple
 
 import torch
 
-from ._build import (LAUNCHES, autograd_records, check, f32, library,
-                     require_cuda_or_cpu, stream_of)
+from ._build import (LAUNCHES, autograd_records, check, device_of, f32,
+                     library, require_cuda_or_cpu, stream_of)
 from .int8_conv import int8_conv_reference
 
-__all__ = ["prepare_stem", "stem_conv7x7_s2", "stem_conv7x7_s2_reference"]
+__all__ = ["prepare_stem", "prepared", "stem_conv7x7_s2",
+           "stem_conv7x7_s2_reference", "stem_k_layout", "stem_int8_plan",
+           "stem_int8_smem", "kernel_info"]
 
 _MAX_COUT = 64
+_SMS = 132                     # the H100's SMs
+_SMEM_TWO = 233_472 // 2 - 1_024   # dynamic shared memory a block, two an SM
+# csrc/stem_int8.cu's fixed shared bytes: the [64][224 + 16] int8 kernel,
+# the f32 gain and bias, 8 warps' output staging (32 pixels of 80 bytes).
+_FIXED_SMEM = 64 * 240 + 2 * 64 * 4 + 8 * 32 * 80
+# A window word's load and quantization, in 32-pixel rounds of a block's
+# 8 warps (an estimate: three f32 reads and four roundings a thread-word
+# against 7 k32 steps of 16 mma a warp-round).
+_WORD_ROUNDS = 1.0 / 8
+
+
+@functools.lru_cache(maxsize=None)
+def stem_k_layout() -> Tuple[Tuple[int, int, int], ...]:
+    """The kernel's K order: entry k is the (kernel row r, kernel column s,
+    channel c) of K index k, or None for a zero weight. k = (r * 8 + s) * 4
+    + c with s padded 7 -> 8 and c 3 -> 4: 224 in all, one 32-byte mma
+    step a kernel row, one 32-bit A word an input pixel."""
+    return tuple((k >> 5, (k >> 2) & 7, k & 3)
+                 if (k >> 2) & 7 < 7 and k & 3 < 3 else None
+                 for k in range(7 * 8 * 4))
+
+
+def window_geometry(rows: int, wo: int) -> Tuple[int, int, int]:
+    """(input rows, words a plane row, the odd plane's first word) of a
+    tile's window in ``csrc/stem_int8.cu``: 2 rows + 5 input rows, each
+    as even and odd columns (one word a pixel) in planes of wo + 3 words;
+    the odd plane starts at a word = 16 mod 32 (bank 16)."""
+    rows_in, hp = 2 * rows + 5, wo + 3
+    return rows_in, hp, (rows_in * hp + 15) // 32 * 32 + 16
+
+
+def stem_int8_smem(rows: int, wo: int) -> int:
+    """Dynamic shared bytes of a block at ``rows`` output rows a tile of a
+    map ``wo`` wide (``stem_int8_smem`` in ``csrc/stem_int8.cu``)."""
+    rows_in, hp, po = window_geometry(rows, wo)
+    return _FIXED_SMEM + 4 * (po + rows_in * hp)
+
+
+def _plan_cost(b: int, ho: int, wo: int, rows: int) -> float:
+    """A call's time in 32-pixel rounds of a block's 8 warps: the tiles
+    each persistent block walks (the grid is min(tiles, 2 x 132), two
+    blocks an SM), each its rounds plus its window's words a thread."""
+    tiles = b * -(-ho // rows)
+    grid = min(tiles, 2 * _SMS)
+    rounds = -(-(-(-min(rows, ho) * wo // 32)) // 8)
+    rows_in, hp, _ = window_geometry(rows, wo)
+    return -(-tiles // grid) * (rounds + _WORD_ROUNDS * rows_in * 2 * hp
+                                / 256)
+
+
+@functools.lru_cache(maxsize=256)
+def stem_int8_plan(b: int, h: int, w: int) -> int:
+    """Output rows a tile for ``b`` images of ``h`` x ``w``: of 1 .. 32
+    rows whose shared memory lets two blocks share an SM, the least
+    :func:`_plan_cost`, and of those the most rows. Raises where one row's
+    window does not fit. Cached: the wrapper asks once a call."""
+    ho, wo = h // 2, w // 2
+    fit = [r for r in range(1, min(ho, 32) + 1)
+           if stem_int8_smem(r, wo) <= _SMEM_TWO]
+    if not fit:
+        raise ValueError(f"stem_int8: an image {w} wide leaves no room for "
+                         f"one row's window in shared memory")
+    return min(fit, key=lambda r: (_plan_cost(b, ho, wo, r), -r))
 
 
 def prepare_stem(k7: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor,
@@ -42,6 +117,43 @@ def prepare_stem(k7: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor,
     wq = torch.clamp(torch.round(k / s_w), -127, 127).to(torch.int8)
     g = (gain.detach().to(torch.float32) * s_w) * f32(s_img / 127.0)
     return s_w, wq, g
+
+
+# prepared(): (k7, gain) weak references and versions -> (wq, g), at most
+# _CACHE_SIZE entries, the least recently used dropped first.
+_CACHE_SIZE = 8
+_cache: "collections.OrderedDict" = collections.OrderedDict()
+
+
+def _version(t: torch.Tensor):
+    """The in-place version counter, or None for an inference tensor (it
+    keeps none, so nothing about it may be cached)."""
+    return None if t.is_inference() else t._version
+
+
+def prepared(k7: torch.Tensor, gain: torch.Tensor, s_img: float
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(wq, g)`` of :func:`prepare_stem`, contiguous, cached per (``k7``,
+    ``gain``, ``s_img``): a hit needs the same tensor objects (weak
+    references, so a freed tensor's id never hits) at the same in-place
+    versions, so a weight changed in place is prepared anew. Inference
+    tensors keep no version and are prepared on every call."""
+    key = (id(k7), id(gain), float(s_img))
+    versions = (_version(k7), _version(gain))
+    hit = _cache.get(key)
+    if hit is not None:
+        k_ref, g_ref, ver, out = hit
+        if k_ref() is k7 and g_ref() is gain and ver == versions:
+            _cache.move_to_end(key)
+            return out
+    _, wq, g = prepare_stem(k7, gain, None, s_img, None)
+    out = (wq.contiguous(), g.contiguous())
+    if None not in versions:
+        _cache[key] = (weakref.ref(k7), weakref.ref(gain), versions, out)
+        _cache.move_to_end(key)
+        while len(_cache) > _CACHE_SIZE:
+            _cache.popitem(last=False)
+    return out
 
 
 def _check(x, k7, gain, bias) -> int:
@@ -91,18 +203,38 @@ def stem_conv7x7_s2(x: torch.Tensor, k7: torch.Tensor, gain: torch.Tensor,
     if not x.is_contiguous() or not bias.is_contiguous():
         raise ValueError("stem_int8: x and bias must be contiguous")
     bsz, h, w, _ = x.shape
-    if bsz > 65535 or h // 2 > 65535:
-        raise ValueError(f"stem_int8: x {tuple(x.shape)} exceeds the grid")
-    _, wq, g = prepare_stem(k7, gain, bias, s_img, s_out)
-    wt = wq.permute(2, 0, 1, 3).contiguous()          # (3, 7, 7, O)
-    g = g.contiguous()
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"stem_int8: x {tuple(x.shape)} exceeds the kernel's "
+                         f"indexing")
+    rows = stem_int8_plan(bsz, h, w)
+    wq, g = prepared(k7, gain, s_img)
+    return _launch(x, wq, g, bias, s_img, s_out, rows)
+
+
+def _launch(x, wq, g, bias, s_img, s_out, rows):
+    """K9 on the card in tiles of ``rows`` output rows (checked operands;
+    :func:`stem_int8_plan`'s rows, or others for the plans tool)."""
+    bsz, h, w, _ = x.shape
+    o = wq.shape[3]
     out = torch.empty((bsz, h // 2, w // 2, o), dtype=torch.int8,
                       device=x.device)
-    with torch.cuda.device(x.device):
+    with device_of(x):
         check(library().pcv_stem_int8(
-            x.data_ptr(), wt.data_ptr(), g.data_ptr(),
-            bias.data_ptr(), f32(127.0 / s_img), f32(127.0 / s_out),
-            out.data_ptr(), bsz, h, w, h // 2, w // 2, o, stream_of(x)),
-            "stem_int8")
+            x.data_ptr(), wq.data_ptr(), g.data_ptr(), bias.data_ptr(),
+            f32(127.0 / s_img), f32(127.0 / s_out), out.data_ptr(), bsz, h, w,
+            h // 2, w // 2, o, rows, stream_of(x)), "stem_int8")
     LAUNCHES["stem_int8"] += 1
     return out
+
+
+def kernel_info(b: int, h: int, w: int) -> dict:
+    """Registers a thread, spilled (local) bytes, static and dynamic shared
+    memory a block of K9 on ``b`` images of ``h`` x ``w`` (16-byte image
+    reads where w % 4 == 0), with the plan's rows a tile (needs the
+    card)."""
+    rows = stem_int8_plan(b, h, w)
+    out = (ctypes.c_int * 4)()
+    check(library().pcv_stem_int8_info(rows, w // 2, int(w % 4 == 0), out),
+          "stem_int8 info")
+    return dict(zip(("registers", "spill_bytes", "static_smem",
+                     "dynamic_smem"), out), rows=rows)

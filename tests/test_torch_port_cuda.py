@@ -2,18 +2,22 @@
 the serving paths do not give them: partial output tiles, reduction tails,
 odd image sizes, dilations on odd sizes, narrow models, the bf16 residual
 of a last unit with an identity conv, attention at sequence lengths and
-widths no tile divides, the deformable sampler at widths that are not
+widths no tile divides, the deformable sampler (K5) at widths that are not
 multiples of 8, with windows across every border and element counts no
-block divides, and the depthwise conv (K6) at odd sizes, asymmetric pads,
+block divides, with x NCHW and channels-last at RFC's and the generator's
+shapes, at C/G no 16-byte vector divides, with more groups than a tile
+stages and on an unaligned view, and the depthwise conv (K6) at odd sizes,
+asymmetric pads,
 planes no block divides and every activation, the window attention (K7)
 at head widths, lengths and masks off ProPainter's path, a narrow
 ProPainter generator on the card against the CPU, the fused bottleneck
 chain (K8) at odd maps, ragged row tiles and WRN-50-2's widest stage, the
-int8 stem (K9) and the window-sum probe (K10) at odd sizes, the ResNet-50
+int8 stem (K9) at odd sizes and at 224 -> 112 with O 64, 8 and 40, the
+window-sum probe (K10) at odd sizes, the ResNet-50
 logits with and without K8 chains, DANet's position-attention gradients
 against the CPU's and a direct f32 forward under torch's TF32 defaults;
 K2 under each of its block tiles at sizes no tile divides, and K3 at the
-paths' stem shapes; no K2 or K3 instance spills.
+paths' stem shapes; no K2, K3, K5 or K9 instance spills.
 
 Each test carries the ``cuda`` marker, needs a CUDA card and nvcc, and
 skips without a card. On a machine without JAX, run them without the
@@ -427,6 +431,66 @@ def test_deform_sample_refuses_calls_outside_the_contract():
         deform_sample(x, offset.cpu(), mask, 4, 2.0)
 
 
+def _check_sampled(got, x, offset, mask, g):
+    ref = deform_sample_reference(x, offset, mask, g)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == x.dtype
+    if x.dtype == torch.bfloat16:
+        assert float(bf16_ulp_error(got, ref).max()) <= 1
+    else:
+        err = float((got - ref).abs().max())
+        assert err <= 1e-5 * float(x.abs().max()), err
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,w,c,g,rb", [
+    (30, 54, 256, 16, 5.0), (60, 108, 128, 16, 3.0), (14, 15, 36, 4, 5.0),
+    (19, 27, 48, 4, 2.5), (8, 9, 1200, 300, 2.0)])
+def test_deform_sample_kernel_both_layouts(h, w, c, g, rb, dtype, layout):
+    """K5 on x as it lies: NCHW (the launch transposes it) and
+    channels-last (read directly), at RFC's and the generator's shapes, at
+    C/G 9 (one channel a vector) and 12 (8-byte bf16 vectors), and with 300
+    groups (more samples a pixel than a tile stages)."""
+    dev = _cuda()
+    x, offset, mask = _deform_inputs(np.random.default_rng(h * w + c), h, w,
+                                     c, g, rb, dev)
+    x = x.to(getattr(torch, dtype))
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    reset_launch_counts()
+    got = deform_sample(x, offset, mask, g, rb)
+    assert LAUNCHES["deform_sample"] == 1
+    _check_sampled(got, x, offset, mask, g)
+
+
+def test_deform_sample_kernel_on_an_unaligned_view():
+    """A channels-last x that starts 4 bytes past an aligned address takes
+    one-channel vectors."""
+    dev = _cuda()
+    x, offset, mask = _deform_inputs(np.random.default_rng(11), 16, 20, 64,
+                                     4, 2.0, dev)
+    buf = torch.empty(x.numel() + 1, device=dev)
+    xv = buf[1:].view(1, 16, 20, 64)
+    xv.copy_(x.permute(0, 2, 3, 1))
+    xv = xv.permute(0, 3, 1, 2)
+    assert xv.data_ptr() % 16 == 4
+    reset_launch_counts()
+    got = deform_sample(xv, offset, mask, 4, 2.0)
+    assert LAUNCHES["deform_sample"] == 1
+    _check_sampled(got, xv, offset, mask, 4)
+
+
+def test_deform_sample_instances_spill_nothing():
+    from pytorchcv_tpu_torch.kernels import deform_patch as k5
+    _cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        for cg in (16, 4, 2, 1):
+            for nhwc in (True, False):
+                info = k5.kernel_info(16 * cg, 16, dtype, nhwc)
+                assert info["spill_bytes"] == 0, (dtype, cg, nhwc, info)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("k,stride,pad,shape", [
     (3, 1, ((1, 1), (1, 1)), (3, 5, 13, 11)),
@@ -694,6 +758,38 @@ def test_int8_stem_kernel_matches_plain():
     ref = stem_conv7x7_s2_reference(x, k7, gain, bias, 3.0, 2.0)
     torch.cuda.synchronize()
     assert tuple(got.shape) == (3, 35, 23, 32) and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("bsz,hw,cout", [(3, 224, 64), (2, 224, 8),
+                                         (2, 70, 40)])
+def test_int8_stem_kernel_bit_exact_at_the_stem_shape(bsz, hw, cout):
+    """K9 at 224 -> 112 with O 64 (batch 3), and at O 8 and 40 (8-byte
+    output stores), through its plan's rows."""
+    from pytorchcv_tpu_torch.kernels.stem_conv import (
+        stem_conv7x7_s2, stem_conv7x7_s2_reference)
+    dev = _cuda()
+    g = torch.Generator().manual_seed(cout)
+    x = (torch.randn((bsz, hw, hw, 3), generator=g) * 1.5).to(dev)
+    k7 = (torch.randn((7, 7, 3, cout), generator=g) * 0.1).to(dev)
+    gain = (torch.rand(cout, generator=g) + 0.5).to(dev)
+    bias = (torch.randn(cout, generator=g) * 0.1).to(dev)
+    reset_launch_counts()
+    got = stem_conv7x7_s2(x, k7, gain, bias, 3.0, 2.0)
+    assert LAUNCHES["stem_int8"] == 1
+    ref = stem_conv7x7_s2_reference(x, k7, gain, bias, 3.0, 2.0)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (bsz, hw // 2, hw // 2, cout)
+    assert torch.equal(got, ref)
+    assert float((ref > 0).float().mean()) > 0.2
+
+
+def test_int8_stem_kernel_spills_nothing():
+    from pytorchcv_tpu_torch.kernels import stem_conv as k9
+    _cuda()
+    for b, h, w in ((128, 224, 224), (3, 70, 46)):
+        info = k9.kernel_info(b, h, w)
+        assert info["spill_bytes"] == 0 and info["registers"] <= 128, info
+        assert info["dynamic_smem"] == k9.stem_int8_smem(info["rows"], w // 2)
 
 
 def test_patch_window_sum_kernel_matches_plain():
