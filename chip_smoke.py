@@ -35,7 +35,8 @@ use (one nvcc per source, in parallel). Phases, each ending in
    dilation, Cin, Cout, H, residual mode) with its ms, TOP/s, bound, the
    plan's tile and the instance's registers, spills (any fails the run)
    and shared memory, K3's rows a tile and resources (a spill fails),
-   K8 per chain with its plan's tile
+   ``maxpool_i8``'s plan (channel-vector bytes, output rows a thread) and
+   its instance's registers and spills (a spill fails), K8 per chain with its plan's tile
    (rows x columns of one image) and its registers, spills and shared memory,
    and the chained units replayed on K2 from the K2-only plan
    (``prepare_int8_resnet(..., chains=False)``, whose logits must equal
@@ -59,8 +60,8 @@ use (one nvcc per source, in parallel). Phases, each ending in
 7. DANet timing at batch 8: serving images/s, each kernel beside its plain
    version and its library call (SDPA beside K4, ``torch._int_mm`` beside
    K2 as in phase 4), K1's and both K4 instances' registers, spills and
-   shared memory, K2 at each distinct conv and K3 as in phase 4, and the
-   cuDNN bf16 head convs (recorded through the closure's ``head``);
+   shared memory, K2 at each distinct conv, K3 and ``maxpool_i8`` as in
+   phase 4, and the cuDNN bf16 head convs (recorded through the closure's ``head``);
 8. the RFC slice: ``get_model("propainter_rfc", device="cuda")`` on seed-0
    weights completes the flows of a synthetic 160-frame 240x432 clip
    (smooth sinusoidal flows up to 10 px, a moving ellipse masking ~10 % of
@@ -92,16 +93,22 @@ use (one nvcc per source, in parallel). Phases, each ending in
    the 7 activations and with k = 7: f32 bit-exact for the
    piecewise-linear activations and within 1e-6 of max |plain| for
    sigmoid and swish, bf16 within 1 bf16 ulp; K1 on the path within 1 bf16
-   ulp;
+   ulp; the f32 model under ``torch.autocast("cuda", torch.bfloat16)``
+   at batch 32: K6 launched 16 times, logits cosine >= 0.999 against the
+   same model in ``unfused_depthwise`` under the same autocast; each
+   distinct call's plan, registers, spills (any fails the run) and shared
+   memory;
 13. the EfficientNet slice: ``make_serving_fn("efficientnet_b0", (256,
    256), device="cuda")`` in mode auto (the bf16 route) on seed-0 weights,
    BN randomized from seed 1; one batch of 32, recorded for phase 12, with
    launch counts K1 = 1, K6 = 16 and no other kernel, finite (32, 1000)
    bf16 logits, cosine >= 0.99 against the f32 reference forward (no
    TF32, depthwise blocks unfused: K6 0), top-1 agreement printed;
-14. EfficientNet timing at batch 128: serving images/s, K6 per forward and
-   per call beside its plain version, cuDNN's depthwise conv with the
-   affine and swish in bf16 and its bound, K1 beside its plain version,
+14. EfficientNet timing at batch 128: serving images/s, K6 per forward
+   beside its plain version, cuDNN's depthwise conv with the affine and
+   swish in bf16 and its bound; each distinct K6 call on the device and
+   back to back beside its bytes bound, cuDNN's depthwise conv alone and
+   with the affine and swish, and its plan; K1 beside its plain version,
    the einsum and its bound (and its resources), cuDNN's other convs, the
    SE blocks and the BN fold replayed alone, and the device's busy time
    and idle share (``torch.profiler``);
@@ -147,8 +154,11 @@ use (one nvcc per source, in parallel). Phases, each ending in
 21. K9 (the int8 7x7 stem, ``kernels.stem_conv.stem_conv7x7_s2``) against
    its plain version, bit-exact, on the resnet50 and wrn50_2 stems at
    batch 128 (the preprocess output as NHWC f32, ``s_img`` the stem conv's
-   calibrated scale, ``s_out`` stage 1's input scale), timed beside K3 and
-   cuDNN's f32 conv of the same image, with its plan's rows a tile and its
+   calibrated scale, ``s_out`` stage 1's input scale); its prepared entry
+   (``stem_conv7x7_s2_prepared`` on ``prepare_stem``'s weights) equal to
+   the call, timed as the kernel, with the whole call (weights prepared
+   inside) beside it, K3 and cuDNN's f32 conv of the same image; its plan's
+   rows a tile and its
    registers, spills (any fails the run) and shared memory; its agreement
    with K3's int8 output printed for information (the input quantization
    differs);
@@ -416,6 +426,19 @@ def _work_stem(a, k, out):
 
 def _work_pool(a, out):
     return _bound(_nbytes(a[0], out), 9 * out.numel(), "int8")
+
+
+def _pool_info(card, tag, x):
+    """``maxpool_i8``'s plan (vector bytes, output rows a thread) at a
+    recorded call and its instance's registers and spills (a spill fails
+    the run)."""
+    from pytorchcv_tpu_torch.kernels.stem import maxpool_info, maxpool_plan
+    vb, run = maxpool_plan(*x.shape, 16 if x.data_ptr() % 16 == 0 else 1)
+    info = maxpool_info(vb)
+    print(f"[{card}] {tag} maxpool_i8 {vb}-byte channel vectors, {run} "
+          f"output rows a thread: {info['registers']} registers a thread, "
+          f"{info['spill_bytes']} bytes spilled (local)")
+    _require(info["spill_bytes"] == 0, f"{tag} maxpool_i8 spills")
 
 
 def _work_convs(calls):
@@ -816,6 +839,7 @@ def _int8_route(card, record, name: str) -> dict:
             _cuda_ms(lambda: maxpool_i8_reference(*a, **k), 20),
             _int8_max_pool_library(card, name, a[0], out),
             _work_pool(a, out))
+        _pool_info(card, name, a[0])
         convs = [(a, k) for a, k, _ in calls128["int8_conv"]]
         k2_lib = _k2_per_shape(card, name, calls128["int8_conv"])
         t["int8_conv"] = (
@@ -938,15 +962,18 @@ def _chains(routes, record) -> None:
 def _stem_int8(card, routes, record) -> None:
     """Phase 21: K9 against its plain version, bit-exact, on the resnet50
     and wrn50_2 stems at batch 128 (the preprocess output as NHWC f32,
-    s_img the stem conv's calibrated scale, s_out stage 1's input scale),
-    timed beside K3 and cuDNN's f32 conv of the same image; agreement with
+    s_img the stem conv's calibrated scale, s_out stage 1's input scale);
+    its prepared entry (weights from ``prepare_stem``) equal to the call
+    and timed as the kernel, the whole call (weights prepared inside)
+    beside it, K3 and cuDNN's f32 conv of the same image; agreement with
     K3's int8 output printed (the input quantization differs)."""
     import torch.nn.functional as F
     from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from pytorchcv_tpu_torch.kernels.preprocess import \
         classification_preprocess
     from pytorchcv_tpu_torch.kernels.stem_conv import (
-        stem_conv7x7_s2, stem_conv7x7_s2_reference)
+        prepare_stem, stem_conv7x7_s2, stem_conv7x7_s2_prepared,
+        stem_conv7x7_s2_reference)
     from pytorchcv_tpu_torch.kernels.stem_conv import \
         kernel_info as k9_kernel_info
     for name, st in routes.items():
@@ -985,7 +1012,16 @@ def _stem_int8(card, routes, record) -> None:
                   f"K3's int8 output (information only: K3 takes the bf16 "
                   f"image, K9 the image quantized at s_img)")
             _require(same, f"{name} K9 not bit-exact")
-            ms = _cuda_ms(lambda: stem_conv7x7_s2(*args), 20)
+            # the kernel's time: the prepared entry, as a caller that
+            # keeps the weights fixed runs it; the whole call beside it
+            _, wq, gq = prepare_stem(k7, gain, bias, s_img, s_out)
+            pargs = (x, wq, gq, bias, s_img, s_out)
+            reset_launch_counts()
+            _require(torch.equal(stem_conv7x7_s2_prepared(*pargs), out) and
+                     LAUNCHES["stem_int8"] == 1,
+                     f"{name} K9's prepared entry differs from the call")
+            ms = _cuda_ms(lambda: stem_conv7x7_s2_prepared(*pargs), 20)
+            ms_call = _cuda_ms(lambda: stem_conv7x7_s2(*args), 20)
             plain = _cuda_ms(lambda: stem_conv7x7_s2_reference(*args), 5)
             xn = x.permute(0, 3, 1, 2).contiguous()
             wf = block.conv.weight.detach()
@@ -999,7 +1035,9 @@ def _stem_int8(card, routes, record) -> None:
         _print_info(card, f"{name} K9 int8 stem", info)
         _require(info["spill_bytes"] == 0, f"{name} K9 spills")
         print(f"[{card}] {name} K9 int8 stem batch {BATCH_TIME}: kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, K3 (bf16 stem, phase "
+              f"(prepared entry) {ms:.4f} ms, the whole call (weights "
+              f"prepared inside) {ms_call:.4f} ms, plain {plain:.4f} ms, K3 "
+              f"(bf16 stem, phase "
               f"4/20) {st['k3_ms']:.4f} ms, cuDNN f32 conv {lib:.4f} ms, "
               f"bound {bound[0]:.4f} ms ({bound[1]})")
         record.append(_record_entry(
@@ -1169,6 +1207,7 @@ def _danet(card, record) -> None:
             _cuda_ms(lambda: maxpool_i8(*a, **k), 20),
             _cuda_ms(lambda: maxpool_i8_reference(*a, **k), 20), None,
             _work_pool(a, out))
+        _pool_info(card, "danet", a[0])
         (a, k, out), = calls8["flash_attention"]
         qa, ka, va = a[:3]
         t["flash_attention"] = (
@@ -1637,8 +1676,12 @@ def _effnet(card, record) -> None:
     import torch.nn.functional as F
     from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from pytorchcv_tpu_torch.kernels.dwconv import (dwconv2d_bn_act,
-                                                    dwconv2d_bn_act_reference)
-    from pytorchcv_tpu_torch.nn import SEBlock, fold_batchnorm
+                                                    dwconv2d_bn_act_reference,
+                                                    dwconv_plan)
+    from pytorchcv_tpu_torch.kernels.dwconv import \
+        kernel_info as dw_kernel_info
+    from pytorchcv_tpu_torch.nn import (SEBlock, fold_batchnorm,
+                                        unfused_depthwise)
     from pytorchcv_tpu_torch.serve import as_bfloat16
     targets = [(pre_mod, "preprocess", "preprocess"),
                (conv_mod, "dwconv2d_bn_act", "dwconv")]
@@ -1697,6 +1740,38 @@ def _effnet(card, record) -> None:
                 a = (x.to(dt), w7.to(dt), scale, shift, stride,
                      ((3, 3), (3, 3)), "swish")
                 errs.append(_check_dwconv(a, dwconv2d_bn_act(*a), "k=7"))
+        # the f32 model under bf16 autocast: K6 in its 16 depthwise blocks
+        # on autocast's bf16 x and weight, against the same model unfused
+        # under the same autocast
+        xa = torch.randn((BATCH_CHECK, 3, 224, 224), generator=g).cuda()
+        model.eval()
+        with torch.autocast("cuda", torch.bfloat16):
+            reset_launch_counts()
+            ya = model(xa).float()
+            k6_autocast = LAUNCHES["dwconv"]
+            with unfused_depthwise(model):
+                ya_ref = model(xa).float()
+        torch.cuda.synchronize()
+        cos_autocast = float((ya * ya_ref).sum() /
+                             (ya.norm() * ya_ref.norm()))
+        print(f"{EFF_NAME} f32 under bf16 autocast, batch {BATCH_CHECK}: K6 "
+              f"launches {k6_autocast}, logits cosine {cos_autocast:.6f} "
+              f"against the unfused route under the same autocast")
+        _require(k6_autocast == 16, f"autocast K6 launches {k6_autocast}")
+        _require(cos_autocast >= 0.999,
+                 f"autocast cosine {cos_autocast} < 0.999")
+        del xa, ya, ya_ref
+        # each distinct call's plan, registers, spills and shared memory
+        for key, (tag, a, out) in sorted(seen.items()):
+            xk = a[0]
+            info = dw_kernel_info(*xk.shape, a[1].shape[-1], a[4], a[5],
+                                  xk.dtype)
+            p_ = info["plan"]
+            _print_info(card, f"{tag} K6 x {tuple(xk.shape)} k "
+                        f"{a[1].shape[-1]} s {a[4]} {str(xk.dtype)[6:]}, "
+                        f"plan v {p_.v}, {p_.planes} planes x {p_.rows} "
+                        f"rows, {p_.threads} threads", info)
+            _require(info["spill_bytes"] == 0, f"K6 spills at {key}")
     max_err["dwconv"] = max(errs)
     del calls, tf_calls, tf_asym, seen
     torch.cuda.synchronize()
@@ -1741,19 +1816,47 @@ def _effnet(card, record) -> None:
                if isinstance(m, conv_mod.ConvBlock) and m.fused_dw]
         del mods
 
-        def library_dw():
-            for (x, w, scale, shift, stride, pad, act), _ in dws:
+        def cudnn_dw(a, affine=True):
+            x, w, scale, shift, stride, pad, act = a
+            yl = F.conv2d(x, w, None, stride, (pad[0][0], pad[1][0]), 1,
+                          x.shape[1])
+            if affine:
                 s_, b_ = (v.to(x.dtype).view(1, -1, 1, 1)
                           for v in (scale, shift))
-                yl = F.conv2d(x, w, None, stride, (pad[0][0], pad[1][0]), 1,
-                              x.shape[1]) * s_ + b_
+                yl = yl * s_ + b_
                 yl * torch.sigmoid(yl)
+
+        def library_dw():
+            for a, _ in dws:
+                cudnn_dw(a)
+
+        def device_ms(fn, name=""):
+            kernels, _, wall, _ = _device_kernels(fn, 10)
+            ms = sum(v for n_, v in kernels.items() if name in n_)
+            return ms if ms else wall
 
         ms_dw = _cuda_ms(lambda: [dwconv2d_bn_act(*a, **k) for a, k in dws],
                          20)
-        per_call = [(a, _cuda_ms(lambda: dwconv2d_bn_act(*a, **k), 20),
-                     _work_dwconv([(a, k, out)])[0])
-                    for a, k, out in calls128["dwconv"]]
+        # each distinct call: K6 back to back and on the device, its plan,
+        # its bytes bound, cuDNN's depthwise conv alone and with the affine
+        # and swish (device time of all their kernels)
+        per_call = {}
+        for a, k, out in calls128["dwconv"]:
+            key = _dw_key(a)
+            if key in per_call:
+                per_call[key]["count"] += 1
+                continue
+            x_ = a[0]
+            per_call[key] = dict(
+                a=a, count=1,
+                ms=_cuda_ms(lambda: dwconv2d_bn_act(*a, **k), 20),
+                dev=device_ms(lambda: dwconv2d_bn_act(*a, **k),
+                              "dwconv_kernel"),
+                bound=_work_dwconv([(a, k, out)])[0],
+                conv=device_ms(lambda: cudnn_dw(a, affine=False)),
+                full=device_ms(lambda: cudnn_dw(a)),
+                plan=dwconv_plan(*x_.shape, a[1].shape[-1], a[4], a[5],
+                                 x_.dtype))
         plain_dw = _cuda_ms(lambda: [dwconv2d_bn_act_reference(*a, **k)
                                      for a, k in dws], 3, warmup=1)
         lib_dw = _cuda_ms(library_dw, 20)
@@ -1775,10 +1878,22 @@ def _effnet(card, record) -> None:
           f"swish in bf16) {lib_dw:.4f} ms, bound {dw_bound[0]:.4f} ms "
           f"({dw_bound[1]}), share of the batch "
           f"{100.0 * ms_dw / ms_serve:.1f} %")
-    for i, (a, ms, bound_ms) in enumerate(per_call):
-        print(f"[{card}] {EFF_NAME} K6 call {i + 1} x {tuple(a[0].shape)} k "
-              f"{a[1].shape[-1]} s {a[4]}: {ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({ms / bound_ms:.1f}x)")
+    for i, e in enumerate(per_call.values()):
+        a, p_ = e["a"], e["plan"]
+        print(f"[{card}] {EFF_NAME} K6 call {i + 1} (x{e['count']} a "
+              f"forward) x {tuple(a[0].shape)} k {a[1].shape[-1]} s {a[4]}: "
+              f"{e['dev']:.4f} ms on the device ({e['ms']:.4f} back to "
+              f"back), bound {e['bound']:.4f} ms "
+              f"({e['dev'] / e['bound']:.1f}x); cuDNN depthwise conv alone "
+              f"{e['conv']:.4f} ms, with affine and swish {e['full']:.4f} "
+              f"ms; plan v {p_.v}, {p_.planes} planes x {p_.rows} rows, "
+              f"{p_.threads} threads")
+    dev_sum = sum(e["count"] * e["dev"] for e in per_call.values())
+    print(f"[{card}] {EFF_NAME} K6 per forward from the distinct calls on "
+          f"the device: {dev_sum:.4f} ms; cuDNN depthwise conv alone "
+          f"{sum(e['count'] * e['conv'] for e in per_call.values()):.4f} "
+          f"ms, with affine and swish "
+          f"{sum(e['count'] * e['full'] for e in per_call.values()):.4f} ms")
     rest = ms_serve - ms_dw - ms_pre - ms_conv - ms_se - ms_fold
     print(f"[{card}] {EFF_NAME} batch {BATCH_TIME}, replayed alone: K1 "
           f"{ms_pre:.4f} ms ({100.0 * ms_pre / ms_serve:.1f} %), cuDNN bf16 "

@@ -37,8 +37,12 @@
 //   ReLU and quant_i8, staged per warp in shared memory and written as
 //   16-byte (8-byte where Cout % 16 != 0) stores of the warp's contiguous
 //   32 x Cout bytes. Kernel 2 max-pools an int8 NHWC map 3x3/s2 with pad
-//   value -128. Fusing the pool into kernel 1 (halo rows) is left for
-//   later.
+//   value -128. It is bound by bytes (the map read once, a quarter of it
+//   written: 0.038 ms at ResNet-50's batch 128): a thread takes a 16-byte
+//   channel vector of one output column down a run of output rows, so
+//   every access is a vector and each input row shared by two output rows
+//   is read once. Fusing the pool into kernel 1 (halo rows) is left for
+//   later: it would take the pool's launch off the routes.
 #include "common.cuh"
 
 namespace {
@@ -284,28 +288,122 @@ bool stem_instance(int ksize, bool vec16, int rows, int w, StemKernel* kernel,
 }
 
 // 3x3 / stride 2 / pad 1 max-pool of an int8 NHWC map, pad value -128.
-__global__ void maxpool_i8_kernel(const int8_t* __restrict__ src,
-                                  int8_t* __restrict__ dst, int B, int Hi,
-                                  int Wi, int Hp, int Wp, int C) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const size_t total = static_cast<size_t>(B) * Hp * Wp * C;
-  if (idx >= total) return;
-  const int c = idx % C;
-  const int pw = (idx / C) % Wp;
-  const int ph = (idx / (static_cast<size_t>(C) * Wp)) % Hp;
-  const int b = idx / (static_cast<size_t>(C) * Wp * Hp);
-  int m = -128;
-  for (int dy = 0; dy < 3; ++dy) {
-    const int ih = ph * 2 - 1 + dy;
-    if (ih < 0 || ih >= Hi) continue;
-    for (int dx = 0; dx < 3; ++dx) {
-      const int iw = pw * 2 - 1 + dx;
-      if (iw < 0 || iw >= Wi) continue;
-      const int v = src[((static_cast<size_t>(b) * Hi + ih) * Wi + iw) * C + c];
-      m = v > m ? v : m;
-    }
+// A thread owns one VB-byte channel vector of one output column and walks a
+// run of output rows: output row ph takes the rows' column maxima of input
+// rows 2 ph - 1, 2 ph and 2 ph + 1, and row 2 ph + 1's is kept in registers
+// for output row ph + 1 (whose first row it is). Bytes are maxed four to a
+// word with __vmaxs4; -128 (0x80 a byte) is the identity for an absent row
+// or column. VB is 16, 8, 4 or 1 (the widest that divides C and the two
+// pointers' alignment, the host's choice); a 1-byte vector is the word's
+// low byte. All indices are 32-bit (the wrapper bounds the maps below
+// 2^31 bytes).
+template <int VB>
+struct Bytes {
+  static constexpr int kWords = VB >= 4 ? VB / 4 : 1;
+  unsigned w[kWords];
+};
+
+template <int VB>
+__device__ __forceinline__ Bytes<VB> load_bytes(const int8_t* p) {
+  Bytes<VB> b;
+  if constexpr (VB == 16) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    b.w[0] = v.x; b.w[1] = v.y; b.w[2] = v.z; b.w[3] = v.w;
+  } else if constexpr (VB == 8) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    b.w[0] = v.x; b.w[1] = v.y;
+  } else if constexpr (VB == 4) {
+    b.w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+  } else {
+    b.w[0] = static_cast<unsigned char>(__ldg(p));
   }
-  dst[idx] = static_cast<int8_t>(m);
+  return b;
+}
+
+template <int VB>
+__device__ __forceinline__ void store_bytes(int8_t* p, const Bytes<VB>& b) {
+  if constexpr (VB == 16)
+    *reinterpret_cast<uint4*>(p) = make_uint4(b.w[0], b.w[1], b.w[2], b.w[3]);
+  else if constexpr (VB == 8)
+    *reinterpret_cast<uint2*>(p) = make_uint2(b.w[0], b.w[1]);
+  else if constexpr (VB == 4)
+    *reinterpret_cast<unsigned*>(p) = b.w[0];
+  else
+    *p = static_cast<int8_t>(b.w[0] & 0xff);
+}
+
+template <int VB>
+__device__ __forceinline__ void vmax(Bytes<VB>& m, const Bytes<VB>& v) {
+#pragma unroll
+  for (int i = 0; i < Bytes<VB>::kWords; ++i) m.w[i] = __vmaxs4(m.w[i], v.w[i]);
+}
+
+template <int VB>
+__device__ __forceinline__ Bytes<VB> pad_bytes() {
+  Bytes<VB> b;
+#pragma unroll
+  for (int i = 0; i < Bytes<VB>::kWords; ++i) b.w[i] = 0x80808080u;
+  return b;
+}
+
+// The max of input row ih over columns iw0 .. iw0 + 2 (those inside the map)
+// of the vector at byte offset cb; -128 where the row is outside.
+template <int VB>
+__device__ __forceinline__ Bytes<VB> row_max(const int8_t* __restrict__ src,
+                                             int img_base, int ih, int Hi,
+                                             int Wi, int C, int iw0, int cb) {
+  Bytes<VB> m = pad_bytes<VB>();
+  if (ih < 0 || ih >= Hi) return m;
+  const int8_t* row = src + img_base + ih * Wi * C + cb;
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) {
+    const int iw = iw0 + dx;
+    if (iw >= 0 && iw < Wi) vmax(m, load_bytes<VB>(row + iw * C));
+  }
+  return m;
+}
+
+template <int VB>
+__global__ void __launch_bounds__(256)
+    maxpool_i8_kernel(const int8_t* __restrict__ src, int8_t* __restrict__ dst,
+                      int B, int Hi, int Wi, int Hp, int Wp, int C, int run,
+                      int runs) {
+  const int nv = C / VB;
+  int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= B * runs * Wp * nv) return;
+  const int cv = idx % nv;
+  idx /= nv;
+  const int pw = idx % Wp;
+  idx /= Wp;
+  const int rr = idx % runs;
+  const int b = idx / runs;
+  const int ph0 = rr * run, ph1 = min(ph0 + run, Hp);
+  const int cb = cv * VB, iw0 = 2 * pw - 1;
+  const int img_in = b * Hi * Wi * C;
+  int8_t* out = dst + ((b * Hp + ph0) * Wp + pw) * C + cb;
+  Bytes<VB> prev = row_max<VB>(src, img_in, 2 * ph0 - 1, Hi, Wi, C, iw0, cb);
+  for (int ph = ph0; ph < ph1; ++ph, out += Wp * C) {
+    Bytes<VB> m = row_max<VB>(src, img_in, 2 * ph, Hi, Wi, C, iw0, cb);
+    const Bytes<VB> next =
+        row_max<VB>(src, img_in, 2 * ph + 1, Hi, Wi, C, iw0, cb);
+    vmax(m, prev);
+    vmax(m, next);
+    store_bytes<VB>(out, m);
+    prev = next;
+  }
+}
+
+using PoolKernel = void (*)(const int8_t*, int8_t*, int, int, int, int, int,
+                            int, int, int);
+
+PoolKernel pool_instance(int vb) {
+  switch (vb) {
+    case 16: return maxpool_i8_kernel<16>;
+    case 8: return maxpool_i8_kernel<8>;
+    case 4: return maxpool_i8_kernel<4>;
+    case 1: return maxpool_i8_kernel<1>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
@@ -365,13 +463,38 @@ extern "C" int pcv_stem_info(int ksize, int vec16, int rows, int w,
   return 0;
 }
 
+// The pool of src (B, Hi, Wi, C) into dst (B, Hp, Wp, C): vb-byte channel
+// vectors (C % vb == 0 and both pointers vb-aligned), `run` output rows a
+// thread.
 extern "C" int pcv_maxpool_i8(const void* src, void* dst, int B, int Hi,
-                              int Wi, int Hp, int Wp, int C, void* stream) {
-  const size_t total = static_cast<size_t>(B) * Hp * Wp * C;
+                              int Wi, int Hp, int Wp, int C, int vb, int run,
+                              void* stream) {
+  const PoolKernel kernel = pool_instance(vb);
+  if (kernel == nullptr || C % vb != 0 || run < 1 ||
+      reinterpret_cast<uintptr_t>(src) % vb != 0 ||
+      reinterpret_cast<uintptr_t>(dst) % vb != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int runs = (Hp + run - 1) / run;
+  const long long threads_total =
+      static_cast<long long>(B) * runs * Wp * (C / vb);
+  if (threads_total >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int threads = 256;
-  maxpool_i8_kernel<<<static_cast<unsigned>((total + threads - 1) / threads),
-                      threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>((threads_total + threads - 1) / threads),
+           threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(src), static_cast<int8_t*>(dst), B, Hi, Wi,
-      Hp, Wp, C);
+      Hp, Wp, C, run, runs);
   return static_cast<int>(cudaGetLastError());
+}
+
+// out: registers a thread, local (spill) bytes of the vb-byte instance.
+extern "C" int pcv_maxpool_i8_info(int vb, int* out) {
+  const PoolKernel kernel = pool_instance(vb);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }

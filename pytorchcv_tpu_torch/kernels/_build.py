@@ -46,12 +46,14 @@ _SIGNATURES = {
     "pcv_int8_conv_info": [_I, _I, _I, _P],
     "pcv_stem": [_P, _P, _P, _F, _I, _P] + [_I] * 7 + [_P],
     "pcv_stem_info": [_I] * 4 + [_P],
-    "pcv_maxpool_i8": [_P, _P] + [_I] * 6 + [_P],
+    "pcv_maxpool_i8": [_P, _P] + [_I] * 8 + [_P],
+    "pcv_maxpool_i8_info": [_I, _P],
     "pcv_flash_attention": [_P, _P, _P, _P] + [_I] * 5 + [_F, _I, _P],
     "pcv_flash_attention_info": [_I, _I, _P],
     "pcv_deform_sample": [_P] * 5 + [_I] * 8 + [_P],
     "pcv_deform_sample_info": [_I] * 3 + [_P],
-    "pcv_dwconv": [_P] * 5 + [_I] * 12 + [_P],
+    "pcv_dwconv": [_P] * 5 + [_I] * 19 + [_P],
+    "pcv_dwconv_info": [_I] * 13 + [_P],
     "pcv_window_attention": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
     "pcv_window_attention_info": [_I, _I, _I, _P],
     "pcv_fused_bottleneck": [_P] * 10 + [_F] * 4 + [_P] + [_I] * 8 + [_P],

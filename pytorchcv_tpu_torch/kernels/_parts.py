@@ -1,7 +1,8 @@
 """What the kernels' timing tools share (``flash_attention_parts``,
-``fused_bottleneck_parts``, ``fused_bottleneck_plans``): the card's name
-and power limit, an nvcc build of variants of a kernel's source, and a
-CUDA-event timer. Each needs one CUDA card; ``build`` needs nvcc too.
+``fused_bottleneck_parts``, ``fused_bottleneck_plans``, ``dwconv_plans``,
+``dwconv_parts``): the card's name and power limit, its memory rate, an
+nvcc build of variants of a kernel's source, a CUDA-event timer and a
+device-time reading. Each needs one CUDA card; ``build`` needs nvcc too.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import Callable, Dict
 import torch
 
 from ._build import _ARCH, _CSRC, _nvcc
+
+HBM_BYTES_S = 3.35e12   # the H100's memory rate (NVIDIA's data sheet)
 
 # Every pcv_* entry point returns a cudaError_t whose message int8_conv.cu
 # defines in the full build; a variant's library links on its own with
@@ -60,3 +63,21 @@ def cuda_ms(fn: Callable[[], None], reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn: Callable[[], None], name: str, reps: int = 10) -> float:
+    """Device time a call of the kernels whose name holds ``name``
+    (``torch.profiler``); CUDA events over back-to-back calls where the
+    profiler sees none or loses events (under half the events' time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    t = [e.self_device_time_total for e in prof.key_averages()
+         if name in e.key and e.self_device_time_total > 0]
+    events = cuda_ms(fn, 2 * reps)
+    dev = sum(t) / 1e3 / reps if t else 0.0
+    return dev if dev >= 0.5 * events else events

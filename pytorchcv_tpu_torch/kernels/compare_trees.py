@@ -1,6 +1,8 @@
 """Two trees of the port on one card, in turns: K2 (the int8 convs of one
-forward), K3 (the stem) and serving throughput of int8 resnet50 and
-wrn50_2 at batch 128 and int8 DANet at batch 8; ProPainter RFC's
+forward), K3 (the stem), ``maxpool_i8`` and serving throughput of int8
+resnet50 and wrn50_2 at batch 128 and int8 DANet at batch 8; bf16
+efficientnet_b0 serving at batch 128 and K6 (its 16 depthwise calls of
+one forward, back to back); ProPainter RFC's
 completed-flow frames/s over a 160-frame 240x432 clip and K5 a call at
 its shape; the generator chain's (IP -> IT -> IM) frames/s over an
 80-frame clip and K5 at its first call's shape; K9 (the int8 7x7 stem) at
@@ -11,7 +13,8 @@ batch 128:
 Each TREE is the root of a checkout of the repository (for example the
 parent commit's ``git archive`` unpacked into a git-ignored directory, and
 ``.``). PATHs pick what to measure, of ``resnet50``, ``wrn50_2``,
-``danet``, ``rfc``, ``propainter`` and ``stem_int8`` (default: all). The
+``danet``, ``efficientnet_b0``, ``rfc``, ``propainter`` and ``stem_int8``
+(default: all). The
 trees run in the order A, B, B, A, each in a process of its own that
 imports ``pytorchcv_tpu_torch`` from that tree and builds its kernels
 there, so the two versions share the card, its clocks and its neighbours;
@@ -29,7 +32,8 @@ import time
 from pathlib import Path
 
 SEG = "danet_resnetd50b_cityscapes"
-PATHS = ("resnet50", "wrn50_2", "danet", "rfc", "propainter", "stem_int8")
+PATHS = ("resnet50", "wrn50_2", "danet", "efficientnet_b0", "rfc",
+         "propainter", "stem_int8")
 _SMOKE = Path(__file__).resolve().parents[2] / "chip_smoke.py"
 
 
@@ -123,6 +127,34 @@ def _stem_int8(torch, out: dict) -> None:
     out["stem_int8"] = {"k9_ms": ms}
 
 
+def _effnet(torch, pt, out: dict) -> None:
+    """bf16 efficientnet_b0 serving at batch 128 (256x256 frames) and its
+    16 K6 calls of one forward, back to back."""
+    import pytorchcv_tpu_torch.nn.conv as conv_mod
+    model = pt.get_model("efficientnet_b0", rng=0, device="cuda")
+    serve = pt.make_serving_fn("efficientnet_b0", (256, 256), device="cuda",
+                               model=model)
+    g = torch.Generator().manual_seed(3)
+    raw = torch.randint(0, 256, (128, 256, 256, 3), generator=g,
+                        dtype=torch.uint8).cuda()
+    calls, orig = [], conv_mod.dwconv2d_bn_act
+
+    def rec(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+    with torch.inference_mode():
+        conv_mod.dwconv2d_bn_act = rec
+        try:
+            serve(raw)
+        finally:
+            conv_mod.dwconv2d_bn_act = orig
+        torch.cuda.synchronize()
+        k6 = _cuda_ms(torch, lambda: [orig(*a, **k) for a, k in calls], 20)
+        ms = _cuda_ms(torch, lambda: serve(raw), 10, warmup=3)
+    out["efficientnet_b0"] = {"serve_ms": ms, "per_s": 128 * 1000.0 / ms,
+                              "k6_ms": k6, "k6_calls": len(calls)}
+
+
 def _measure(tree: str, paths) -> dict:
     """One tree's numbers (run in its own process)."""
     sys.path.insert(0, tree)
@@ -144,6 +176,8 @@ def _measure(tree: str, paths) -> dict:
     _video(torch, smoke, out, paths)
     if "stem_int8" in paths:
         _stem_int8(torch, out)
+    if "efficientnet_b0" in paths:
+        _effnet(torch, pt, out)
     g = torch.Generator().manual_seed(3)
     for name, hw, bsz, task, stem_mod in (
             ("resnet50", (256, 256), 128, "classification", rq),
@@ -157,9 +191,10 @@ def _measure(tree: str, paths) -> dict:
                                    model=model)
         raw = torch.randint(0, 256, (bsz, *hw, 3), generator=g,
                             dtype=torch.uint8).cuda()
-        calls = {"int8_conv": [], "stem_conv": []}
+        calls = {"int8_conv": [], "stem_conv": [], "maxpool_i8": []}
         saved = []
-        for mod, attr in ((rq, "int8_conv"), (stem_mod, "stem_conv")):
+        for mod, attr in ((rq, "int8_conv"), (stem_mod, "stem_conv"),
+                          (stem_mod, "maxpool_i8")):
             orig = getattr(mod, attr)
             saved.append((mod, attr, orig))
 
@@ -177,11 +212,14 @@ def _measure(tree: str, paths) -> dict:
             k2 = _cuda_ms(torch, lambda: [rq.int8_conv(*a, **k)
                                           for a, k in convs], 5)
             k3 = _cuda_ms(torch, lambda: stem_mod.stem_conv(*sa, **sk), 20)
+            (pa, pk), = calls["maxpool_i8"]
+            pool = _cuda_ms(torch, lambda: stem_mod.maxpool_i8(*pa, **pk), 20)
             ms = _cuda_ms(torch, lambda: serve(raw), 10 if bsz > 8 else 5,
                           warmup=3)
         out[key] = {"serve_ms": ms, "per_s": bsz * 1000.0 / ms,
-                    "k2_ms": k2, "k2_calls": len(convs), "k3_ms": k3}
-        del model, serve, raw, calls, convs
+                    "k2_ms": k2, "k2_calls": len(convs), "k3_ms": k3,
+                    "pool_ms": pool}
+        del model, serve, raw, calls, convs, pa, pk
         torch.cuda.empty_cache()
     return out
 
@@ -214,7 +252,13 @@ def main() -> None:
                 print(f"[{card}] {label} ({trees[label]}) {path}: serving "
                       f"{r['serve_ms']:.3f} ms = {r['per_s']:.1f} /s, K2 "
                       f"({r['k2_calls']} calls) {r['k2_ms']:.4f} ms, K3 "
-                      f"{r['k3_ms']:.4f} ms")
+                      f"{r['k3_ms']:.4f} ms, maxpool_i8 {r['pool_ms']:.4f} "
+                      f"ms")
+        if "efficientnet_b0" in res:
+            r = res["efficientnet_b0"]
+            print(f"[{card}] {label} ({trees[label]}) efficientnet_b0: "
+                  f"serving {r['serve_ms']:.3f} ms = {r['per_s']:.1f} /s, K6 "
+                  f"({r['k6_calls']} calls) {r['k6_ms']:.4f} ms")
         for path in ("rfc", "propainter"):
             if path in res:
                 r = res[path]

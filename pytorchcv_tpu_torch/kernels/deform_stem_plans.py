@@ -182,7 +182,6 @@ def main() -> None:
         print(f"[{card}] RFC's cat of x: NCHW {times['rfc cat nchw']:.4f} ms,"
               f" channels-last {times['rfc cat channels_last']:.4f} ms")
 
-    # K9's operands outside inference mode: prepared() caches on them
     g = torch.Generator().manual_seed(0)
     bsz = 128
     x = torch.rand((bsz, 224, 224, 3), generator=g).cuda() * 2 - 1
@@ -190,7 +189,7 @@ def main() -> None:
     gain = torch.rand(64, generator=g).cuda() + 0.5
     bias = torch.randn(64, generator=g).cuda() * 0.1
     with torch.inference_mode():
-        wq, gq = k9.prepared(k7, gain, 1.0)
+        _, wq, gq = k9.prepare_stem(k7, gain, bias, 1.0, 4.0)
         xn = x.permute(0, 3, 1, 2).contiguous()
         wf = k7.permute(3, 2, 0, 1).contiguous()
         lib = _cuda_ms(lambda: F.conv2d(xn, wf, stride=2, padding=3), 20)

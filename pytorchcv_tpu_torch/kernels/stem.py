@@ -6,7 +6,9 @@ and k = 3 for conv1 of the SENet deep stem; bf16 x bf16 products summed in
 f32), the f32 bias is added, ReLU applied and the result quantized to int8
 NHWC with ``clip(rint(y * q), +-127)``. ``maxpool_i8`` is the 3x3/s2/pad-1
 int8 max-pool (pad value -128) that follows it (the ResNet stem) or the
-deep stem's int8 conv2 and conv3. Both run ``csrc/stem.cu``.
+deep stem's int8 conv2 and conv3: a thread takes a channel vector of one
+output column (16 bytes where C and the pointers allow) down a run of
+output rows (:func:`maxpool_plan`). Both run ``csrc/stem.cu``.
 
 The stem kernel runs on the bf16 tensor cores with K = 3 k k taps padded to
 :func:`stem_k_layout`'s order; persistent blocks walk tiles of
@@ -22,12 +24,12 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ._build import (LAUNCHES, check, library, no_tf32, require_cuda_or_cpu,
-                     stream_of)
+from ._build import (LAUNCHES, check, device_of, library, no_tf32,
+                     require_cuda_or_cpu, stream_of)
 
 __all__ = ["stem_conv", "stem_conv_reference", "maxpool_i8",
-           "maxpool_i8_reference", "stem_plan", "stem_smem",
-           "stem_k_layout", "kernel_info"]
+           "maxpool_i8_reference", "maxpool_plan", "maxpool_info",
+           "stem_plan", "stem_smem", "stem_k_layout", "kernel_info"]
 
 _MAX_COUT = 64
 _KSIZES = (3, 7)
@@ -38,6 +40,11 @@ _STAGE_PITCH = _MAX_COUT + 16  # bytes a pixel of a warp's output staging
 # A tile's time beside its 32-pixel rounds of 8 warps: the window's wait
 # and the barriers, in rounds (an estimate).
 _TILE_ROUNDS = 0.5
+# maxpool_i8's output rows a thread: each shares its last input row with the
+# next. Runs of 1-8 rows took 0.052-0.058 ms at ResNet-50's map and 0.031-
+# 0.039 at DANet's, 16 more (kernels/dwconv_plans.py); 2 was the fastest
+# 16-byte run at both.
+_POOL_RUN = 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,10 +176,21 @@ def _launch(x, kf, bias, q, rows):
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def maxpool_plan(b: int, h: int, w: int, c: int,
+                 align: int) -> Tuple[int, int]:
+    """(bytes a vector, output rows a thread) of ``maxpool_i8`` on
+    (b, h, w, c) whose pointers are both ``align``-byte aligned: the widest
+    of 16, 8, 4, 1 bytes that divides C and ``align``, and runs of
+    ``_POOL_RUN`` output rows. Cached per shape."""
+    vb = next(v for v in (16, 8, 4, 1) if c % v == 0 and align % v == 0)
+    return vb, min(_POOL_RUN, (h - 1) // 2 + 1)
+
+
 def maxpool_i8(x: torch.Tensor) -> torch.Tensor:
     """3x3/s2/pad-1 max-pool of an int8 NHWC map, pad value -128 (JAX
-    ``quant/resnet_int8.py:_maxpool_i8``). CUDA tensors run the kernel, CPU
-    tensors the plain version."""
+    ``quant/resnet_int8.py:_maxpool_i8``). CUDA tensors run the kernel
+    under :func:`maxpool_plan`, CPU tensors the plain version."""
     if x.dtype != torch.int8 or x.dim() != 4:
         raise ValueError(f"maxpool_i8: x must be int8 NHWC, got {x.dtype} "
                          f"{tuple(x.shape)}")
@@ -180,15 +198,36 @@ def maxpool_i8(x: torch.Tensor) -> torch.Tensor:
         return maxpool_i8_reference(x)
     if not x.is_contiguous():
         raise ValueError("maxpool_i8: x must be contiguous")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"maxpool_i8: x {tuple(x.shape)} exceeds the "
+                         f"kernel's 32-bit indexing")
     bsz, h, w, c = x.shape
-    hp, wp = (h + 2 - 3) // 2 + 1, (w + 2 - 3) // 2 + 1
-    out = torch.empty((bsz, hp, wp, c), dtype=torch.int8, device=x.device)
-    with torch.cuda.device(x.device):
+    out = torch.empty((bsz, (h - 1) // 2 + 1, (w - 1) // 2 + 1, c),
+                      dtype=torch.int8, device=x.device)
+    align = (x.data_ptr() | out.data_ptr() | 16) & -(x.data_ptr()
+                                                      | out.data_ptr() | 16)
+    return _pool_launch(x, out, *maxpool_plan(bsz, h, w, c, align))
+
+
+def _pool_launch(x, out, vb, run):
+    """``maxpool_i8`` on the card in ``vb``-byte vectors, ``run`` output
+    rows a thread (checked operands; the plan's, or others for the plans
+    tool and the card tests)."""
+    bsz, h, w, c = x.shape
+    with device_of(x):
         check(library().pcv_maxpool_i8(x.data_ptr(), out.data_ptr(), bsz, h,
-                                       w, hp, wp, c, stream_of(x)),
-              "maxpool_i8")
+                                       w, out.shape[1], out.shape[2], c, vb,
+                                       run, stream_of(x)), "maxpool_i8")
     LAUNCHES["maxpool_i8"] += 1
     return out
+
+
+def maxpool_info(vb: int) -> dict:
+    """Registers a thread and spilled (local) bytes of the pool's
+    ``vb``-byte instance (needs the card)."""
+    out = (ctypes.c_int * 2)()
+    check(library().pcv_maxpool_i8_info(vb, out), "maxpool_i8 info")
+    return dict(zip(("registers", "spill_bytes"), out), vb=vb)
 
 
 def kernel_info(b: int, h: int, w: int, k: int) -> dict:

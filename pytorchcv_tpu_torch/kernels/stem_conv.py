@@ -12,9 +12,10 @@ bf16 stem): the function is its entry point. The kernel is
 
 The kernel runs on the int8 tensor cores with K in :func:`stem_k_layout`'s
 order; persistent blocks walk tiles of :func:`stem_int8_plan`'s output rows
-of one image. The quantized kernel and its gain are prepared once per
-weight: :func:`prepared` caches them on the ``k7`` and ``gain`` tensors and
-their in-place version counters.
+of one image. ``stem_conv7x7_s2`` quantizes the weights it is given on every
+call, as the JAX function does; a caller that keeps the weights fixed
+prepares them once with :func:`prepare_stem` and calls
+:func:`stem_conv7x7_s2_prepared`.
 
 Contract: 3 channels, even H and W, O a multiple of 8 and at most 64. The
 JAX function's ``wout % 16`` was a TPU layout limit; K9 does not have it.
@@ -22,10 +23,8 @@ JAX function's ``wout % 16`` was a TPU layout limit; K9 does not have it.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
-import weakref
 from typing import Tuple
 
 import torch
@@ -34,7 +33,7 @@ from ._build import (LAUNCHES, autograd_records, check, device_of, f32,
                      library, require_cuda_or_cpu, stream_of)
 from .int8_conv import int8_conv_reference
 
-__all__ = ["prepare_stem", "prepared", "stem_conv7x7_s2",
+__all__ = ["prepare_stem", "stem_conv7x7_s2", "stem_conv7x7_s2_prepared",
            "stem_conv7x7_s2_reference", "stem_k_layout", "stem_int8_plan",
            "stem_int8_smem", "kernel_info"]
 
@@ -119,43 +118,6 @@ def prepare_stem(k7: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor,
     return s_w, wq, g
 
 
-# prepared(): (k7, gain) weak references and versions -> (wq, g), at most
-# _CACHE_SIZE entries, the least recently used dropped first.
-_CACHE_SIZE = 8
-_cache: "collections.OrderedDict" = collections.OrderedDict()
-
-
-def _version(t: torch.Tensor):
-    """The in-place version counter, or None for an inference tensor (it
-    keeps none, so nothing about it may be cached)."""
-    return None if t.is_inference() else t._version
-
-
-def prepared(k7: torch.Tensor, gain: torch.Tensor, s_img: float
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(wq, g)`` of :func:`prepare_stem`, contiguous, cached per (``k7``,
-    ``gain``, ``s_img``): a hit needs the same tensor objects (weak
-    references, so a freed tensor's id never hits) at the same in-place
-    versions, so a weight changed in place is prepared anew. Inference
-    tensors keep no version and are prepared on every call."""
-    key = (id(k7), id(gain), float(s_img))
-    versions = (_version(k7), _version(gain))
-    hit = _cache.get(key)
-    if hit is not None:
-        k_ref, g_ref, ver, out = hit
-        if k_ref() is k7 and g_ref() is gain and ver == versions:
-            _cache.move_to_end(key)
-            return out
-    _, wq, g = prepare_stem(k7, gain, None, s_img, None)
-    out = (wq.contiguous(), g.contiguous())
-    if None not in versions:
-        _cache[key] = (weakref.ref(k7), weakref.ref(gain), versions, out)
-        _cache.move_to_end(key)
-        while len(_cache) > _CACHE_SIZE:
-            _cache.popitem(last=False)
-    return out
-
-
 def _check(x, k7, gain, bias) -> int:
     if x.dtype != torch.float32 or x.dim() != 4 or x.shape[3] != 3 or \
             x.shape[1] % 2 or x.shape[2] % 2:
@@ -177,9 +139,14 @@ def _check(x, k7, gain, bias) -> int:
 def stem_conv7x7_s2_reference(x: torch.Tensor, k7: torch.Tensor,
                               gain: torch.Tensor, bias: torch.Tensor,
                               s_img: float, s_out: float) -> torch.Tensor:
-    """Plain PyTorch version of K9: the image quantized in f32, then K2's
-    plain int8 conv (exact float64 sums) with the same epilogue."""
+    """Plain PyTorch version of K9: the weights prepared, the image
+    quantized in f32, then K2's plain int8 conv (exact float64 sums) with
+    the same epilogue."""
     _, wq, g = prepare_stem(k7, gain, bias, s_img, s_out)
+    return _prepared_reference(x, wq, g, bias, s_img, s_out)
+
+
+def _prepared_reference(x, wq, g, bias, s_img, s_out):
     xq = torch.clamp(torch.round(x.to(torch.float32) * f32(127.0 / s_img)),
                      -127, 127).to(torch.int8)
     return int8_conv_reference(xq, wq.permute(3, 0, 1, 2), g,
@@ -191,24 +158,42 @@ def stem_conv7x7_s2(x: torch.Tensor, k7: torch.Tensor, gain: torch.Tensor,
                     bias: torch.Tensor, s_img: float,
                     s_out: float) -> torch.Tensor:
     """K9: ``x`` f32 (B, H, W, 3), ``k7`` (7, 7, 3, O), ``gain``/``bias``
-    f32 (O,) -> int8 (B, H/2, W/2, O) at amax ``s_out``. CUDA tensors run
-    the kernel, CPU tensors the plain version; anything else raises, a call
+    f32 (O,) -> int8 (B, H/2, W/2, O) at amax ``s_out``. The weights are
+    quantized on every call (:func:`prepare_stem`). CUDA tensors run the
+    kernel, CPU tensors the plain version; anything else raises, a call
     that autograd would record included."""
-    o = _check(x, k7, gain, bias)
+    _check(x, k7, gain, bias)
     if autograd_records(x, k7, gain, bias):
         raise ValueError("stem_int8: K9 has no backward; call it under "
                          "torch.no_grad() or torch.inference_mode()")
     if not require_cuda_or_cpu("stem_int8", x, k7, gain, bias):
         return stem_conv7x7_s2_reference(x, k7, gain, bias, s_img, s_out)
-    if not x.is_contiguous() or not bias.is_contiguous():
-        raise ValueError("stem_int8: x and bias must be contiguous")
+    _, wq, g = prepare_stem(k7, gain, bias, s_img, s_out)
+    return stem_conv7x7_s2_prepared(x, wq, g, bias, s_img, s_out)
+
+
+def stem_conv7x7_s2_prepared(x: torch.Tensor, wq: torch.Tensor,
+                             g: torch.Tensor, bias: torch.Tensor,
+                             s_img: float, s_out: float) -> torch.Tensor:
+    """K9 on weights prepared once by :func:`prepare_stem`: ``wq`` int8
+    (7, 7, 3, O), ``g`` f32 (O,) its gain, for a caller that keeps the
+    weights fixed. The same result as :func:`stem_conv7x7_s2` on the
+    weights ``wq`` and ``g`` came from; the same contract otherwise."""
+    if wq.dtype != torch.int8:
+        raise ValueError(f"stem_int8: wq must be int8, got {wq.dtype}")
+    o = _check(x, wq, g, bias)
+    if autograd_records(x, g, bias):
+        raise ValueError("stem_int8: K9 has no backward; call it under "
+                         "torch.no_grad() or torch.inference_mode()")
+    if not require_cuda_or_cpu("stem_int8", x, wq, g, bias):
+        return _prepared_reference(x, wq, g, bias, s_img, s_out)
+    if not all(t.is_contiguous() for t in (x, wq, g, bias)):
+        raise ValueError("stem_int8: x, wq, g and bias must be contiguous")
     bsz, h, w, _ = x.shape
-    if x.numel() >= 2 ** 31:
+    if x.numel() >= 2 ** 31 or bsz * (h // 2) * (w // 2) * o >= 2 ** 31:
         raise ValueError(f"stem_int8: x {tuple(x.shape)} exceeds the kernel's "
                          f"indexing")
-    rows = stem_int8_plan(bsz, h, w)
-    wq, g = prepared(k7, gain, s_img)
-    return _launch(x, wq, g, bias, s_img, s_out, rows)
+    return _launch(x, wq, g, bias, s_img, s_out, stem_int8_plan(bsz, h, w))
 
 
 def _launch(x, wq, g, bias, s_img, s_out, rows):

@@ -7,6 +7,7 @@ from __future__ import annotations
 import contextlib
 from typing import Callable, Iterator, Optional, Tuple, Union
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -40,8 +41,10 @@ class ConvBlock(nn.Module):
     mode as one K6 launch (``kernels.dwconv``), BN folded on every call.
     It runs conv, BN and activation unfused in training mode, whenever
     autograd records the forward (K6 has no backward yet), and inside
-    :func:`unfused_depthwise`. K6 takes the weight in x's dtype, so under
-    ``torch.autocast`` an f32 model's eval forward raises."""
+    :func:`unfused_depthwise`. Under ``torch.autocast`` on x's device with
+    dtype bf16 it casts x and the conv weight to bf16, as autocast's own
+    conv would, and launches K6 (scale and shift stay f32); under any other
+    autocast dtype (f16, which K6 does not take) it runs unfused."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
@@ -69,7 +72,11 @@ class ConvBlock(nn.Module):
         input's size)."""
         if self.fused_dw and not self.training and not autograd_records(
                 x, self.conv.weight, self.bn.weight, self.bn.bias):
-            return self._dwconv(x, pad)
+            dev = x.device.type
+            cast = torch.get_autocast_dtype(dev) \
+                if torch.is_autocast_enabled(dev) else None
+            if cast in (None, torch.bfloat16):
+                return self._dwconv(x, pad, cast)
         if pad is not None:
             (top, bottom), (left, right) = pad
             x = F.pad(x, (left, right, top, bottom))
@@ -80,12 +87,15 @@ class ConvBlock(nn.Module):
             x = self.activ(x)
         return x
 
-    def _dwconv(self, x, pad: Optional[Pad]):
+    def _dwconv(self, x, pad: Optional[Pad], cast: Optional[torch.dtype]):
         if pad is None:
             ph, pw = self.conv.padding
             pad = ((ph, ph), (pw, pw))
+        w = self.conv.weight
+        if cast is not None:
+            x, w = x.to(cast), w.to(cast)
         scale, shift = fold_batchnorm(self.bn)
-        return dwconv2d_bn_act(x.contiguous(), self.conv.weight, scale, shift,
+        return dwconv2d_bn_act(x.contiguous(), w, scale, shift,
                                self.conv.stride[0], pad,
                                _K6_ACTS[type(self.activ)])
 

@@ -8,16 +8,22 @@ block divides, with x NCHW and channels-last at RFC's and the generator's
 shapes, at C/G no 16-byte vector divides, with more groups than a tile
 stages and on an unaligned view, and the depthwise conv (K6) at odd sizes,
 asymmetric pads,
-planes no block divides and every activation, the window attention (K7)
+planes no block divides and every activation, at every depthwise call of
+EfficientNet-B0 and -B0b, under forced plans and on an unaligned view, and
+an f32 EfficientNet-B0 under bf16 and f16 autocast, ``maxpool_i8`` under
+every vector width and row run and on unaligned views, the window
+attention (K7)
 at head widths, lengths and masks off ProPainter's path, a narrow
 ProPainter generator on the card against the CPU, the fused bottleneck
 chain (K8) at odd maps, ragged row tiles and WRN-50-2's widest stage, the
-int8 stem (K9) at odd sizes and at 224 -> 112 with O 64, 8 and 40, the
+int8 stem (K9) at odd sizes and at 224 -> 112 with O 64, 8 and 40 and
+after writes through ``.data``, the
 window-sum probe (K10) at odd sizes, the ResNet-50
 logits with and without K8 chains, DANet's position-attention gradients
 against the CPU's and a direct f32 forward under torch's TF32 defaults;
 K2 under each of its block tiles at sizes no tile divides, and K3 at the
-paths' stem shapes; no K2, K3, K5 or K9 instance spills.
+paths' stem shapes; no K2, K3, K5, K6, K9 or ``maxpool_i8`` instance
+spills.
 
 Each test carries the ``cuda`` marker, needs a CUDA card and nvcc, and
 skips without a card. On a machine without JAX, run them without the
@@ -329,6 +335,54 @@ def test_maxpool_i8_kernel_matches_plain(hw):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("shape", [(8, 112, 112, 64), (2, 240, 240, 128),
+                                   (1, 7, 9, 24), (1, 13, 11, 3),
+                                   (3, 9, 7, 64), (1, 2, 1, 16)])
+def test_maxpool_i8_kernel_bit_exact_under_every_vector_and_run(shape):
+    """``maxpool_i8`` at ResNet's (batch 8) and DANet's stem maps, at C 24
+    and 3, odd H and W and batch 1: its plan, and every vector width that
+    divides C under runs of 1, 2, 3 and 8 output rows."""
+    from pytorchcv_tpu_torch.kernels.stem import _pool_launch
+    dev = _cuda()
+    x = _i8(np.random.default_rng(shape[1]), shape, dev)
+    ref = maxpool_i8_reference(x)
+    reset_launch_counts()
+    assert torch.equal(maxpool_i8(x), ref) and LAUNCHES["maxpool_i8"] == 1
+    for vb in (16, 8, 4, 1):
+        if shape[3] % vb:
+            continue
+        for run in (1, 2, 3, 8):
+            got = _pool_launch(x, torch.empty_like(ref), vb, run)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (vb, run)
+
+
+def test_maxpool_i8_kernel_on_unaligned_views():
+    """An input or output 8, 4 or 1 bytes off a 16-byte boundary narrows
+    the vectors; the result stays bit-exact, and the -128 pad ties with
+    -128 inputs."""
+    from pytorchcv_tpu_torch.kernels.stem import maxpool_plan
+    dev = _cuda()
+    shape = (2, 11, 10, 64)
+    x = _i8(np.random.default_rng(5), shape, dev)
+    x[0, :3] = -128
+    ref = maxpool_i8_reference(x)
+    for off in (8, 4, 1):
+        buf = torch.empty(x.numel() + off, dtype=torch.int8, device=dev)
+        xv = buf[off:].view(shape)
+        xv.copy_(x)
+        assert maxpool_plan(*shape, off)[0] == off
+        assert torch.equal(maxpool_i8(xv), ref), off
+    torch.cuda.synchronize()
+
+
+def test_maxpool_i8_instances_spill_nothing():
+    from pytorchcv_tpu_torch.kernels.stem import maxpool_info
+    _cuda()
+    for vb in (16, 8, 4, 1):
+        assert maxpool_info(vb)["spill_bytes"] == 0, vb
+
+
 @pytest.mark.parametrize("name,kw,n_convs,n_chained", [
     ("resnet10", {}, 11, 0), ("resnet50", {"width_scale": 0.25}, 20, 11)])
 def test_int8_pipeline_on_cuda_matches_cpu(name, kw, n_convs, n_chained):
@@ -546,6 +600,162 @@ def test_dwconv_refuses_calls_outside_the_contract():
     with pytest.raises(ValueError, match="no backward"):
         dwconv2d_bn_act(x, w.clone().requires_grad_(True), s, b, 1, pad,
                         "relu")
+
+
+def _dw_calls(name, dev, monkeypatch, bsz=2):
+    """(x shape, k, stride, pad) of each depthwise call of a 224x224 bf16
+    forward of ``name``, in order."""
+    import pytorchcv_tpu_torch.nn.conv as conv_mod
+    seen = []
+    orig = conv_mod.dwconv2d_bn_act
+
+    def rec(x, w, scale, shift, stride, pad, act):
+        seen.append((tuple(x.shape), w.shape[-1], stride, pad))
+        return orig(x, w, scale, shift, stride, pad, act)
+    monkeypatch.setattr(conv_mod, "dwconv2d_bn_act", rec)
+    model = as_bfloat16(pt.get_model(name, device="cpu")).to(dev)
+    with torch.inference_mode():
+        model(torch.zeros((bsz, 3, 224, 224), dtype=torch.bfloat16,
+                          device=dev))
+    monkeypatch.undo()
+    return seen
+
+
+def _dw_operands(shape, k, dtype, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    c = shape[1]
+    return ((torch.randn(shape, generator=g) * 2).to(dev, dtype),
+            (torch.randn((c, 1, k, k), generator=g) * 0.3).to(dev, dtype),
+            torch.empty(c).uniform_(0.5, 1.5, generator=g).to(dev),
+            (torch.randn(c, generator=g) * 0.3).to(dev))
+
+
+def _assert_dw_close(got, ref, act, what=None):
+    """f32 bit-exact for the piecewise-linear activations, within 1e-6 of
+    max |plain| for sigmoid and swish; bf16 within 1 bf16 ulp."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if got.dtype == torch.bfloat16:
+        assert float(bf16_ulp_error(got, ref).max()) <= 1, (act, what)
+    elif act in ("sigmoid", "swish"):
+        err = float((got - ref).abs().max() / ref.abs().max())
+        assert err <= 1e-6, (act, err, what)
+    else:
+        assert torch.equal(got, ref), (act, what)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["efficientnet_b0", "efficientnet_b0b"])
+def test_dwconv_kernel_at_every_efficientnet_call(name, dtype, monkeypatch):
+    """K6 under its plans at each depthwise call of a 224x224 forward (the
+    16 of B0; B0b's TF-SAME pads, asymmetric at stride 2), every
+    activation, one launch a call."""
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    calls = _dw_calls(name, dev, monkeypatch)
+    assert len(calls) == 16
+    for i, (shape, k, stride, pad) in enumerate(calls):
+        x, w, scale, shift = _dw_operands(shape, k, dt, dev, i)
+        for act in ACTIVATIONS:
+            reset_launch_counts()
+            got = dwconv2d_bn_act(x, w, scale, shift, stride, pad, act)
+            assert LAUNCHES["dwconv"] == 1
+            ref = dwconv2d_bn_act_reference(x, w, scale, shift, stride, pad,
+                                            act)
+            torch.cuda.synchronize()
+            _assert_dw_close(got, ref, act, (shape, k, stride, pad))
+
+
+@pytest.mark.parametrize("k,stride,pad,shape,plans", [
+    (3, 1, ((1, 1), (1, 1)), (2, 5, 13, 11),
+     [(4, 1, 5, 32), (7, 1, 13, 64), (7, 3, 13, 64), (4, 4, 13, 256)]),
+    (5, 2, ((1, 2), (2, 1)), (2, 9, 15, 17),
+     [(4, 1, 3, 32), (7, 2, 7, 64), (4, 5, 7, 96), (4, 1, 1, 32)]),
+    (7, 2, ((3, 3), (3, 3)), (1, 6, 23, 19),
+     [(7, 1, 5, 32), (7, 6, 12, 256), (4, 1, 11, 128)]),
+    (3, 2, ((0, 1), (0, 1)), (2, 3, 112, 112),
+     [(4, 1, 8, 64), (7, 1, 56, 256), (4, 1, 3, 32)]),
+])
+def test_dwconv_kernel_under_forced_plans(k, stride, pad, shape, plans):
+    """K6 bit-exact (f32, relu) and within 1 bf16 ulp under plans the
+    plan would not pick: strips of 4 and 7, ragged last tiles of whole
+    planes, ragged last bands, several strips a thread."""
+    from pytorchcv_tpu_torch.kernels.dwconv import DwPlan, _launch
+    dev = _cuda()
+    for dt in (torch.float32, torch.bfloat16):
+        x, w, scale, shift = _dw_operands(shape, k, dt, dev, k)
+        ref = dwconv2d_bn_act_reference(x, w, scale, shift, stride, pad,
+                                        "relu")
+        for plan in plans:
+            got = _launch(x, w, scale, shift, stride, pad, "relu",
+                          DwPlan(*plan))
+            torch.cuda.synchronize()
+            _assert_dw_close(got, ref, "relu", (plan, dt))
+
+
+def test_dwconv_kernel_on_an_unaligned_view():
+    """x and the output span starting off a 16-byte boundary: the kernel
+    reads aligned vectors around the span and writes the ends apart."""
+    dev = _cuda()
+    for dt in (torch.float32, torch.bfloat16):
+        x, w, scale, shift = _dw_operands((2, 7, 9, 11), 3, dt, dev, 3)
+        buf = torch.empty(x.numel() + 3, dtype=dt, device=dev)
+        xv = buf[3:].view(x.shape)
+        xv.copy_(x)
+        assert xv.is_contiguous() and xv.data_ptr() % 16
+        for stride in (1, 2):
+            got = dwconv2d_bn_act(xv, w, scale, shift, stride,
+                                  ((1, 1), (1, 1)), "hswish")
+            ref = dwconv2d_bn_act_reference(x, w, scale, shift, stride,
+                                            ((1, 1), (1, 1)), "hswish")
+            torch.cuda.synchronize()
+            _assert_dw_close(got, ref, "hswish", (dt, stride))
+
+
+def test_dwconv_instances_spill_nothing():
+    """Every K6 instance (k 3/5/7, stride 1/2, strips of 4 and 7, f32 and
+    bf16) keeps its registers: no local memory; the kernel's layout of a
+    tile takes the shared bytes ``tile_geometry`` gives."""
+    import ctypes
+    from pytorchcv_tpu_torch.kernels._build import library
+    from pytorchcv_tpu_torch.kernels.dwconv import tile_geometry
+    _cuda()
+    out = (ctypes.c_int * 4)()
+    for k in (3, 5, 7):
+        for stride in (1, 2):
+            for v in (4, 7):
+                for bf16 in (0, 1):
+                    ho = (28 + 2 * (k // 2) - k) // stride + 1
+                    g = tile_geometry(28, 28, ho, ho, k, stride, v, 3, ho,
+                                      2 if bf16 else 4)
+                    assert library().pcv_dwconv_info(
+                        k, stride, v, bf16, 28, 28, ho, ho, 3, ho,
+                        g.row_pitch, g.half, g.plane_pitch, out) == 0
+                    assert out[1] == 0, (k, stride, v, bf16, list(out))
+                    assert out[3] == g.smem, (k, stride, v, bf16, list(out))
+
+
+def test_efficientnet_f32_under_autocast_on_cuda():
+    """An f32 EfficientNet-B0 eval forward under bf16 autocast launches K6
+    in its 16 depthwise blocks and agrees with its unfused route under the
+    same autocast; under f16 autocast K6 stays out."""
+    from pytorchcv_tpu_torch.nn import unfused_depthwise
+    dev = _cuda()
+    model = pt.get_model("efficientnet_b0", device="cpu").to(dev).eval()
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 3, 224, 224), generator=g).to(dev)
+    with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16):
+        reset_launch_counts()
+        y = model(x).float()
+        assert LAUNCHES["dwconv"] == 16
+        with unfused_depthwise(model):
+            y_ref = model(x).float()
+    with torch.inference_mode(), torch.autocast("cuda", torch.float16):
+        reset_launch_counts()
+        model(x)
+        assert LAUNCHES["dwconv"] == 0
+    cos = float(torch.nn.functional.cosine_similarity(
+        y.flatten(), y_ref.flatten(), dim=0))
+    assert cos >= 0.999, cos
 
 
 @pytest.mark.parametrize("name", ["efficientnet_b0", "efficientnet_b0b"])
@@ -781,6 +991,32 @@ def test_int8_stem_kernel_bit_exact_at_the_stem_shape(bsz, hw, cout):
     assert tuple(got.shape) == (bsz, hw // 2, hw // 2, cout)
     assert torch.equal(got, ref)
     assert float((ref > 0).float().mean()) > 0.2
+
+
+def test_int8_stem_kernel_follows_writes_through_data():
+    """K9 quantizes the weights it is given on every call: after writes
+    through ``.data`` (which bump no version counter) it gives the plain
+    result of the new weights; the prepared entry is bit-equal."""
+    from pytorchcv_tpu_torch.kernels.stem_conv import (
+        prepare_stem, stem_conv7x7_s2, stem_conv7x7_s2_prepared,
+        stem_conv7x7_s2_reference)
+    dev = _cuda()
+    g = torch.Generator().manual_seed(11)
+    x = (torch.randn((2, 32, 32, 3), generator=g) * 1.5).to(dev)
+    k7 = (torch.randn((7, 7, 3, 16), generator=g) * 0.1).to(dev)
+    gain = (torch.rand(16, generator=g) + 0.5).to(dev)
+    bias = (torch.randn(16, generator=g) * 0.1).to(dev)
+    first = stem_conv7x7_s2(x, k7, gain, bias, 3.0, 2.0)
+    for write in (lambda: k7.data.mul_(2.0),
+                  lambda: k7.data.__setitem__((0, 0, 0, 0), 100.0)):
+        write()
+        got = stem_conv7x7_s2(x, k7, gain, bias, 3.0, 2.0)
+        ref = stem_conv7x7_s2_reference(x, k7, gain, bias, 3.0, 2.0)
+        _, wq, gq = prepare_stem(k7, gain, bias, 3.0, 2.0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref) and not torch.equal(got, first)
+        assert torch.equal(stem_conv7x7_s2_prepared(x, wq, gq, bias, 3.0,
+                                                    2.0), got)
 
 
 def test_int8_stem_kernel_spills_nothing():

@@ -8,8 +8,11 @@ which only run on the card:
   per tile and the kernel's epilogue, are bit-equal to
   ``stem_conv7x7_s2_reference`` at O 64, 32 and 8, and to the JAX function
   in interpret mode; its plan fits shared memory;
-* K9's prepared weights are cached per tensor and version, and a weight
-  changed in place is prepared anew;
+* K9 quantizes the weights it is given on every call: on its card route
+  (the launch replaced by the plain product of the operands it is
+  handed) a write through ``.data`` and a change to an inference tensor
+  show in the next call, and the prepared entry is bit-equal to the
+  one-shot entry;
 * K5's walk of tiles of pixels x taps x channel vectors (the kernel's
   index arithmetic, steps and carries included) writes every output
   element exactly once, with ragged last tiles, vectors narrowed by C/G
@@ -18,8 +21,7 @@ which only run on the card:
   alignment, and its plan stages the most pixels whose samples fit;
 * K5's plain version, x NCHW or channels-last, is bit-equal to its
   function written out in numpy from the contract;
-* K9's K order takes every tap once, its plan is the cheapest fit, and its
-  prepared-weight cache drops the least recently used weight;
+* K9's K order takes every tap once and its plan is the cheapest fit;
 * both wrappers refuse every call outside their contracts.
 """
 
@@ -132,32 +134,73 @@ def test_k9_plan_fits_two_blocks_an_sm(b, h, w):
     assert k9.stem_int8_smem(rows, w // 2) <= k9._SMEM_TWO <= _SMEM_MAX // 2
 
 
-def test_k9_prepared_weights_follow_in_place_changes():
+def _k9_card_route(monkeypatch):
+    """K9's card route on the CPU: the wrapper takes its CUDA branch, and
+    the launch computes the plain product of the operands it is handed
+    (the prepared weights and gain), so stale prepared weights would
+    show."""
+    from pytorchcv_tpu_torch.kernels.int8_conv import int8_conv_reference
+
+    def launch(x, wq, g, bias, s_img, s_out, rows):
+        xq = torch.clamp(torch.round(x * f32(127.0 / s_img)), -127,
+                         127).to(torch.int8)
+        return int8_conv_reference(xq, wq.permute(3, 0, 1, 2), g, bias,
+                                   stride=2, relu=True, q=f32(127.0 / s_out))
+    monkeypatch.setattr(k9, "require_cuda_or_cpu", lambda *a: True)
+    monkeypatch.setattr(k9, "_launch", launch)
+
+
+@pytest.mark.parametrize("write", ["mul_", "setitem"])
+def test_k9_follows_writes_through_data(monkeypatch, write):
+    """A write through ``.data`` bumps no version counter; the next call
+    on the card route still gives the plain result of the new weights,
+    as the JAX function, which quantizes the weights it is given on every
+    call."""
+    _k9_card_route(monkeypatch)
     x, k7, gain, bias = _k9_case(1, 8, 8, 16, 5)
-    wq, g = k9.prepared(k7, gain, 3.0)
-    assert k9.prepared(k7, gain, 3.0)[0] is wq          # cached
-    _, wq_ref, g_ref = k9.prepare_stem(k7, gain, bias, 3.0, 2.0)
-    assert torch.equal(wq, wq_ref) and torch.equal(g, g_ref)
-    k7.mul_(-2.0)                                       # in place
-    wq2, g2 = k9.prepared(k7, gain, 3.0)
-    _, wq_ref, g_ref = k9.prepare_stem(k7, gain, bias, 3.0, 2.0)
-    assert torch.equal(wq2, wq_ref) and torch.equal(g2, g_ref)
-    assert not torch.equal(wq2, wq)
-    gain[0] = 7.0                                       # in place, indexed
-    _, g3 = k9.prepared(k7, gain, 3.0)
-    assert torch.equal(g3, k9.prepare_stem(k7, gain, bias, 3.0, 2.0)[2])
-    assert not torch.equal(g3, g2)
-    assert not torch.equal(k9.prepared(k7, gain, 4.0)[1], g3)   # s_img
-    k7_view = k7.detach()                               # shares the version
-    k7_view.add_(1.0)
-    assert torch.equal(k9.prepared(k7, gain, 3.0)[0],
-                       k9.prepare_stem(k7, gain, bias, 3.0, 2.0)[1])
-    with torch.inference_mode():                        # no version: no cache
+    first = k9.stem_conv7x7_s2(x, k7, gain, bias, 3.0, 2.0)
+    assert torch.equal(first, k9.stem_conv7x7_s2_reference(
+        x, k7, gain, bias, 3.0, 2.0))
+    if write == "mul_":
+        k7.data.mul_(2.0)
+    else:
+        k7.data[0, 0, 0, 0] = 100.0
+    got = k9.stem_conv7x7_s2(x, k7, gain, bias, 3.0, 2.0)
+    assert torch.equal(got, k9.stem_conv7x7_s2_reference(
+        x, k7, gain, bias, 3.0, 2.0))
+    assert not torch.equal(got, first)
+
+
+@pytest.mark.parametrize("route", ["cpu", "card"])
+def test_k9_prepared_entry_bit_equal_to_the_one_shot_entry(monkeypatch,
+                                                          route):
+    """``stem_conv7x7_s2_prepared`` on ``prepare_stem``'s weights gives
+    the one-shot entry's result, on the CPU and on the card route; it
+    refuses weights that are not int8."""
+    if route == "card":
+        _k9_card_route(monkeypatch)
+    x, k7, gain, bias = _k9_case(2, 12, 10, 24, 6)
+    _, wq, g = k9.prepare_stem(k7, gain, bias, 3.0, 2.0)
+    got = k9.stem_conv7x7_s2_prepared(x, wq, g, bias, 3.0, 2.0)
+    assert torch.equal(got, k9.stem_conv7x7_s2(x, k7, gain, bias, 3.0, 2.0))
+    assert float((got > 0).float().mean()) > 0.2
+    with pytest.raises(ValueError, match="int8"):
+        k9.stem_conv7x7_s2_prepared(x, k7, g, bias, 3.0, 2.0)
+
+
+def test_k9_inference_mode_weight_gives_the_plain_result(monkeypatch):
+    """An inference tensor keeps no version counter: the card route
+    prepares it on every call, so a change in place shows."""
+    _k9_card_route(monkeypatch)
+    x, k7, gain, bias = _k9_case(1, 8, 8, 16, 7)
+    with torch.inference_mode():
         k7i = k7.clone()
-        k9.prepared(k7i, gain, 3.0)
-        k7i.mul_(0.5)
-        assert torch.equal(k9.prepared(k7i, gain, 3.0)[0],
-                           k9.prepare_stem(k7i, gain, bias, 3.0, 2.0)[1])
+        before = k9.stem_conv7x7_s2(x, k7i, gain, bias, 3.0, 2.0)
+        k7i.mul_(-0.5)
+        got = k9.stem_conv7x7_s2(x, k7i, gain, bias, 3.0, 2.0)
+        assert torch.equal(got, k9.stem_conv7x7_s2_reference(
+            x, k7i, gain, bias, 3.0, 2.0))
+    assert not torch.equal(got, before)
 
 
 # ---------------------------------------------------------------- K5
@@ -456,19 +499,6 @@ def test_k9_plan_is_the_cheapest_fit(b, h, w):
 def test_k9_plan_refuses_an_image_too_wide():
     with pytest.raises(ValueError, match="too|no room"):
         k9.stem_int8_plan(1, 64, 16384)
-
-
-def test_k9_prepared_cache_keeps_the_most_recent_weights():
-    """At most 8 weights stay cached, the least recently used dropped
-    first; a dropped weight is prepared anew, bit-equal."""
-    gain = torch.rand(8) + 0.5
-    ks = [torch.randn(7, 7, 3, 8) * 0.1 for _ in range(10)]
-    first = [k9.prepared(k, gain, 3.0)[0] for k in ks]
-    assert len(k9._cache) <= k9._CACHE_SIZE
-    for k, wq in zip(ks[2:], first[2:]):
-        assert k9.prepared(k, gain, 3.0)[0] is wq      # the 8 newest
-    again = k9.prepared(ks[0], gain, 3.0)[0]
-    assert again is not first[0] and torch.equal(again, first[0])
 
 
 def _k9_args(**kw):
