@@ -3,7 +3,8 @@
 int8 DANet (ResNet-D50b) Cityscapes segmentation serving, ProPainter
 recurrent flow completion (RFC) streaming, bf16 EfficientNet-B0
 classification, ProPainter's generator (image propagation, the sparse
-window transformer, the mask blend) streaming and int8 WRN-50-2
+window transformer, the mask blend) streaming, int8 WRN-50-2
+classification and int8 SE-ResNeXt-50, ResNeXt-50 and SENet-16
 classification, on the port's hand-written CUDA kernels, with the int8
 7x7 stem and the window-sum probe on their own entry points.
 
@@ -164,8 +165,26 @@ use (one nvcc per source, in parallel). Phases, each ending in
    differs);
 22. K10 (the window-sum probe, ``kernels.patch_probe.patch_window_sum``)
    against its plain version at the probe tool's shapes (H 60, W 128, C
-   128, n 6480, numpy seed 0), within 1e-5 of max |plain|, timed, with
-   its bound.
+   128, n 6480, numpy seed 0), within 1e-5 of max |plain| and bit-equal
+   to the fixed-order sum, 2 launches (the table of 714 distinct windows
+   and the gather), back to back and on the device, with its bound (the
+   map read once against 240 adds per distinct window at the f32 add
+   rate);
+23. the SE-ResNeXt-50 slice: ``make_serving_fn("seresnext50_32x4d", (256,
+   256), device="cuda")`` on seed-0 weights (BN from seed 1, the SE
+   gates' biases from seed 2, their second product at a tenth:
+   ``_tame_se_gates``): every dense and grouped K2 conv, ``maxpool_i8``
+   and every K11 call bit-exact, K1 and K3 as in phase 2, launches K1 /
+   K3 / ``maxpool_i8`` 1, K2 36 dense + 16 grouped, K11 16, K8 0; cosine
+   >= 0.99 against the f32 reference forward; img/s at batch 128 and the
+   device's idle share, each kernel beside its plain version and bound,
+   the grouped K2 per distinct conv (device ms, TOP/s, bound, cuDNN's bf16
+   grouped conv as a yardstick, registers, spills, shared memory);
+24. the ResNeXt-50 slice (``resnext50_32x4d``), as phase 23: K2 36 + 16,
+   K11 0, the unit tails in K2;
+25. the SENet-16 slice (``senet16``: the deep stem on K3 3x3 and two K2
+   convs, cg = og / 2, 3x3 identity convs), as phase 23 at batch 32: K2
+   14 + 4, K11 4.
 
 The generator's CPU tests are ``tests/test_torch_port_propainter.py`` (the
 port against the JAX package at 96x176). To rehearse phases 15-17 without
@@ -201,6 +220,15 @@ STEM_TOLERANCE = 1e-3          # share of int8 elements allowed off by 1
 INT8_LAUNCHES = {"preprocess": 1, "stem": 1, "maxpool_i8": 1, "int8_conv": 19,
                  "fused_bottleneck": 11}
 PROBE_TOL = 1e-5               # K10: max |err| / max |plain|
+# The SE and grouped int8 routes (phases 23-25): launches in one forward
+# beside K1, K3 and maxpool_i8 1 each (K2 dense + grouped: 52, 52, 18),
+# and the batch each is timed at.
+SE_GROUP_ROUTES = {
+    "seresnext50_32x4d": ({"int8_conv": 36, "int8_gconv": 16,
+                           "se_tail": 16}, BATCH_TIME),
+    "resnext50_32x4d": ({"int8_conv": 36, "int8_gconv": 16}, BATCH_TIME),
+    "senet16": ({"int8_conv": 14, "int8_gconv": 4, "se_tail": 4},
+                BATCH_CHECK)}
 
 SEG_NAME = "danet_resnetd50b_cityscapes"
 SEG_SOURCE_HW = (1024, 2048)   # native Cityscapes frames
@@ -209,7 +237,8 @@ SEG_BATCH_TIME = 8
 SEG_LAUNCHES = {"preprocess": 1, "stem": 1, "maxpool_i8": 1, "int8_conv": 54,
                 "flash_attention": 1, "deform_sample": 0, "dwconv": 0,
                 "window_attention": 0, "fused_bottleneck": 0, "stem_int8": 0,
-                "patch_window_sum": 0}
+                "patch_window_sum": 0, "int8_gconv": 0,
+                "se_tail": 0}
 ATTN_F32_RTOL = 1e-4           # K4 f32: max |err| / max |plain|
 
 RFC_HW = (240, 432)            # ProPainter's default input
@@ -226,7 +255,8 @@ EFF_TF_NAME = "efficientnet_b0b"   # TF-SAME: asymmetric depthwise pads
 EFF_LAUNCHES = {"preprocess": 1, "stem": 0, "maxpool_i8": 0, "int8_conv": 0,
                 "flash_attention": 0, "deform_sample": 0, "dwconv": 16,
                 "window_attention": 0, "fused_bottleneck": 0, "stem_int8": 0,
-                "patch_window_sum": 0}
+                "patch_window_sum": 0, "int8_gconv": 0,
+                "se_tail": 0}
 DW_EXACT_ACTS = ("none", "relu", "relu6", "hswish", "hsigmoid")
 DW_F32_RTOL = 1e-6             # K6 f32 sigmoid/swish: max |err| / max |plain|
 
@@ -246,6 +276,9 @@ ATTN_BIG_N = 65600             # problems of K7's check beyond 65,535
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "tf32": 495e12,
               "f32": 67e12}
+# f32 adds alone: 67 T/s counts an FMA as two operations; an FADD issues
+# at the FMA's instruction rate, so adds peak at half of it.
+PEAK_OPS_S["f32_add"] = PEAK_OPS_S["f32"] / 2
 SRC = "pytorchcv_tpu_torch/csrc/"
 
 
@@ -350,12 +383,15 @@ def _seg_targets():
 def _conv_key(a, k):
     x, w = a[0], a[1]
     res = k.get("residual")
+    groups = k.get("groups", 1)
     mode = ("int8" if k["q"] is not None else "bf16",
             "relu" if k["relu"] else "linear",
             "no-res" if res is None else
             f"res-{str(res.dtype)[6:]}{'-bf16round' if k.get('round_res') else ''}")
     if k.get("bend"):
         mode += ("bend",)
+    if groups > 1:
+        mode += (f"groups-{groups}",)
     return (w.shape[1], k["stride"], k.get("dilation", 1), x.shape[3],
             w.shape[0], x.shape[1], "/".join(mode))
 
@@ -748,6 +784,41 @@ def _stem_info(card, tag, a):
     _require(info["spill_bytes"] == 0, f"{tag} K3 spills")
 
 
+def _front_times(card, name, calls) -> dict:
+    """K1, K3 and ``maxpool_i8`` of a recorded int8-route forward, each
+    (kernel ms, plain ms, library ms, bound): K1 beside its einsum, K3
+    beside cuDNN's f32 conv of the same image, the pool beside
+    ``F.max_pool2d`` where torch takes int8; K3's and the pool's plans and
+    resources."""
+    import torch.nn.functional as F
+    from pytorchcv_tpu_torch.kernels.stem import (maxpool_i8,
+                                                  maxpool_i8_reference,
+                                                  stem_conv,
+                                                  stem_conv_reference)
+    t = {}
+    (a, k, out), = calls["preprocess"]
+    t["preprocess"] = _preprocess_times(card, name, a, k, out)
+    (a, k, out), = calls["stem"]
+    xs = a[0].float()
+    ws = a[1].permute(3, 0, 1, 2).float()
+    t["stem"] = (
+        _cuda_ms(lambda: stem_conv(*a, **k), 20),
+        _cuda_ms(lambda: stem_conv_reference(*a, **k), 5),
+        _cuda_ms(lambda: F.conv2d(xs, ws, stride=2,
+                                  padding=ws.shape[2] // 2), 20),
+        _work_stem(a, k, out))
+    del xs
+    _stem_info(card, name, a)
+    (a, k, out), = calls["maxpool_i8"]
+    t["maxpool_i8"] = (
+        _cuda_ms(lambda: maxpool_i8(*a, **k), 20),
+        _cuda_ms(lambda: maxpool_i8_reference(*a, **k), 20),
+        _int8_max_pool_library(card, name, a[0], out),
+        _work_pool(a, out))
+    _pool_info(card, name, a[0])
+    return t
+
+
 def _int8_route(card, record, name: str) -> dict:
     """Phases 2-4 (resnet50) and 19-20 (wrn50_2): the int8 ResNet route of
     ``make_serving_fn(name, ...)``. Returns what phases 18 and 21 read."""
@@ -760,11 +831,6 @@ def _int8_route(card, record, name: str) -> dict:
         kernel_info as fb_kernel_info
     from pytorchcv_tpu_torch.kernels.int8_conv import (int8_conv,
                                                        int8_conv_reference)
-    from pytorchcv_tpu_torch.kernels.stem import (maxpool_i8,
-                                                  maxpool_i8_reference,
-                                                  stem_conv,
-                                                  stem_conv_reference)
-    import torch.nn.functional as F
 
     # -- 2 / 19. kernels vs plain versions at the main path's shapes
     model = _int8_model(name)
@@ -818,28 +884,9 @@ def _int8_route(card, record, name: str) -> dict:
         with _recording(_resnet_targets()) as calls128:
             logits128 = serve(raw128)
         torch.cuda.synchronize()
-        t = {}
-        (a, k, out), = calls128["preprocess"]
-        x128 = out
-        t["preprocess"] = _preprocess_times(card, name, a, k, out)
+        t = _front_times(card, name, calls128)
+        x128 = calls128["preprocess"][0][2]
         stem128 = calls128["stem"][0]
-        (a, k, out), = calls128["stem"]
-        xs = a[0].float()
-        ws = a[1].permute(3, 0, 1, 2).float()
-        t["stem"] = (
-            _cuda_ms(lambda: stem_conv(*a, **k), 20),
-            _cuda_ms(lambda: stem_conv_reference(*a, **k), 5),
-            _cuda_ms(lambda: F.conv2d(xs, ws, stride=2, padding=3), 20),
-            _work_stem(a, k, out))
-        del xs
-        _stem_info(card, name, a)
-        (a, k, out), = calls128["maxpool_i8"]
-        t["maxpool_i8"] = (
-            _cuda_ms(lambda: maxpool_i8(*a, **k), 20),
-            _cuda_ms(lambda: maxpool_i8_reference(*a, **k), 20),
-            _int8_max_pool_library(card, name, a[0], out),
-            _work_pool(a, out))
-        _pool_info(card, name, a[0])
         convs = [(a, k) for a, k, _ in calls128["int8_conv"]]
         k2_lib = _k2_per_shape(card, name, calls128["int8_conv"])
         t["int8_conv"] = (
@@ -1049,11 +1096,17 @@ def _stem_int8(card, routes, record) -> None:
 def _patch_probe(card, record) -> None:
     """Phase 22: K10 against its plain version at the probe tool's shapes
     (H 60, W 128, C 128, n 6480, numpy seed 0, as the tool draws them),
-    within 1e-5 of max |plain|, timed beside it, with its bound."""
+    within 1e-5 of max |plain| and bit-equal to the fixed-order sum (rows
+    outer, columns inner, f32 adds on the card), with its two launches (the
+    table of the 714 distinct windows, the gather); back to back and on the
+    device beside its plain version and its bound: the map read once and
+    the sums written once, against 240 adds per distinct window and
+    channel at the add rate (the count per output printed beside it)."""
     import numpy as np
     from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from pytorchcv_tpu_torch.kernels.patch_probe import (
-        PATCH_COLS, PATCH_ROWS, patch_window_sum, patch_window_sum_reference)
+        PATCH_COLS, PATCH_ROWS, clamped_starts, distinct_windows,
+        patch_window_sum, patch_window_sum_reference)
     rs = np.random.RandomState(0)
     h, w, c, n = 60, 128, 128, 6480
     x = torch.from_numpy(rs.randn(h, w, c).astype(np.float32)).cuda().to(
@@ -1066,24 +1119,271 @@ def _patch_probe(card, record) -> None:
         out = patch_window_sum(x, starts)
         torch.cuda.synchronize()
         launches = LAUNCHES["patch_window_sum"]
-        _require(launches == 1, f"K10 launches {launches}")
+        _require(launches == 2, f"K10 launches {launches}")
         ref = patch_window_sum_reference(x, starts)
         err = float((out - ref).abs().max())
         rel = err / float(ref.abs().max())
+        sy, sx = clamped_starts(starts, h, w).unbind(1)
+        xf, fixed = x.float(), torch.zeros_like(out)
+        for r in range(PATCH_ROWS):
+            for q in range(PATCH_COLS):
+                fixed = fixed + xf[sy + r, sx + q]
+        same = torch.equal(out, fixed)
         print(f"K10 window sums x {tuple(x.shape)}, {n} starts: max abs err "
-              f"{err}, {rel:.3e} of max |plain| (gate {PROBE_TOL})")
+              f"{err}, {rel:.3e} of max |plain| (gate {PROBE_TOL}); "
+              f"{'bit-equal to' if same else 'DIFFERS from'} the fixed-order "
+              f"sum")
         _require(rel <= PROBE_TOL, f"K10 rel err {rel}")
-        ms = _cuda_ms(lambda: patch_window_sum(x, starts), 20)
+        _require(same, "K10 differs from the fixed-order sum")
+        ms = _cuda_ms(lambda: patch_window_sum(x, starts), 200)
+        kernels, _, _, _ = _device_kernels(
+            lambda: patch_window_sum(x, starts), 50)
+        device = {k: v for k, v in kernels.items() if "window_sum" in k
+                  or "gather" in k}
         plain = _cuda_ms(lambda: patch_window_sum_reference(x, starts), 5)
-    bound = _bound(_nbytes(x, starts, out),
-                   n * PATCH_ROWS * PATCH_COLS * c, "f32")
-    print(f"[{card}] K10 window sums: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, library none, bound {bound[0]:.4f} ms "
-          f"({bound[1]})")
+    nbytes = _nbytes(x, starts, out)
+    windows = distinct_windows(h, w)
+    bound = _bound(nbytes, windows * PATCH_ROWS * PATCH_COLS * c, "f32_add")
+    per_output = _bound(nbytes, n * PATCH_ROWS * PATCH_COLS * c, "f32_add")
+    print(f"[{card}] K10 window sums ({windows} distinct windows, 2 "
+          f"launches): kernel {ms:.4f} ms back to back, "
+          f"{sum(device.values()):.4f} ms on the device ("
+          + ", ".join(f"{_kernel_name(k)} {v:.4f}"
+                      for k, v in sorted(device.items()))
+          + f"), plain {plain:.4f} ms, library none, bound "
+          f"{bound[0]:.4f} ms ({bound[1]}; 240 adds an output value instead "
+          f"of a distinct window: {per_output[0]:.4f} ms, {per_output[1]})")
     record.append(_record_entry(
         "patch_window_sum", "patch_window_sum (probe)", "patch_probe.cu",
         "tools/exp_pallas_patch_probe.py:51", launches, err, ms, plain,
         bound, None))
+
+
+def _check_se_tail(calls, max_err, tag):
+    """K11 against its plain version on every call, handed the same gate:
+    bit-exact."""
+    from pytorchcv_tpu_torch.kernels.se_tail import se_tail_reference
+    err = 0.0
+    for a, k, out in calls:
+        ref = se_tail_reference(*a, **k)
+        err = max(err, float((out.float() - ref.float()).abs().max()))
+        _require(torch.equal(out, ref),
+                 f"{tag} K11 not bit-exact at t {tuple(a[0].shape)}")
+    max_err["se_tail"] = err
+    print(f"{tag} K11: {len(calls)} calls bit-exact (t "
+          f"{sorted({tuple(a[0].shape) for a, _, _ in calls})})")
+
+
+def _work_se_tail(calls):
+    """Per element: t read, the residual read, the output written, the gate
+    read once; 4 f32 operations (product, add, ReLU, scale), none an FMA."""
+    nbytes = ops = 0
+    for a, k, out in calls:
+        nbytes += _nbytes(a[0], a[1], k["residual"], out)
+        ops += 4 * out.numel()
+    return _bound(nbytes, ops, "f32_add")
+
+
+def _gconv_per_shape(card, tag, calls):
+    """The grouped K2 at each distinct grouped conv of a path's recorded
+    calls: device ms (``torch.profiler``), useful TOP/s, bound, and cuDNN's
+    bf16 grouped conv on the same shape (channels-last, a yardstick: bf16
+    on the tensor cores, not the same function), the instance's registers,
+    spills (any fails the run) and shared memory. Returns the device and
+    cuDNN sums over the path's calls."""
+    import torch.nn.functional as F
+    from pytorchcv_tpu_torch.kernels.int8_conv import gconv_info, int8_conv
+    seen = {}
+    for a, k, out in calls:
+        key = _conv_key(a, k)
+        if key not in seen:
+            seen[key] = [a, k, out, 0]
+        seen[key][3] += 1
+    device_sum = lib_sum = 0.0
+    for key, (a, k, out, count) in sorted(seen.items()):
+        x, w = a[0], a[1]
+        o = out[0] if isinstance(out, tuple) else out
+        kernels, _, wall, _ = _device_kernels(lambda: int8_conv(*a, **k), 10)
+        ms = sum(v for n, v in kernels.items() if "int8_gconv_kernel" in n)
+        if ms == 0.0:
+            print(f"[{card}] {tag} grouped K2: the profiler saw no device "
+                  f"time; CUDA events instead")
+            ms = wall
+        ops = 2 * o.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+        bound = _work_convs([(a, k, out)])
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+        wb = w.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        lib = _cuda_ms(lambda: F.conv2d(xb, wb, stride=k["stride"],
+                                        padding=w.shape[1] // 2,
+                                        groups=k["groups"]), 10)
+        info = gconv_info(w.shape[0], x.shape[3], k["groups"])
+        print(f"[{card}] {tag} grouped K2 k={key[0]} s={key[1]} cin={key[3]} "
+              f"cout={key[4]} groups={k['groups']} h={key[5]} {key[6]} "
+              f"(x{count}): {ms:.4f} ms on the device ({wall:.4f} back to "
+              f"back), {ops / ms / 1e9:.1f} TOP/s, bound {bound[0]:.4f} ms "
+              f"({bound[1]}); cuDNN bf16 grouped conv {lib:.4f} ms (a "
+              f"yardstick, not the same function); {info['bc']} channels x "
+              f"128 pixels a block, {info['opt']} outputs a thread, "
+              f"{info['registers']} registers, {info['spill_bytes']} bytes "
+              f"spilled, shared {info['static_smem']} static bytes")
+        _require(info["spill_bytes"] == 0, f"{tag} grouped K2 spills at {key}")
+        device_sum += count * ms
+        lib_sum += count * lib
+    print(f"[{card}] {tag} grouped K2 on the device, the {len(calls)} grouped "
+          f"convs of a forward: {device_sum:.4f} ms; cuDNN bf16 on the same "
+          f"shapes {lib_sum:.4f} ms")
+    return device_sum, lib_sum
+
+
+def _tame_se_gates(model: torch.nn.Module) -> None:
+    """Every SE gate's second product drawn at a tenth of the init's scale.
+    At the init's scale the gates' pre-sigmoid values grow with the
+    activations to ~350 in seresnext50_32x4d's last stage (BN randomized
+    as here, no BN in the gate), so each gate is a hard 0/1 switch that
+    the int8 rounding flips: the JAX package's own int8 pipeline reaches
+    cosine 0.964 against its f32 forward on that draw. At a tenth they stay
+    below ~17 and the gates keep their slope."""
+    from pytorchcv_tpu_torch.nn.att import SEBlock
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, SEBlock):
+                m.conv2.weight.mul_(0.1)
+
+
+def _se_group_route(card, record, name: str) -> None:
+    """Phases 23-25: ``make_serving_fn(name, (256, 256))`` on the int8
+    route at full width on seed-0 weights (BN from seed 1, conv biases, the
+    SE gates', from seed 2, the gates' second product at a tenth:
+    ``_tame_se_gates``): every kernel against its plain version on a
+    batch-32 forward (K1 within 1 bf16 ulp, K3 within its tolerance,
+    ``maxpool_i8``, every distinct dense and grouped K2 conv and every K11
+    call bit-exact), the launch counts of ``SE_GROUP_ROUTES`` (K8 0),
+    cosine >= 0.99 against the f32 reference forward; img/s at the route's
+    timing batch and the device's idle share under the profiler, each
+    kernel beside its plain version and bound, the grouped K2 per distinct
+    conv beside cuDNN's bf16 grouped conv."""
+    import pytorchcv_tpu_torch as pt
+    import pytorchcv_tpu_torch.quant.resnet_int8 as rq
+    from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from pytorchcv_tpu_torch.kernels.int8_conv import (int8_conv,
+                                                       int8_conv_reference)
+    from pytorchcv_tpu_torch.kernels.se_tail import (se_tail,
+                                                     se_tail_reference)
+    want, batch_time = SE_GROUP_ROUTES[name]
+    targets = _resnet_targets() + [(rq, "se_tail", "se_tail")]
+    model = _int8_model(name)
+    _randomize_biases(model, seed=2)
+    _tame_se_gates(model)
+    t0 = time.perf_counter()
+    serve = pt.make_serving_fn(name, SOURCE_HW, device="cuda", model=model)
+    torch.cuda.synchronize()
+    print(f"{name} serving fn built (calibrate + quantize): "
+          f"{time.perf_counter() - t0:.3f} s, route {serve.route}")
+    _require(serve.route == "resnet", serve.route)
+    raw = _raw_batch(BATCH_CHECK, seed=2)
+    with _recording(targets) as calls:
+        serve(raw)
+    torch.cuda.synchronize()
+    max_err = {}
+    with torch.inference_mode():
+        _check_preprocess(calls["preprocess"], max_err, name)
+        _check_stem(calls["stem"], max_err, name)
+        _check_pool(calls["maxpool_i8"], max_err, name)
+        _check_convs([c for c in calls["int8_conv"] if c[1]["groups"] > 1],
+                     max_err, name)
+        max_err["int8_gconv"] = max_err["int8_conv"]
+        _check_convs([c for c in calls["int8_conv"]
+                      if c[1]["groups"] == 1], max_err, name)
+        if calls["se_tail"]:
+            _check_se_tail(calls["se_tail"], max_err, name)
+    del calls
+
+    reset_launch_counts()
+    logits = serve(raw)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    print(f"{name} launches in one forward: {launches}")
+    expected = {k: 0 for k in LAUNCHES}
+    expected.update(preprocess=1, stem=1, maxpool_i8=1, **want)
+    _require(launches == expected, f"{name} launches {launches}")
+    _require(tuple(logits.shape) == (BATCH_CHECK, 1000), logits.shape)
+    y = logits.float()
+    _require(bool(torch.isfinite(y).all()), f"{name} non-finite logits")
+    yf = serve.make_reference_forward()(raw).float()
+    torch.cuda.synchronize()
+    cos = float((y * yf).sum() / (y.norm() * yf.norm()))
+    top1 = float((y.argmax(1) == yf.argmax(1)).float().mean())
+    print(f"{name} int8 vs f32 reference: cosine {cos:.6f}, top-1 agreement "
+          f"{top1}")
+    _require(cos >= 0.99, f"{name} cosine {cos} < 0.99")
+
+    raw_t = _raw_batch(batch_time, seed=3)
+    with torch.inference_mode():
+        ms_serve = _cuda_ms(lambda: serve(raw_t), reps=10, warmup=3)
+        print(f"[{card}] serving {name} int8 batch {batch_time}: "
+              f"{ms_serve:.3f} ms/batch, "
+              f"{batch_time * 1000.0 / ms_serve:.1f} img/s")
+        kernels, n_ops, wall, busy = _device_kernels(lambda: serve(raw_t),
+                                                     3)
+        print(f"[{card}] {name} batch {batch_time} under the profiler: "
+              f"{wall:.3f} ms a batch, the device busy {busy:.3f} ms (idle "
+              f"{100.0 * (1.0 - busy / wall):.1f} %), {n_ops:.0f} device "
+              f"operations a batch; the largest items (ms a batch): "
+              + ", ".join(f"{_kernel_name(k)[:60]} {v:.4f}" for k, v in
+                          sorted(kernels.items(), key=lambda kv: -kv[1])[:8]))
+        with _recording(targets) as calls_t:
+            serve(raw_t)
+        torch.cuda.synchronize()
+        t = _front_times(card, name, calls_t)
+        dense = [c for c in calls_t["int8_conv"] if c[1]["groups"] == 1]
+        grouped = [c for c in calls_t["int8_conv"] if c[1]["groups"] > 1]
+        k2_lib = _k2_per_shape(card, name, dense)
+        _, gconv_lib = _gconv_per_shape(card, name, grouped)
+        for kname, cs, lib in (("int8_conv", dense, k2_lib),
+                               ("int8_gconv", grouped, gconv_lib)):
+            ops = [(a, k) for a, k, _ in cs]
+            t[kname] = (
+                _cuda_ms(lambda: [int8_conv(*a, **k) for a, k in ops], 5),
+                _cuda_ms(lambda: [int8_conv_reference(*a, **k)
+                                  for a, k in ops], 1, warmup=1),
+                lib, _work_convs(cs))
+        se_calls = [(a, k) for a, k, _ in calls_t["se_tail"]]
+        if se_calls:
+            t["se_tail"] = (
+                _cuda_ms(lambda: [se_tail(*a, **k) for a, k in se_calls], 10),
+                _cuda_ms(lambda: [se_tail_reference(*a, **k)
+                                  for a, k in se_calls], 5),
+                None, _work_se_tail(calls_t["se_tail"]))
+        del calls_t
+    what = {"int8_conv": f"{want['int8_conv']} dense convs of one forward; "
+                         f"library: torch._int_mm, 1x1 s1 products only",
+            "int8_gconv": f"{want['int8_gconv']} grouped convs of one "
+                          f"forward; library: cuDNN's bf16 grouped conv, a "
+                          f"yardstick",
+            "se_tail": f"{want.get('se_tail', 0)} SE tails of one forward"}
+    replaces = {"preprocess": ("preprocess.cu",
+                               "pytorchcv_tpu/kernels/preprocess.py:133"),
+                "stem": ("stem.cu", "pytorchcv_tpu/quant/resnet_int8.py:"
+                         + ("237" if name.startswith("senet") else "253")),
+                "maxpool_i8": ("stem.cu",
+                               "pytorchcv_tpu/quant/resnet_int8.py:261"),
+                "int8_conv": ("int8_conv.cu",
+                              "pytorchcv_tpu/quant/resnet_int8.py:66"),
+                "int8_gconv": ("int8_conv.cu",
+                               "pytorchcv_tpu/quant/resnet_int8.py:58"),
+                "se_tail": ("se_tail.cu",
+                            "pytorchcv_tpu/quant/resnet_int8.py:359")}
+    for kname, (ms, plain, lib, bound) in t.items():
+        print(f"[{card}] {name} {kname} batch {batch_time} "
+              f"({what.get(kname, 'one call')}): kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, library "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{bound[0]:.4f} ms ({bound[1]})")
+        source, rep = replaces[kname]
+        record.append(_record_entry(kname, name, source, rep,
+                                    launches[kname], max_err[kname], ms,
+                                    plain, bound, lib))
 
 
 def _danet(card, record) -> None:
@@ -1397,6 +1697,11 @@ def _deform_library(a, out):
                  - out.view(h * w, 9, groups, c // groups)
                  .permute(2, 3, 0, 1)).abs().max())
     return ms, err
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler kernel key without its namespace and argument list."""
+    return key.replace("(anonymous namespace)::", "").split("(")[0]
 
 
 def _device_kernels(fn, reps: int):
@@ -2411,6 +2716,10 @@ def main() -> None:
     _stem_int8(card, routes, record)
     _patch_probe(card, record)
     print(f"K9 and K10 phases: {time.perf_counter() - t0:.1f} s")
+    for name in SE_GROUP_ROUTES:
+        t0 = time.perf_counter()
+        _se_group_route(card, record, name)
+        print(f"{name} phases: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": record}))

@@ -27,13 +27,15 @@ _BUILD = _PKG / "_build"
 _LIB_NAME = "libpytorchcv_kernels.so"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-# Kernel launches per wrapper; a wrapper adds one where it launches its
-# kernel (never on its CPU path).
+# Kernel launches per kernel; a wrapper adds one where it launches a
+# kernel (never on its CPU path): "int8_gconv" counts int8_conv's grouped
+# kernel, "patch_window_sum" each of K10's one or two launches a call.
 LAUNCHES: Dict[str, int] = {"preprocess": 0, "int8_conv": 0, "stem": 0,
                             "maxpool_i8": 0, "flash_attention": 0,
                             "deform_sample": 0, "dwconv": 0,
                             "window_attention": 0, "fused_bottleneck": 0,
-                            "stem_int8": 0, "patch_window_sum": 0}
+                            "stem_int8": 0, "patch_window_sum": 0,
+                            "int8_gconv": 0, "se_tail": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -44,6 +46,9 @@ _SIGNATURES = {
     "pcv_int8_conv": [_P, _P, _P, _P, _P, _F, _I, _I, _F, _I, _P]
     + [_I] * 12 + [_P, _I, _I, _P],
     "pcv_int8_conv_info": [_I, _I, _I, _P],
+    "pcv_int8_gconv": [_P, _P, _P, _P, _P, _F, _I, _I, _F, _I, _P, _P]
+    + [_I] * 14 + [_P],
+    "pcv_int8_gconv_info": [_I, _I, _P],
     "pcv_stem": [_P, _P, _P, _F, _I, _P] + [_I] * 7 + [_P],
     "pcv_stem_info": [_I] * 4 + [_P],
     "pcv_maxpool_i8": [_P, _P] + [_I] * 8 + [_P],
@@ -60,7 +65,8 @@ _SIGNATURES = {
     "pcv_fused_bottleneck_info": [_I, _I, _P],
     "pcv_stem_int8": [_P] * 4 + [_F] * 2 + [_P] + [_I] * 7 + [_P],
     "pcv_stem_int8_info": [_I] * 3 + [_P],
-    "pcv_patch_window_sum": [_P] * 3 + [_I] * 4 + [_P],
+    "pcv_patch_window_sum": [_P] * 4 + [_I] * 4 + [_P, _P],
+    "pcv_se_tail": [_P, _P, _P, _I, _F, _F, _I, _P, _I, _I, _I, _P],
 }
 
 

@@ -65,14 +65,16 @@ def fits(c: int, m: int) -> bool:
 def takes_unit(cells: Dict) -> bool:
     """Whether K8 takes a unit's body ({"conv1", "conv2", "conv3"} cells of
     the int8 pipeline): a 1x1 / 3x3 / 1x1 bottleneck C -> M -> M -> C with
-    every stride and dilation 1 and widths within :func:`fits`."""
+    every stride and dilation 1, no groups, and widths within
+    :func:`fits`."""
     c1, c2, c3 = cells["conv1"], cells["conv2"], cells["conv3"]
     m, c = c1["wq"].shape[0], c1["wq"].shape[3]
     return (tuple(c1["wq"].shape) == (m, 1, 1, c)
             and tuple(c2["wq"].shape) == (m, 3, 3, m)
             and tuple(c3["wq"].shape) == (c, 1, 1, m)
             and all(cell.get("stride", 1) == 1 and
-                    cell.get("dilation", 1) == 1 for cell in (c1, c2, c3))
+                    cell.get("dilation", 1) == 1 and
+                    cell.get("groups", 1) == 1 for cell in (c1, c2, c3))
             and fits(c, m))
 
 

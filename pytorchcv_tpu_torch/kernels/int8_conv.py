@@ -25,6 +25,16 @@ The kernel computes an output tile of BM pixels x BN channels a block;
 :func:`plan` picks the tile per conv from :data:`TILES` (the least
 :func:`plan_cost`, a cost in estimated clocks) and :func:`block_tile` maps
 a block to its tile as the kernel does.
+
+A grouped conv (``groups > 1``, ``w`` of shape (Cout, k, k, Cin / groups):
+ResNeXt's and SENet's grouped 3x3) runs the grouped kernel of the same
+source, ``__dp4a`` products on the CUDA cores with the same epilogue: a
+block takes 128 pixels x :func:`gconv_plan`'s channels (whole groups), a
+thread ``opt`` outputs of one group at one pixel, reading only that
+group's input channels (:func:`gconv_items` lists the (pixel, channel)
+each thread takes, :func:`gconv_words` the weight words a block stages).
+Per-group input widths :data:`GROUP_WIDTHS`; the output width per group a
+multiple of 2. The plain version is ``F.conv2d(..., groups=)`` in float64.
 """
 
 from __future__ import annotations
@@ -36,11 +46,13 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from ._build import LAUNCHES, check, library, require_cuda_or_cpu, stream_of
+from ._build import (LAUNCHES, check, device_of, library,
+                     require_cuda_or_cpu, stream_of)
 
 __all__ = ["int8_conv", "int8_conv_reference", "plan", "plan_cost",
            "block_tile", "blocks", "smem_bytes", "kernel_info",
-           "instance_info", "TILES"]
+           "instance_info", "TILES", "GROUP_WIDTHS", "gconv_plan",
+           "gconv_items", "gconv_words", "gconv_info"]
 
 _RES_NONE, _RES_I8, _RES_I8_BF16, _RES_BF16 = 0, 1, 2, 3
 
@@ -105,6 +117,53 @@ def blocks(m: int, cout: int, tile: Tuple[int, int]) -> int:
     return -(-m // tile[0]) * -(-cout // tile[1])
 
 
+# Per-group input widths the grouped kernel is built for (those of every
+# ResNeXt, SE-ResNeXt and SENet of the zoo), and its pixels a block.
+GROUP_WIDTHS = (2, 4, 8, 16, 32)
+GCONV_PIXELS = 128
+
+
+@functools.lru_cache(maxsize=256)
+def gconv_plan(cout: int, groups: int) -> Tuple[int, int]:
+    """(bc, opt) of a grouped conv: the block's channels (whole groups, 64
+    or one group if wider, at most ``cout``) and the outputs a thread
+    (8, 4 or 2 consecutive channels of one group)."""
+    og = cout // groups
+    opt = next(o for o in (8, 4, 2) if og % o == 0)
+    return min(og * max(1, 64 // og), cout), opt
+
+
+def gconv_items(m: int, cout: int, groups: int) -> torch.Tensor:
+    """(pixel, first channel) of every thread item of a grouped conv of
+    ``m`` output pixels, in the kernel's order: block ``b`` takes pixels
+    ``b // n_tiles * 128`` on and channels ``b % n_tiles * bc`` on, item
+    ``i`` of a block the chunk ``i // 128`` (``opt`` channels) at pixel
+    ``i % 128``; items past ``m`` or ``cout`` do nothing and are left
+    out."""
+    bc, opt = gconv_plan(cout, groups)
+    n_tiles = -(-cout // bc)
+    n_blocks = -(-m // GCONV_PIXELS) * n_tiles
+    block = torch.arange(n_blocks)[:, None]
+    item = torch.arange(GCONV_PIXELS * (bc // opt))[None, :]
+    pixel = block // n_tiles * GCONV_PIXELS + item % GCONV_PIXELS
+    chan = block % n_tiles * bc + item // GCONV_PIXELS * opt
+    keep = (pixel < m) & (chan < cout)
+    return torch.stack([pixel[keep], chan[keep]], 1)
+
+
+def gconv_words(w: torch.Tensor) -> torch.Tensor:
+    """The int32 words a block stages for each output channel of ``w``
+    (Cout, k, k, cg): its k*k*cg bytes in (tap, channel) order, zero-padded
+    to a multiple of 4, little-endian (at cg = 2 a word holds two taps)."""
+    cout = w.shape[0]
+    flat = w.reshape(cout, -1)
+    pad = -flat.shape[1] % 4
+    b = torch.cat([flat, flat.new_zeros(cout, pad)], 1).to(torch.int64) & 255
+    b = b.reshape(cout, -1, 4)
+    word = b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24
+    return torch.where(word >= 2 ** 31, word - 2 ** 32, word).to(torch.int32)
+
+
 def _quant_i8(y: torch.Tensor, q: float) -> torch.Tensor:
     return torch.clamp(torch.round(y * q), -127.0, 127.0).to(torch.int8)
 
@@ -115,7 +174,7 @@ def int8_conv_reference(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
                         residual: Optional[torch.Tensor] = None,
                         res_scale: Optional[float] = None,
                         round_res: bool = False, dilation: int = 1,
-                        bend: bool = False
+                        bend: bool = False, groups: int = 1
                         ) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """Plain PyTorch version of K2. The conv runs in float64, which is exact
     (int8 sums stay far below 2**53; float32 is not: they pass 2**24)."""
@@ -123,7 +182,7 @@ def int8_conv_reference(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
     acc = F.conv2d(x.permute(0, 3, 1, 2).to(torch.float64),
                    w.permute(0, 3, 1, 2).to(torch.float64),
                    stride=stride, padding=dilation * (k // 2),
-                   dilation=dilation)
+                   dilation=dilation, groups=groups)
     acc = acc.to(torch.int32).permute(0, 2, 3, 1).contiguous()
     y = acc.to(torch.float32) * gain_a + bias_b
     if residual is None:
@@ -153,14 +212,12 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
               res_scale: Optional[float] = None, round_res: bool = False,
               groups: int = 1, dilation: int = 1, bend: bool = False
               ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """K2: ``x`` int8 (B, H, W, Cin) conv ``w`` int8 (Cout, k, k, Cin),
-    stride ``stride``, dilation ``dilation``, pad ``dilation * (k // 2)``,
-    then the epilogue in the module docstring. ``gain_a``/``bias_b``: f32
-    (Cout,). ``q``/``res_scale`` are float32 values. With ``bend``, returns
-    ``(out, y_bf16)``. CUDA tensors run the kernel, CPU tensors the plain
-    version."""
-    if groups != 1:
-        raise ValueError("int8_conv: grouped convs are not supported")
+    """K2: ``x`` int8 (B, H, W, Cin) conv ``w`` int8 (Cout, k, k, Cin /
+    groups), stride ``stride``, dilation ``dilation``, pad ``dilation * (k
+    // 2)``, then the epilogue in the module docstring. ``gain_a``/
+    ``bias_b``: f32 (Cout,). ``q``/``res_scale`` are float32 values. With
+    ``bend``, returns ``(out, y_bf16)``. CUDA tensors run the kernel (the
+    grouped kernel where ``groups > 1``), CPU tensors the plain version."""
     if dilation < 1:
         raise ValueError(f"int8_conv: dilation {dilation} must be >= 1")
     if x.dtype != torch.int8 or x.dim() != 4:
@@ -171,11 +228,19 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
                          f"{w.dtype} {tuple(w.shape)}")
     bsz, h, wd, cin = x.shape
     cout, k = w.shape[0], w.shape[1]
-    if w.shape[3] != cin:
-        raise ValueError(f"int8_conv: Cin mismatch x {cin} vs w {w.shape[3]}"
-                         " (grouped convs are not supported)")
-    if cin % 4 != 0:
+    if groups < 1 or w.shape[3] * groups != cin or cout % groups != 0:
+        raise ValueError(f"int8_conv: Cin mismatch x {cin} vs w "
+                         f"{w.shape[3]} x groups {groups}, or Cout {cout} "
+                         f"not a multiple of the groups (grouped convs "
+                         f"pass groups=)")
+    if groups == 1 and cin % 4 != 0:
         raise ValueError(f"int8_conv: Cin={cin} is not a multiple of 4")
+    if groups > 1 and (w.shape[3] not in GROUP_WIDTHS or
+                       (cout // groups) % 2 != 0):
+        raise ValueError(f"int8_conv: grouped conv of {cin // groups} input "
+                         f"and {cout // groups} output channels a group; the "
+                         f"kernel takes input widths {GROUP_WIDTHS} and even "
+                         f"output widths")
     if k % 2 != 1:
         raise ValueError(f"int8_conv: kernel size {k} must be odd")
     for v in (gain_a, bias_b):
@@ -202,16 +267,38 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
     if not require_cuda_or_cpu("int8_conv", *tensors):
         return int8_conv_reference(x, w, gain_a, bias_b, stride, relu, q,
                                    residual, res_scale, round_res, dilation,
-                                   bend)
+                                   bend, groups)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("int8_conv: inputs must be contiguous")
     m = bsz * ho * wo
     if m >= 2 ** 31 or x.numel() >= 2 ** 31:
         raise ValueError(f"int8_conv: {tuple(x.shape)} -> {m} pixels "
                          "exceeds the kernel's indexing")
+    if groups > 1:
+        if any(t is not None and t.data_ptr() % 16
+               for t in (x, w, residual)):
+            raise ValueError("int8_conv: a grouped conv's x, w and residual "
+                             "must be 16-byte aligned")
+        return _launch_grouped(x, w, gain_a, bias_b, stride, relu, q,
+                               residual, res_scale, res_mode, dilation, bend,
+                               groups)
     return _launch(x, w, gain_a, bias_b, stride, relu, q, residual,
                    res_scale, res_mode, dilation, bend,
                    plan(m, cout, cin, k))
+
+
+def _empty_outputs(x, w, stride, pad, dilation, q, bend):
+    """A conv's output (int8 with ``q``, else bf16) and, with ``bend``, its
+    bf16 twin, allocated on x's card."""
+    k = w.shape[1]
+    ho = (x.shape[1] + 2 * pad - dilation * (k - 1) - 1) // stride + 1
+    wo = (x.shape[2] + 2 * pad - dilation * (k - 1) - 1) // stride + 1
+    shape = (x.shape[0], ho, wo, w.shape[0])
+    out = torch.empty(shape, dtype=torch.int8 if q is not None
+                      else torch.bfloat16, device=x.device)
+    out_bf16 = torch.empty(shape, dtype=torch.bfloat16,
+                           device=x.device) if bend else None
+    return out, out_bf16
 
 
 def _launch(x, w, gain_a, bias_b, stride, relu, q, residual, res_scale,
@@ -222,15 +309,10 @@ def _launch(x, w, gain_a, bias_b, stride, relu, q, residual, res_scale,
     bsz, h, wd, cin = x.shape
     cout, k = w.shape[0], w.shape[1]
     pad = dilation * (k // 2)
-    ho = (h + 2 * pad - dilation * (k - 1) - 1) // stride + 1
-    wo = (wd + 2 * pad - dilation * (k - 1) - 1) // stride + 1
-    out = torch.empty((bsz, ho, wo, cout),
-                      dtype=torch.int8 if q is not None else torch.bfloat16,
-                      device=x.device)
-    out_bf16 = torch.empty((bsz, ho, wo, cout), dtype=torch.bfloat16,
-                           device=x.device) if bend else None
+    out, out_bf16 = _empty_outputs(x, w, stride, pad, dilation, q, bend)
+    ho, wo = out.shape[1], out.shape[2]
     lib = library()
-    with torch.cuda.device(x.device):
+    with device_of(x):
         check(lib.pcv_int8_conv(
             x.data_ptr(), w.data_ptr(), gain_a.data_ptr(), bias_b.data_ptr(),
             residual.data_ptr() if residual is not None else None,
@@ -241,6 +323,41 @@ def _launch(x, w, gain_a, bias_b, stride, relu, q, residual, res_scale,
             stream_of(x)), "int8_conv")
     LAUNCHES["int8_conv"] += 1
     return (out, out_bf16) if bend else out
+
+
+def _launch_grouped(x, w, gain_a, bias_b, stride, relu, q, residual,
+                    res_scale, res_mode, dilation, bend, groups):
+    """The grouped kernel on the card (checked operands)."""
+    bsz, h, wd, cin = x.shape
+    cout, k = w.shape[0], w.shape[1]
+    pad = dilation * (k // 2)
+    out, out_bf16 = _empty_outputs(x, w, stride, pad, dilation, q, bend)
+    ho, wo = out.shape[1], out.shape[2]
+    bc, opt = gconv_plan(cout, groups)
+    with device_of(x):
+        check(library().pcv_int8_gconv(
+            x.data_ptr(), w.data_ptr(), gain_a.data_ptr(), bias_b.data_ptr(),
+            residual.data_ptr() if residual is not None else None,
+            float(res_scale or 0.0), res_mode, int(relu), float(q or 0.0),
+            int(q is not None), out.data_ptr(),
+            out_bf16.data_ptr() if bend else None, bsz, h, wd, cin, ho, wo,
+            cout, k, stride, pad, dilation, groups, bc, opt, stream_of(x)),
+            "int8_conv (grouped)")
+    LAUNCHES["int8_gconv"] += 1
+    return (out, out_bf16) if bend else out
+
+
+def gconv_info(cout: int, cin: int, groups: int) -> dict:
+    """Registers a thread, spilled (local) bytes and static shared memory of
+    the grouped instance a conv of ``cout`` x ``cin`` channels in
+    ``groups`` groups launches, with its plan's ``bc`` and ``opt`` (needs
+    the card)."""
+    bc, opt = gconv_plan(cout, groups)
+    out = (ctypes.c_int * 3)()
+    check(library().pcv_int8_gconv_info(cin // groups, opt, out),
+          "int8_conv (grouped) info")
+    return dict(zip(("registers", "spill_bytes", "static_smem"), out),
+                bc=bc, opt=opt)
 
 
 def instance_info(bm: int, bn: int, vec16: bool) -> dict:

@@ -15,7 +15,7 @@ from .registry import register_model
 from .shell import ImageClassifier
 
 __all__ = ["ResBlock", "ResBottleneck", "ResUnit", "ResInitBlock",
-           "get_resnet"]
+           "classifier", "get_resnet"]
 
 
 class ResBlock(nn.Module):
@@ -103,26 +103,39 @@ class ResInitBlock(nn.Module):
         return self.pool(self.conv(x))
 
 
-def resnet(channels: Sequence[Sequence[int]], init_block_channels: int,
-           bottleneck: bool, conv1_stride: bool, in_channels: int = 3,
-           in_size: Tuple[int, int] = (224, 224),
-           num_classes: int = 1000) -> ImageClassifier:
-    layers = [("init_block", ResInitBlock(in_channels, init_block_channels))]
+def classifier(channels: Sequence[Sequence[int]], init_block_channels: int,
+               unit, in_channels: int = 3,
+               in_size: Tuple[int, int] = (224, 224), num_classes: int = 1000,
+               init_block=ResInitBlock, output=None) -> ImageClassifier:
+    """The residual classifier: ``init_block``, stages of ``unit(c_in,
+    c_out, stride, stage index)`` (stride 2 at the first unit of every
+    stage but the first), global average pool, ``output(c_in, classes)``
+    (default ``nn.Linear``). ResNet, SE-ResNet, ResNeXt, SE-ResNeXt and
+    SENet build on it."""
+    layers = [("init_block", init_block(in_channels, init_block_channels))]
     c_in = init_block_channels
     for i, stage_channels in enumerate(channels):
         units = []
         for j, c_out in enumerate(stage_channels):
             stride = 2 if j == 0 and i != 0 else 1
-            units.append((f"unit{j + 1}", ResUnit(c_in, c_out, stride,
-                                                  bottleneck, conv1_stride)))
+            units.append((f"unit{j + 1}", unit(c_in, c_out, stride, i)))
             c_in = c_out
         layers.append((f"stage{i + 1}", Sequential(units)))
     # Global average pool: the reference's AvgPool2d(7) at 224 input, and
     # shape-robust otherwise.
     layers.append(("final_pool", nn.AdaptiveAvgPool2d(1)))
-    return ImageClassifier(Sequential(layers), nn.Linear(c_in, num_classes),
-                           in_size=in_size, in_channels=in_channels,
-                           num_classes=num_classes)
+    head = nn.Linear(c_in, num_classes) if output is None else \
+        output(c_in, num_classes)
+    return ImageClassifier(Sequential(layers), head, in_size=in_size,
+                           in_channels=in_channels, num_classes=num_classes)
+
+
+def resnet(channels: Sequence[Sequence[int]], init_block_channels: int,
+           bottleneck: bool, conv1_stride: bool,
+           **kwargs) -> ImageClassifier:
+    def unit(c_in, c_out, stride, _stage):
+        return ResUnit(c_in, c_out, stride, bottleneck, conv1_stride)
+    return classifier(channels, init_block_channels, unit, **kwargs)
 
 
 _LAYERS = {

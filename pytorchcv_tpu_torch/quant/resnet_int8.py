@@ -9,10 +9,20 @@ with the same float32 roundings, so the int8 tensors match the JAX
 pipeline's bit for bit on the same weights and scales:
 
 * stem: planar bf16 image -> folded bf16 7x7/s2 conv, bias, ReLU, quant
-  (kernel K3), then the int8 3x3/s2 max-pool (``maxpool_i8``);
-* every unit conv: int8 conv with its ``_cell`` epilogue (kernel K2); the
-  unit's last conv also runs the bf16-domain residual tail (add, ReLU,
-  requantize to the next unit's scale, or bf16 after the last unit);
+  (kernel K3), then the int8 3x3/s2 max-pool (``maxpool_i8``); SENet's
+  deep stem: the folded bf16 3x3/s2 conv1 + quant on K3, int8 conv2 and
+  conv3 on K2, then ``maxpool_i8``;
+* every unit conv: int8 conv with its ``_cell`` epilogue (kernel K2;
+  ResNeXt's and SENet's grouped 3x3 on K2's grouped kernel, the stride
+  read from the model as everywhere); the unit's last conv also runs the
+  bf16-domain residual tail (add, ReLU, requantize to the next unit's
+  scale, or bf16 after the last unit);
+* SE units (SE-ResNet, SE-ResNeXt, SENet): the last conv writes bf16 (K2,
+  no tail), the gate is plain torch (``kernels.se_tail.se_gate``: f32 mean,
+  two products, ReLU, sigmoid; both the 1x1-conv and the dense
+  parameterization), and the tail (gate product, residual add, ReLU,
+  requantization) is kernel K11; the identity conv stays int8 at the next
+  unit's scale;
 * chain steps: each maximal run of consecutive units that K8 takes
   (``_chainable``: no identity conv, an int8 output, and a 1x1 / 3x3 / 1x1
   body with every stride 1 and widths K8 takes,
@@ -20,13 +30,16 @@ pipeline's bit for bit on the same weights and scales:
   arithmetic is the K2 chain's, so the logits do not change by a bit.
   Which units chain is decided here, once; at run time a chain step runs
   K8 or raises;
-* head: mean-pool and the FC layer in f32 (``torch.mean``, ``torch.matmul``).
+* head: mean-pool and the FC layer in f32 (``torch.mean``, ``torch.matmul``;
+  SENet's ``output.fc``).
 
 BN-less cells (the ImageNet WRN family: conv + bias, no norm) fold to gain
-``s_w`` and the conv's bias, as in the JAX package. Trees this pipeline does
-not walk (SE gates, the deep SENet stem, grouped convs) raise
+``s_w`` and the conv's bias, as in the JAX package. A unit with other
+branches than body, identity conv, SE gate and activation, or an SE gate
+with other activations than ReLU and sigmoid, raises
 ``UnsupportedTreeError``; the deep-stem, dilated segmentation trunk has its
-own pipeline, ``seg_backbone_int8``.
+own pipeline, ``seg_backbone_int8``. Not ported: the JAX ``q_residual``
+branch and ``int8_resnet_apply_fn``.
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ from ..kernels._build import f32 as _f32, no_tf32
 from ..kernels.fused_bottleneck import (fused_bottleneck_chain,
                                         pack_units, takes_unit)
 from ..kernels.int8_conv import int8_conv
+from ..kernels.se_tail import se_gate, se_tail
 from ..kernels.stem import maxpool_i8, stem_conv
 from ..nn.conv import ConvBlock
 
@@ -60,8 +74,6 @@ def _cell_consts(block: ConvBlock, path: str) -> Dict[str, torch.Tensor]:
     (WRN, reference wrn.py:12) folds to gain ``s_w`` and the conv's bias, or
     zeros (JAX ``_cell_consts``)."""
     conv, bn = block.conv, getattr(block, "bn", None)
-    if conv.groups != 1:
-        raise UnsupportedTreeError(f"{path}: grouped conv is not yet ported")
     if bn is not None and (bn.running_mean is None or
                            bn.running_var is None):
         raise ValueError(f"{path}: BatchNorm has no running statistics; "
@@ -72,7 +84,7 @@ def _cell_consts(block: ConvBlock, path: str) -> Dict[str, torch.Tensor]:
     wq = torch.clamp(torch.round(kernel / s_w[:, None, None, None]),
                      -127, 127).to(torch.int8).contiguous()
     cell = {"wq": wq, "stride": conv.stride[0],
-            "dilation": conv.dilation[0]}
+            "dilation": conv.dilation[0], "groups": conv.groups}
     if bn is None:
         bias = torch.zeros_like(s_w) if conv.bias is None else \
             conv.bias.detach().to(torch.float32)
@@ -85,15 +97,44 @@ def _cell_consts(block: ConvBlock, path: str) -> Dict[str, torch.Tensor]:
     return dict(cell, gain=s_w * g, bias=bias)
 
 
+def _se_consts(se: nn.Module, path: str) -> Dict[str, torch.Tensor]:
+    """An SE gate's two products as f32 {k1 (C, M), b1, k2 (M, C), b2}: 1x1
+    convs ``conv1``/``conv2`` or dense ``fc1``/``fc2`` (JAX ``_se_gate``),
+    between them ReLU, after them sigmoid."""
+    acts = (type(getattr(se, "activ", None)), type(getattr(se, "sigmoid",
+                                                             None)))
+    if acts != (nn.ReLU, nn.Sigmoid):
+        raise UnsupportedTreeError(f"{path}: SE gate with activations "
+                                   f"{acts}; the pipeline takes ReLU, "
+                                   f"sigmoid")
+    first, second = (("conv1", "conv2") if hasattr(se, "conv1")
+                     else ("fc1", "fc2"))
+    out = {}
+    for i, name in enumerate((first, second), start=1):
+        layer = getattr(se, name)
+        w = layer.weight.detach().to(torch.float32)
+        out[f"k{i}"] = w.reshape(w.shape[0], w.shape[1]).t().contiguous()
+        out[f"b{i}"] = layer.bias.detach().to(torch.float32)
+    return out
+
+
 def _quantize_tree(model: nn.Module) -> Dict:
-    """{"init_block": {"conv": cell}, "stageN": {"unitM": {"body": {convK:
-    cell}, ["identity_conv": cell]}}} for every conv cell of ``features``."""
+    """{"init_block": {"conv": cell} (or {"conv1", "conv2", "conv3"}: the
+    deep stem), "stageN": {"unitM": {"body": {convK: cell},
+    ["identity_conv": cell], ["se": gate]}}} for every conv cell of
+    ``features``."""
     f = model.features
-    if not hasattr(f, "init_block") or not isinstance(
-            getattr(f.init_block, "conv", None), ConvBlock):
-        raise UnsupportedTreeError("deep (3-conv) stem is not yet ported")
-    out = {"init_block": {"conv": _cell_consts(
-        f.init_block.conv, "features/init_block/conv")}}
+    ib = getattr(f, "init_block", None)
+    stem_names = ["conv"] if isinstance(getattr(ib, "conv", None),
+                                        ConvBlock) else ["conv1", "conv2",
+                                                         "conv3"]
+    if not all(isinstance(getattr(ib, n, None), ConvBlock)
+               for n in stem_names):
+        raise UnsupportedTreeError("features.init_block is neither a conv "
+                                   "block stem nor the deep 3-conv stem")
+    out = {"init_block": {n: _cell_consts(getattr(ib, n),
+                                          f"features/init_block/{n}")
+                          for n in stem_names}}
     for sname, stage in f.named_children():
         if not sname.startswith("stage"):
             continue
@@ -101,16 +142,18 @@ def _quantize_tree(model: nn.Module) -> Dict:
         for uname, unit in stage.named_children():
             prefix = f"features/{sname}/{uname}"
             if set(n for n, _ in unit.named_children()) - {
-                    "body", "identity_conv", "activ"}:
+                    "body", "identity_conv", "activ", "se"}:
                 raise UnsupportedTreeError(
-                    f"{prefix}: unit with extra branches (e.g. SE) is not "
-                    f"yet ported")
+                    f"{prefix}: unit with branches other than body, "
+                    f"identity conv and SE gate is not yet ported")
             body = {name: _cell_consts(blk, f"{prefix}/body/{name}")
                     for name, blk in unit.body.named_children()}
             uq = {"body": body}
             if unit.identity_conv is not None:
                 uq["identity_conv"] = _cell_consts(
                     unit.identity_conv, f"{prefix}/identity_conv")
+            if getattr(unit, "se", None) is not None:
+                uq["se"] = _se_consts(unit.se, f"{prefix}/se")
             out[sname][uname] = uq
     return out
 
@@ -138,14 +181,16 @@ def _conv_step(cell: Dict, s_in: float, relu: bool,
     return {"w": cell["wq"], "a": cell["gain"] * _f32(s_in / 127.0),
             "b": cell["bias"],
             "stride": cell["stride"] if stride is None else stride,
-            "dilation": cell.get("dilation", 1), "relu": relu,
+            "dilation": cell.get("dilation", 1),
+            "groups": cell.get("groups", 1), "relu": relu,
             "q": None if s_out is None else _f32(127.0 / s_out)}
 
 
 def _run_step(step: Dict, x: torch.Tensor, **tail) -> torch.Tensor:
     return int8_conv(x, step["w"], step["a"], step["b"], stride=step["stride"],
                      relu=step["relu"], q=step["q"],
-                     dilation=step["dilation"], **tail)
+                     dilation=step["dilation"], groups=step["groups"],
+                     **tail)
 
 
 def _cell(xq: torch.Tensor, s_in: float, cell: Dict, stride: int = 1,
@@ -166,7 +211,8 @@ def _planar_bf16(x: torch.Tensor) -> torch.Tensor:
 def _unit(u: Dict, xq: torch.Tensor, bend: bool = False):
     """One unit on K2: the body convs and the identity conv, then the last
     conv with the residual tail (int8 at the next unit's scale, or bf16
-    after the last unit); with ``bend`` also its bf16 value."""
+    after the last unit); with ``bend`` also its bf16 value. An SE unit's
+    last conv writes bf16 and K11 runs the tail with the gate."""
     ident = None
     if u["identity"] is not None:
         ident = _run_step(u["identity"], xq)
@@ -179,15 +225,22 @@ def _unit(u: Dict, xq: torch.Tensor, bend: bool = False):
         tail = dict(residual=ident, res_scale=u["res_scale"])
     else:
         tail = dict(residual=ident)
-    return _run_step(u["last"], t, bend=bend, **tail)
+    if "se" not in u:
+        return _run_step(u["last"], t, bend=bend, **tail)
+    if bend:
+        raise ValueError("an SE unit has no bend output")
+    t = _run_step(u["last"], t)
+    return se_tail(t, se_gate(t, **u["se"]), q=u["q"], **tail)
 
 
 def _forward(plan: Dict, x: torch.Tensor) -> torch.Tensor:
     """``x``: planar (B, 3, H, W) or NHWC (B, H, W, 3) model input ->
     bf16 logits (B, classes)."""
     st = plan["stem"]
-    xq = maxpool_i8(stem_conv(_planar_bf16(x), st["kf"], st["bias"],
-                              st["q"]))
+    xq = stem_conv(_planar_bf16(x), st["kf"], st["bias"], st["q"])
+    for step in plan["stem_convs"]:
+        xq = _run_step(step, xq)
+    xq = maxpool_i8(xq)
     out = None
     for u in plan["units"]:
         if "chain" in u:
@@ -222,7 +275,8 @@ def _unit_plan(uq: Dict, prefix: str, s_in: float, s_next: Optional[float],
     """K2 operands of one unit (``uq`` from ``_quantize_tree``): its input
     has amax ``s_in``, its output is requantized at ``s_next`` (bf16 when
     None). The identity conv writes int8 at ``s_next`` (the JAX default
-    ``q_identity=True``), or bf16 where no output scale exists."""
+    ``q_identity=True``), or bf16 where no output scale exists. An SE
+    unit's last conv writes bf16, and ``q`` is its tail's (K11's)."""
     names = sorted(uq["body"])          # conv1, conv2[, conv3]
     body = []
     s = s_in
@@ -230,21 +284,28 @@ def _unit_plan(uq: Dict, prefix: str, s_in: float, s_next: Optional[float],
         s_o = sc(f"{prefix}/{nxt_name}/conv")
         body.append(_conv_step(uq["body"][name], s, True, s_o))
         s = s_o
-    last = _conv_step(uq["body"][names[-1]], s, False, s_next)
+    se = uq.get("se")
+    last = _conv_step(uq["body"][names[-1]], s, False,
+                      None if se else s_next)
     ident, res_scale = None, _f32(s_in / 127.0)
     if "identity_conv" in uq:
         ident = _conv_step(uq["identity_conv"], s_in, False, s_next)
         res_scale = None if s_next is None else _f32(s_next / 127.0)
-    return {"body": body, "last": last, "identity": ident,
-            "res_scale": res_scale}
+    u = {"body": body, "last": last, "identity": ident,
+         "res_scale": res_scale}
+    if se:
+        u["se"] = se
+        u["q"] = None if s_next is None else _f32(127.0 / s_next)
+    return u
 
 
 def _chainable(uq: Dict, s_next: Optional[float]) -> bool:
     """Whether K8 takes this unit (``uq`` from ``_quantize_tree``): no
-    identity conv, an int8 output (``s_next`` given) and a body K8 takes
-    (``takes_unit``: 1x1 / 3x3 / 1x1, every stride 1, no dilation, C and
-    M within ``fits``). Grouped convs and SE raise at the tree walk."""
-    return ("identity_conv" not in uq and s_next is not None
+    identity conv, no SE gate, an int8 output (``s_next`` given) and a
+    body K8 takes (``takes_unit``: 1x1 / 3x3 / 1x1, every stride 1, no
+    dilation, no groups, C and M within ``fits``)."""
+    return ("identity_conv" not in uq and "se" not in uq
+            and s_next is not None
             and sorted(uq["body"]) == ["conv1", "conv2", "conv3"]
             and takes_unit(uq["body"]))
 
@@ -264,11 +325,24 @@ def prepare_int8_resnet(model: nn.Module, scales: Dict[str, float],
     with torch.no_grad():
         qf = _quantize_tree(model)
         s_u1 = sc("features/stage1/unit1/body/conv1/conv")
-        plan = {"stem": {"kf": _folded_stem_kernel(
-                             model.features.init_block.conv),
-                         "bias": qf["init_block"]["conv"]["bias"],
-                         "q": _f32(127.0 / s_u1)},
-                "units": []}
+        ib, qib = model.features.init_block, qf["init_block"]
+        if "conv" in qib:
+            plan = {"stem": {"kf": _folded_stem_kernel(ib.conv),
+                             "bias": qib["conv"]["bias"],
+                             "q": _f32(127.0 / s_u1)},
+                    "stem_convs": []}
+        else:
+            # SENet's deep stem (JAX _forward :234-250): K3 to conv2's
+            # scale, then conv2 and conv3 on K2.
+            s2 = sc("features/init_block/conv2/conv")
+            s3 = sc("features/init_block/conv3/conv")
+            plan = {"stem": {"kf": _folded_stem_kernel(ib.conv1),
+                             "bias": qib["conv1"]["bias"],
+                             "q": _f32(127.0 / s2)},
+                    "stem_convs": [
+                        _conv_step(qib["conv2"], s2, True, s3),
+                        _conv_step(qib["conv3"], s3, True, s_u1)]}
+        plan["units"] = []
         run, run_scales = [], []        # the pending chain and its scales
 
         def close_chain():
@@ -304,6 +378,8 @@ def prepare_int8_resnet(model: nn.Module, scales: Dict[str, float],
                     s_in = s_next
         close_chain()
         fc = model.output
+        if not isinstance(fc, nn.Linear):      # SENet nests it as fc
+            fc = fc.fc
         plan["head"] = {
             "kernel": fc.weight.t().to(torch.bfloat16).to(torch.float32)
             .contiguous(),

@@ -407,10 +407,144 @@ def test_int8_pipeline_on_cuda_matches_cpu(name, kw, n_convs, n_chained):
                         "deform_sample": 0, "dwconv": 0,
                         "window_attention": 0,
                         "fused_bottleneck": n_chained, "stem_int8": 0,
-                        "patch_window_sum": 0}
+                        "patch_window_sum": 0, "int8_gconv": 0,
+                        "se_tail": 0}
     cos = float(torch.nn.functional.cosine_similarity(
         y_gpu.flatten(), y_cpu.flatten(), dim=0))
     assert cos >= 0.9999, cos
+
+
+# ------------------------------------------- grouped K2, K11 (SE tails)
+
+def _k2_modes(rng, shape, dev):
+    """Every K2 epilogue: int8 and bf16 out with and without ReLU, and the
+    unit tail with each residual mode, one with the bend."""
+    res_i8 = _i8(rng, shape, dev)
+    res_bf = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    return [dict(relu=True, q=0.7), dict(relu=False, q=0.7),
+            dict(relu=True), dict(relu=False),
+            dict(relu=False, q=0.7, residual=res_i8, res_scale=0.01,
+                 round_res=True, bend=True),
+            dict(relu=False, q=0.7, residual=res_i8, res_scale=0.01),
+            dict(relu=False, residual=res_bf)]
+
+
+@pytest.mark.parametrize("cg,og,groups,stride,hw,bsz", [
+    (2, 2, 32, 1, (56, 56), 2), (2, 4, 32, 2, (28, 28), 2),
+    (4, 4, 32, 1, (28, 28), 2), (4, 8, 32, 2, (14, 14), 3),
+    (8, 8, 32, 2, (28, 28), 2), (8, 16, 32, 1, (14, 14), 2),
+    (16, 16, 32, 1, (14, 14), 2), (16, 32, 32, 2, (14, 14), 2),
+    (32, 32, 32, 1, (7, 7), 3), (32, 32, 64, 2, (14, 14), 1),
+    (2, 6, 5, 1, (9, 13), 3), (16, 16, 5, 2, (11, 7), 3),
+    (4, 2, 7, 1, (5, 6), 1)])
+def test_grouped_int8_conv_kernel_matches_plain(cg, og, groups, stride, hw,
+                                                bsz):
+    """The grouped K2 at every per-group width of the ResNeXt, SE-ResNeXt
+    and SENet paths (cg = og and og = 2 cg) and at ragged shapes (pixels
+    no block of 128 divides, channels no block of whole groups divides,
+    og 6 and 2), in every epilogue mode: bit-exact against the plain
+    version, counted under ``int8_gconv``."""
+    dev = _cuda()
+    rng = np.random.default_rng(cg * 1000 + og * 10 + groups)
+    cin, cout = cg * groups, og * groups
+    x = _i8(rng, (bsz, *hw, cin), dev)
+    w = _i8(rng, (cout, 3, 3, cg), dev)
+    a = torch.from_numpy(rng.uniform(2e-5, 2e-4, cout).astype(np.float32)
+                         ).to(dev)
+    b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(dev)
+    ho, wo = ((n + 2 - 3) // stride + 1 for n in hw)
+    for kw in _k2_modes(rng, (bsz, ho, wo, cout), dev):
+        reset_launch_counts()
+        got = int8_conv(x, w, a, b, stride, groups=groups, **kw)
+        assert LAUNCHES["int8_gconv"] == 1 and LAUNCHES["int8_conv"] == 0
+        ref = int8_conv_reference(x, w, a, b, stride, groups=groups, **kw)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for g_, r_ in zip(got, ref):
+            assert torch.equal(g_, r_), (kw.keys(), (g_.float() - r_.float())
+                                         .abs().max())
+
+
+def test_grouped_int8_conv_instances_spill_nothing():
+    """Every grouped instance (cg 2-32 x 2, 4 or 8 outputs a thread): no
+    local memory."""
+    from pytorchcv_tpu_torch.kernels import int8_conv as k2
+    _cuda()
+    for cg in k2.GROUP_WIDTHS:
+        for og in (2, 4, 8):
+            info = k2.gconv_info(og * 4, cg * 4, 4)
+            assert info["spill_bytes"] == 0 and info["opt"] == og, info
+
+
+@pytest.mark.parametrize("c,out_i8", [(256, True), (2048, False),
+                                      (36, True)])
+def test_se_tail_kernel_matches_plain(c, out_i8):
+    """K11 in every residual mode (int8 identity at the next scale, the
+    unit's own int8 input rounded to bf16, a bf16 identity), int8 and bf16
+    out, at C 36 (a thread an element) and on an unaligned view: bit-exact
+    against the plain version handed the same gate."""
+    from pytorchcv_tpu_torch.kernels.se_tail import (se_tail,
+                                                     se_tail_reference)
+    dev = _cuda()
+    rng = np.random.default_rng(c)
+    shape = (3, 7, 9, c)
+    t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 3
+                         ).to(dev, torch.bfloat16)
+    g = torch.from_numpy(rng.uniform(0, 1, (3, c)).astype(np.float32)
+                         ).to(dev)
+    q = 0.9 if out_i8 else None
+    res_i8 = _i8(rng, shape, dev)
+    res_bf = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                              ).to(dev, torch.bfloat16)
+    cases = [dict(residual=res_i8, res_scale=0.02),
+             dict(residual=res_i8, res_scale=0.02, round_res=True),
+             dict(residual=res_bf)]
+    for kw in cases:
+        reset_launch_counts()
+        got = se_tail(t, g, q=q, **kw)
+        assert LAUNCHES["se_tail"] == 1
+        ref = se_tail_reference(t, g, q=q, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), kw.keys()
+    flat = torch.empty(t.numel() + 1, dtype=torch.bfloat16, device=dev)
+    tv = flat[1:].view(shape)
+    tv.copy_(t)
+    assert torch.equal(se_tail(tv, g, q=q, **cases[0]),
+                       se_tail_reference(t, g, q=q, **cases[0]))
+
+
+@pytest.mark.parametrize("name", ["resnext14_32x2d", "seresnet10",
+                                  "senet16"])
+def test_se_group_pipeline_on_cuda_matches_cpu(name):
+    """The grouped, SE and deep-stem routes on the card against the CPU on
+    the same weights and scales: cosine >= 0.999, as the SE routes are
+    held against the JAX package (the gate's f32 mean sums in another
+    order on the card, and a gate one ulp apart moves a requantized value
+    a step); launches K2 + grouped K2 + K11 as the plan counts them, no
+    K8."""
+    dev = _cuda()
+    model = pt.get_model(name, in_size=(64, 64), device="cpu")
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn((2, 3, 64, 64), generator=g)
+    scales = calibrate_int8(model, [x])
+    infer, plan_cpu = prepare_int8_resnet(model, scales)
+    _, plan_gpu = prepare_int8_resnet(copy.deepcopy(model).to(dev), scales)
+    y_cpu = infer(plan_cpu, x.to(torch.bfloat16)).float()
+    reset_launch_counts()
+    y_gpu = infer(plan_gpu, x.to(dev, torch.bfloat16)).float().cpu()
+    steps = plan_cpu["stem_convs"] + [st for u in plan_cpu["units"] for st in
+                                      (u["body"] + [u["last"]] +
+                                       ([u["identity"]] if u["identity"]
+                                        else []))]
+    assert LAUNCHES["int8_gconv"] == sum(st["groups"] > 1 for st in steps)
+    assert LAUNCHES["int8_conv"] == sum(st["groups"] == 1 for st in steps)
+    assert LAUNCHES["se_tail"] == sum("se" in u for u in plan_cpu["units"])
+    assert LAUNCHES["fused_bottleneck"] == 0
+    cos = float(torch.nn.functional.cosine_similarity(
+        y_gpu.flatten(), y_cpu.flatten(), dim=0))
+    assert cos >= 0.999, cos
 
 
 def _deform_inputs(rng, h, w, c, g, rb, dev, center_std=6.0):
@@ -1030,7 +1164,8 @@ def test_int8_stem_kernel_spills_nothing():
 
 def test_patch_window_sum_kernel_matches_plain():
     """K10 at an n no tile of 80 divides, 96 channels, starts outside the
-    map (clamped by both)."""
+    map (clamped by both); 333 starts on 217 distinct windows: the table
+    and the gather, two launches."""
     from pytorchcv_tpu_torch.kernels.patch_probe import (
         patch_window_sum, patch_window_sum_reference)
     dev = _cuda()
@@ -1041,11 +1176,39 @@ def test_patch_window_sum_kernel_matches_plain():
     starts = starts.to(dev, torch.int32)
     reset_launch_counts()
     got = patch_window_sum(x, starts)
-    assert LAUNCHES["patch_window_sum"] == 1
+    assert LAUNCHES["patch_window_sum"] == 2
     ref = patch_window_sum_reference(x, starts)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
     assert err <= 1e-5 * float(ref.abs().max()), err
+
+
+@pytest.mark.parametrize("h,w,c,n,launches", [
+    (60, 128, 128, 6480, 2), (60, 128, 128, 500, 1), (23, 61, 40, 900, 2),
+    (12, 30, 20, 5, 1), (14, 33, 20, 200, 2)])
+def test_patch_window_sum_bit_equal_to_fixed_order(h, w, c, n, launches):
+    """K10 bit-equal to the fixed-order sum (rows outer, columns inner, f32
+    adds on the card): at the probe tool's shapes (6480 starts on 714
+    windows: table and gather), at n below the distinct windows (one
+    direct launch), and at C no 16-byte vector divides."""
+    from pytorchcv_tpu_torch.kernels.patch_probe import (
+        clamped_starts, patch_window_sum)
+    dev = _cuda()
+    g = torch.Generator().manual_seed(h * n)
+    x = torch.randn((h, w, c), generator=g).to(dev, torch.bfloat16)
+    starts = torch.stack([torch.randint(-3, h, (n,), generator=g),
+                          torch.randint(-9, w + 9, (n,), generator=g)],
+                         1).to(dev, torch.int32)
+    reset_launch_counts()
+    got = patch_window_sum(x, starts)
+    assert LAUNCHES["patch_window_sum"] == launches
+    sy, sx = clamped_starts(starts, h, w).unbind(1)
+    want = torch.zeros_like(got)
+    for r in range(10):
+        for q in range(24):
+            want = want + x.float()[sy + r, sx + q]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_resnet50_logits_with_and_without_chains_on_cuda():
