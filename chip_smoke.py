@@ -178,8 +178,14 @@ use (one nvcc per source, in parallel). Phases, each ending in
    K3 / ``maxpool_i8`` 1, K2 36 dense + 16 grouped, K11 16, K8 0; cosine
    >= 0.99 against the f32 reference forward; img/s at batch 128 and the
    device's idle share, each kernel beside its plain version and bound,
-   the grouped K2 per distinct conv (device ms, TOP/s, bound, cuDNN's bf16
-   grouped conv as a yardstick, registers, spills, shared memory);
+   the grouped K2 (int8 tensor cores over block-diagonal tiles) per
+   distinct conv: device ms launched again and again and after a write
+   that evicts L2, useful TOP/s, the tensor-core operations issued with
+   the block-diagonal zeros, bound, cuDNN's bf16 grouped conv as a
+   yardstick, the plan's tiles, registers, spills (any fails the run),
+   shared memory and blocks an SM; and the 16 grouped convs four ways: in
+   the forward under the profiler, replayed back to back (device time and
+   CUDA events), and conv by conv hot and after the flush;
 24. the ResNeXt-50 slice (``resnext50_32x4d``), as phase 23: K2 36 + 16,
    K11 0, the unit tails in K2;
 25. the SENet-16 slice (``senet16``: the deep stem on K3 3x3 and two K2
@@ -1184,31 +1190,57 @@ def _work_se_tail(calls):
     return _bound(nbytes, ops, "f32_add")
 
 
+def _gconv_args(a, k):
+    """A recorded grouped call's ``gconv_plan`` arguments."""
+    x, w = a[0], a[1]
+    return (*x.shape, w.shape[0], k["groups"], w.shape[1], k["stride"],
+            k.get("dilation", 1))
+
+
+def _gconv_ms(fn, launches: int, reps: int = 10):
+    """The grouped kernel's device ms a call of ``fn``, which launches it
+    ``launches`` times (``_parts.launch_ms``: the mean of the launches the
+    profiler recorded), the share of the launches recorded, and the calls'
+    ms by CUDA events."""
+    from pytorchcv_tpu_torch.kernels._parts import launch_ms
+    return launch_ms(fn, "int8_gconv_kernel", launches, reps)
+
+
 def _gconv_per_shape(card, tag, calls):
     """The grouped K2 at each distinct grouped conv of a path's recorded
-    calls: device ms (``torch.profiler``), useful TOP/s, bound, and cuDNN's
-    bf16 grouped conv on the same shape (channels-last, a yardstick: bf16
-    on the tensor cores, not the same function), the instance's registers,
-    spills (any fails the run) and shared memory. Returns the device and
-    cuDNN sums over the path's calls."""
+    calls: device ms (``torch.profiler``) launched again and again (its
+    input and weights left in L2 by the launch before) and after a 256 MB
+    write that evicts L2, useful TOP/s, the tensor-core operations issued
+    (zeros included), bound, cuDNN's bf16 grouped conv on the same shape
+    (channels-last, a yardstick: bf16 on the tensor cores, not the same
+    function), the plan's tiles, the instance's registers, spills (any
+    fails the run) and shared memory, and the share of the launches the
+    profiler recorded (``_gconv_ms`` averages over those). Returns the
+    device sums over the path's calls (hot, after the flush) and
+    cuDNN's."""
     import torch.nn.functional as F
-    from pytorchcv_tpu_torch.kernels.int8_conv import gconv_info, int8_conv
+    from pytorchcv_tpu_torch.kernels.int8_conv import (gconv_info,
+                                                       gconv_issued_ops,
+                                                       gconv_plan, int8_conv)
     seen = {}
     for a, k, out in calls:
         key = _conv_key(a, k)
         if key not in seen:
             seen[key] = [a, k, out, 0]
         seen[key][3] += 1
-    device_sum = lib_sum = 0.0
+    flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+    hot_sum = cold_sum = lib_sum = 0.0
     for key, (a, k, out, count) in sorted(seen.items()):
         x, w = a[0], a[1]
         o = out[0] if isinstance(out, tuple) else out
-        kernels, _, wall, _ = _device_kernels(lambda: int8_conv(*a, **k), 10)
-        ms = sum(v for n, v in kernels.items() if "int8_gconv_kernel" in n)
-        if ms == 0.0:
+        hot, seen_hot, wall = _gconv_ms(lambda: int8_conv(*a, **k), 1)
+        cold, seen_cold, _ = _gconv_ms(
+            lambda: (flush.fill_(1), int8_conv(*a, **k)), 1)
+        share = min(seen_hot, seen_cold)
+        if hot is None or cold is None:
             print(f"[{card}] {tag} grouped K2: the profiler saw no device "
                   f"time; CUDA events instead")
-            ms = wall
+            hot = cold = wall
         ops = 2 * o.numel() * w.shape[1] * w.shape[2] * w.shape[3]
         bound = _work_convs([(a, k, out)])
         xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
@@ -1217,23 +1249,35 @@ def _gconv_per_shape(card, tag, calls):
         lib = _cuda_ms(lambda: F.conv2d(xb, wb, stride=k["stride"],
                                         padding=w.shape[1] // 2,
                                         groups=k["groups"]), 10)
-        info = gconv_info(w.shape[0], x.shape[3], k["groups"])
+        plan = gconv_plan(*_gconv_args(a, k))
+        issued = gconv_issued_ops(*_gconv_args(a, k), plan)
+        info = gconv_info(plan)
         print(f"[{card}] {tag} grouped K2 k={key[0]} s={key[1]} cin={key[3]} "
               f"cout={key[4]} groups={k['groups']} h={key[5]} {key[6]} "
-              f"(x{count}): {ms:.4f} ms on the device ({wall:.4f} back to "
-              f"back), {ops / ms / 1e9:.1f} TOP/s, bound {bound[0]:.4f} ms "
-              f"({bound[1]}); cuDNN bf16 grouped conv {lib:.4f} ms (a "
-              f"yardstick, not the same function); {info['bc']} channels x "
-              f"128 pixels a block, {info['opt']} outputs a thread, "
-              f"{info['registers']} registers, {info['spill_bytes']} bytes "
-              f"spilled, shared {info['static_smem']} static bytes")
+              f"(x{count}): {hot:.4f} ms on the device launched again and "
+              f"again, {cold:.4f} after an L2 flush ({wall:.4f} back to "
+              f"back), {ops / cold / 1e9:.1f} useful TOP/s, "
+              f"{issued / 1e9:.2f} G "
+              f"tensor-core operations issued for {ops / 1e9:.2f} G useful "
+              f"({issued / ops:.2f}x), bound {bound[0]:.4f} ms ({bound[1]}); "
+              f"cuDNN bf16 grouped conv {lib:.4f} ms (a yardstick, not the "
+              f"same function); tile {plan.bm}x{plan.bn} (u {plan.u}), "
+              f"spatial {plan.imgs}x{plan.th}x{plan.tw}, {plan.ch} k32 "
+              f"chunks, {info['registers']} registers, {info['spill_bytes']} "
+              f"bytes spilled, shared {info['static_smem']} static + "
+              f"{info['dynamic_smem']} dynamic bytes, "
+              f"{info['blocks_per_sm']} blocks an SM; the profiler recorded "
+              f">= {100 * share:.0f} % of the launches")
         _require(info["spill_bytes"] == 0, f"{tag} grouped K2 spills at {key}")
-        device_sum += count * ms
+        hot_sum += count * hot
+        cold_sum += count * cold
         lib_sum += count * lib
+    del flush
     print(f"[{card}] {tag} grouped K2 on the device, the {len(calls)} grouped "
-          f"convs of a forward: {device_sum:.4f} ms; cuDNN bf16 on the same "
-          f"shapes {lib_sum:.4f} ms")
-    return device_sum, lib_sum
+          f"convs of a forward conv by conv: {hot_sum:.4f} ms launched again "
+          f"and again, {cold_sum:.4f} ms after an L2 flush; cuDNN bf16 on the "
+          f"same shapes {lib_sum:.4f} ms")
+    return hot_sum, cold_sum, lib_sum
 
 
 def _tame_se_gates(model: torch.nn.Module) -> None:
@@ -1339,7 +1383,7 @@ def _se_group_route(card, record, name: str) -> None:
         dense = [c for c in calls_t["int8_conv"] if c[1]["groups"] == 1]
         grouped = [c for c in calls_t["int8_conv"] if c[1]["groups"] > 1]
         k2_lib = _k2_per_shape(card, name, dense)
-        _, gconv_lib = _gconv_per_shape(card, name, grouped)
+        hot, cold, gconv_lib = _gconv_per_shape(card, name, grouped)
         for kname, cs, lib in (("int8_conv", dense, k2_lib),
                                ("int8_gconv", grouped, gconv_lib)):
             ops = [(a, k) for a, k, _ in cs]
@@ -1348,6 +1392,21 @@ def _se_group_route(card, record, name: str) -> None:
                 _cuda_ms(lambda: [int8_conv_reference(*a, **k)
                                   for a, k in ops], 1, warmup=1),
                 lib, _work_convs(cs))
+        gops = [(a, k) for a, k, _ in grouped]
+        fwd, seen_fwd, _ = _gconv_ms(lambda: serve(raw_t), len(gops), 3)
+        seq, seen_seq, _ = _gconv_ms(
+            lambda: [int8_conv(*a, **k) for a, k in gops], len(gops), 3)
+        _require(fwd is not None and seq is not None,
+                 f"{name}: the profiler recorded no grouped K2 launch")
+        print(f"[{card}] {name} grouped K2, the {len(gops)} grouped convs of "
+              f"a batch-{batch_time} forward four ways: {fwd:.4f} ms on the "
+              f"device in the forward (profiler, {100 * seen_fwd:.0f} % of "
+              f"the launches recorded), {seq:.4f} ms on the device replayed "
+              f"back to back ({100 * seen_seq:.0f} %; "
+              f"{t['int8_gconv'][0]:.4f} ms by CUDA events), conv by conv "
+              f"{cold:.4f} ms after an L2 flush and {hot:.4f} ms launched "
+              f"again and again (the input and weights the launch before "
+              f"left in L2)")
         se_calls = [(a, k) for a, k, _ in calls_t["se_tail"]]
         if se_calls:
             t["se_tail"] = (
@@ -1370,7 +1429,7 @@ def _se_group_route(card, record, name: str) -> None:
                                "pytorchcv_tpu/quant/resnet_int8.py:261"),
                 "int8_conv": ("int8_conv.cu",
                               "pytorchcv_tpu/quant/resnet_int8.py:66"),
-                "int8_gconv": ("int8_conv.cu",
+                "int8_gconv": ("int8_gconv.cu",
                                "pytorchcv_tpu/quant/resnet_int8.py:58"),
                 "se_tail": ("se_tail.cu",
                             "pytorchcv_tpu/quant/resnet_int8.py:359")}

@@ -47,8 +47,8 @@ _SIGNATURES = {
     + [_I] * 12 + [_P, _I, _I, _P],
     "pcv_int8_conv_info": [_I, _I, _I, _P],
     "pcv_int8_gconv": [_P, _P, _P, _P, _P, _F, _I, _I, _F, _I, _P, _P]
-    + [_I] * 14 + [_P],
-    "pcv_int8_gconv_info": [_I, _I, _P],
+    + [_I] * 20 + [_P],
+    "pcv_int8_gconv_info": [_I, _I, _I, _I, _P],
     "pcv_stem": [_P, _P, _P, _F, _I, _P] + [_I] * 7 + [_P],
     "pcv_stem_info": [_I] * 4 + [_P],
     "pcv_maxpool_i8": [_P, _P] + [_I] * 8 + [_P],

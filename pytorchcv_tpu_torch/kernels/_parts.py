@@ -1,8 +1,10 @@
 """What the kernels' timing tools share (``flash_attention_parts``,
 ``fused_bottleneck_parts``, ``fused_bottleneck_plans``, ``dwconv_plans``,
-``dwconv_parts``): the card's name and power limit, its memory rate, an
-nvcc build of variants of a kernel's source, a CUDA-event timer and a
-device-time reading. Each needs one CUDA card; ``build`` needs nvcc too.
+``dwconv_parts``, ``int8_conv_plans``, ``int8_gconv_parts``, and
+``chip_smoke.py``'s grouped K2 phases): the card's name and power limit,
+its memory rate, an nvcc build of variants of a kernel's source, a
+CUDA-event timer and device-time readings. Each needs one CUDA card;
+``build`` needs nvcc too.
 """
 
 from __future__ import annotations
@@ -81,3 +83,32 @@ def device_ms(fn: Callable[[], None], name: str, reps: int = 10) -> float:
     events = cuda_ms(fn, 2 * reps)
     dev = sum(t) / 1e3 / reps if t else 0.0
     return dev if dev >= 0.5 * events else events
+
+
+def launch_ms(fn: Callable[[], None], name: str, launches: int = 1,
+              reps: int = 10, tries: int = 3):
+    """(ms, share, events ms) of a call of ``fn``, which launches kernels
+    whose name holds ``name`` ``launches`` times: the mean device time of
+    the launches ``torch.profiler`` recorded, times ``launches`` (in a short
+    window it may record fewer launches than ran, so a sum divided by the
+    launches run reads low), or None where it recorded none in ``tries``
+    windows; the share of the launches run that it recorded; and the
+    profiled calls' ms a call by CUDA events. One warm-up call first."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ev[0].record()
+            for _ in range(reps):
+                fn()
+            ev[1].record()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages() if name in e.key]
+        n = sum(e.count for e in seen)
+        if n:
+            t = sum(e.self_device_time_total for e in seen) / 1e3
+            return (t / n * launches, n / (reps * launches),
+                    ev[0].elapsed_time(ev[1]) / reps)
+    return None, 0.0, ev[0].elapsed_time(ev[1]) / reps

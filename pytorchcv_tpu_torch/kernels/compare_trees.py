@@ -1,6 +1,10 @@
 """Two trees of the port on one card, in turns: K2 (the int8 convs of one
 forward), K3 (the stem), ``maxpool_i8`` and serving throughput of int8
-resnet50 and wrn50_2 at batch 128 and int8 DANet at batch 8; bf16
+resnet50 and wrn50_2 at batch 128 and int8 DANet at batch 8; int8
+resnext50_32x4d serving at batch 128 and senet16 at batch 32 with their
+16 and 4 grouped K2 convs timed four ways (on the device in the forward;
+replayed back to back; conv by conv launched again and again, and after
+a write that evicts L2); bf16
 efficientnet_b0 serving at batch 128 and K6 (its 16 depthwise calls of
 one forward, back to back); ProPainter RFC's
 completed-flow frames/s over a 160-frame 240x432 clip and K5 a call at
@@ -13,8 +17,8 @@ batch 128:
 Each TREE is the root of a checkout of the repository (for example the
 parent commit's ``git archive`` unpacked into a git-ignored directory, and
 ``.``). PATHs pick what to measure, of ``resnet50``, ``wrn50_2``,
-``danet``, ``efficientnet_b0``, ``rfc``, ``propainter`` and ``stem_int8``
-(default: all). The
+``danet``, ``resnext50_32x4d``, ``senet16``, ``efficientnet_b0``,
+``rfc``, ``propainter`` and ``stem_int8`` (default: all). The
 trees run in the order A, B, B, A, each in a process of its own that
 imports ``pytorchcv_tpu_torch`` from that tree and builds its kernels
 there, so the two versions share the card, its clocks and its neighbours;
@@ -32,8 +36,9 @@ import time
 from pathlib import Path
 
 SEG = "danet_resnetd50b_cityscapes"
-PATHS = ("resnet50", "wrn50_2", "danet", "efficientnet_b0", "rfc",
-         "propainter", "stem_int8")
+PATHS = ("resnet50", "wrn50_2", "danet", "resnext50_32x4d", "senet16",
+         "efficientnet_b0", "rfc", "propainter", "stem_int8")
+GROUPED = {"resnext50_32x4d": 128, "senet16": 32}   # path: batch
 _SMOKE = Path(__file__).resolve().parents[2] / "chip_smoke.py"
 
 
@@ -127,6 +132,78 @@ def _stem_int8(torch, out: dict) -> None:
     out["stem_int8"] = {"k9_ms": ms}
 
 
+def _kernel_ms(torch, fn, name, launches, reps=10):
+    """Device ms a call of ``fn``, which launches kernels whose name holds
+    ``name`` ``launches`` times: the mean over the launches
+    ``torch.profiler`` recorded (it may record fewer than ran) times
+    ``launches``, after one warm-up call; profiled again where it recorded
+    none, up to 3 times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages() if name in e.key]
+        n = sum(e.count for e in seen)
+        if n:
+            return sum(e.self_device_time_total for e in seen) / 1e3 / n * \
+                launches
+    raise RuntimeError(f"the profiler saw no {name} on the device")
+
+
+def _grouped(torch, pt, rq, out: dict, path: str) -> None:
+    """int8 serving of ``path`` at its batch of ``GROUPED`` (256x256
+    frames) and its grouped K2 calls four ways: on the device in the
+    forward, replayed back to back (CUDA events and device time), conv by
+    conv (each distinct conv launched 10 times, times its count) with the
+    input and weights the launch before left in L2, and after a 256 MB
+    write that evicts L2."""
+    name, bsz = "int8_gconv_kernel", GROUPED[path]
+    model = pt.get_model(path, rng=0, device="cuda")
+    serve = pt.make_serving_fn(path, (256, 256), device="cuda", model=model)
+    g = torch.Generator().manual_seed(3)
+    raw = torch.randint(0, 256, (bsz, 256, 256, 3), generator=g,
+                        dtype=torch.uint8).cuda()
+    calls, orig = [], rq.int8_conv
+
+    def rec(*a, **k):
+        if k.get("groups", 1) > 1:
+            calls.append((a, k))
+        return orig(*a, **k)
+    flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+    with torch.inference_mode():
+        rq.int8_conv = rec
+        try:
+            serve(raw)
+        finally:
+            rq.int8_conv = orig
+        torch.cuda.synchronize()
+        ms = _cuda_ms(torch, lambda: serve(raw), 10, warmup=3)
+        fwd = _kernel_ms(torch, lambda: serve(raw), name, len(calls), 3)
+        seq = _cuda_ms(torch, lambda: [orig(*a, **k) for a, k in calls], 10)
+        seq_dev = _kernel_ms(torch, lambda: [orig(*a, **k)
+                                             for a, k in calls], name,
+                             len(calls), 3)
+        distinct = {}
+        for a, k in calls:
+            key = (tuple(a[0].shape), tuple(a[1].shape), k["stride"])
+            distinct.setdefault(key, [a, k, 0])[2] += 1
+        hot = cold = 0.0
+        for a, k, n in distinct.values():
+            hot += n * _kernel_ms(torch, lambda: orig(*a, **k), name, 1)
+            cold += n * _kernel_ms(torch, lambda: (flush.fill_(1),
+                                                   orig(*a, **k)), name, 1)
+    out[path] = {
+        "serve_ms": ms, "per_s": bsz * 1000.0 / ms, "gconv_calls": len(calls),
+        "gconv_fwd_ms": fwd, "gconv_seq_ms": seq, "gconv_seq_dev_ms": seq_dev,
+        "gconv_hot_ms": hot, "gconv_flushed_ms": cold}
+    del model, serve, raw, calls, flush
+    torch.cuda.empty_cache()
+
+
 def _effnet(torch, pt, out: dict) -> None:
     """bf16 efficientnet_b0 serving at batch 128 (256x256 frames) and its
     16 K6 calls of one forward, back to back."""
@@ -178,6 +255,9 @@ def _measure(tree: str, paths) -> dict:
         _stem_int8(torch, out)
     if "efficientnet_b0" in paths:
         _effnet(torch, pt, out)
+    for path in GROUPED:
+        if path in paths:
+            _grouped(torch, pt, rq, out, path)
     g = torch.Generator().manual_seed(3)
     for name, hw, bsz, task, stem_mod in (
             ("resnet50", (256, 256), 128, "classification", rq),
@@ -254,6 +334,18 @@ def main() -> None:
                       f"({r['k2_calls']} calls) {r['k2_ms']:.4f} ms, K3 "
                       f"{r['k3_ms']:.4f} ms, maxpool_i8 {r['pool_ms']:.4f} "
                       f"ms")
+        for path in GROUPED:
+            if path not in res:
+                continue
+            r = res[path]
+            print(f"[{card}] {label} ({trees[label]}) {path}: "
+                  f"serving {r['serve_ms']:.3f} ms = {r['per_s']:.1f} /s; "
+                  f"grouped K2 ({r['gconv_calls']} calls) "
+                  f"{r['gconv_fwd_ms']:.4f} ms on the device in the forward, "
+                  f"{r['gconv_seq_dev_ms']:.4f} on the device back to back "
+                  f"({r['gconv_seq_ms']:.4f} by CUDA events), conv by conv "
+                  f"{r['gconv_hot_ms']:.4f} launched again and again, "
+                  f"{r['gconv_flushed_ms']:.4f} after an L2 flush")
         if "efficientnet_b0" in res:
             r = res["efficientnet_b0"]
             print(f"[{card}] {label} ({trees[label]}) efficientnet_b0: "

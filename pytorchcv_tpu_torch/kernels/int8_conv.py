@@ -27,21 +27,25 @@ The kernel computes an output tile of BM pixels x BN channels a block;
 a block to its tile as the kernel does.
 
 A grouped conv (``groups > 1``, ``w`` of shape (Cout, k, k, Cin / groups):
-ResNeXt's and SENet's grouped 3x3) runs the grouped kernel of the same
-source, ``__dp4a`` products on the CUDA cores with the same epilogue: a
-block takes 128 pixels x :func:`gconv_plan`'s channels (whole groups), a
-thread ``opt`` outputs of one group at one pixel, reading only that
-group's input channels (:func:`gconv_items` lists the (pixel, channel)
-each thread takes, :func:`gconv_words` the weight words a block stages).
-Per-group input widths :data:`GROUP_WIDTHS`; the output width per group a
-multiple of 2. The plain version is ``F.conv2d(..., groups=)`` in float64.
+ResNeXt's and SENet's grouped 3x3) runs the grouped kernel
+(``csrc/int8_gconv.cu``, the same epilogue): an implicit GEMM on the int8
+tensor cores over block-diagonal tiles. A block owns a channel tile and
+walks spatial tiles, each with its input halo in shared memory, one slab
+per channel window (window-major); every n8 tile of output channels meets
+only its groups' window, packed (tap, 8-byte piece) into k32 chunks.
+:func:`gconv_plan` picks the block tile and the spatial tile per conv
+(:func:`gconv_cost`), and
+:func:`gconv_tables` builds a block's B fragments and halo offsets as the
+kernel does (the CPU emulation test reads it). Per-group input widths
+:data:`GROUP_WIDTHS`; the output width per group a multiple of 2. The
+plain version is ``F.conv2d(..., groups=)`` in float64.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -51,8 +55,10 @@ from ._build import (LAUNCHES, check, device_of, library,
 
 __all__ = ["int8_conv", "int8_conv_reference", "plan", "plan_cost",
            "block_tile", "blocks", "smem_bytes", "kernel_info",
-           "instance_info", "TILES", "GROUP_WIDTHS", "gconv_plan",
-           "gconv_items", "gconv_words", "gconv_info"]
+           "instance_info", "TILES", "GROUP_WIDTHS", "GCONV_TILES",
+           "GPlan", "gconv_plan", "gconv_tile", "gconv_cost",
+           "gconv_window", "gconv_spatial_tiles", "gconv_tables",
+           "gconv_issued_ops", "gconv_info"]
 
 _RES_NONE, _RES_I8, _RES_I8_BF16, _RES_BF16 = 0, 1, 2, 3
 
@@ -118,50 +124,216 @@ def blocks(m: int, cout: int, tile: Tuple[int, int]) -> int:
 
 
 # Per-group input widths the grouped kernel is built for (those of every
-# ResNeXt, SE-ResNeXt and SENet of the zoo), and its pixels a block.
+# ResNeXt, SE-ResNeXt and SENet of the zoo).
 GROUP_WIDTHS = (2, 4, 8, 16, 32)
-GCONV_PIXELS = 128
+# Block tiles (pixel rows, output channels) of the grouped kernel.
+GCONV_TILES: Tuple[Tuple[int, int], ...] = ((128, 128), (128, 64), (64, 128),
+                                            (64, 64))
+_SMEM_MAX = 227 * 1024         # dynamic shared bytes a block may take
+_SMEM_SM = 228 * 1024          # an SM's shared memory (1 KB a block reserved)
+# The grouped cost model's clocks (an estimate for the H100, relative): a
+# 128-byte wavefront of A's shared loads (_LDS_CLK; two 64-bit loads, four
+# wavefronts, an m16 tile) and a m16n8k32 mma (_GMMA_CLK) per SM,
+# the halo's bytes from L2 (_HALO_BYTES_CLK a clock per SM), the epilogue
+# per 128 x 128 outputs (_EPI_CLK) and _FIXED per spatial tile; a second
+# block on an SM hides a share _OVERLAP of the first's time.
+_LDS_CLK = 1.0
+_GMMA_CLK = 0.5
+_HALO_BYTES_CLK = 32
+_OVERLAP = 0.35
 
 
-@functools.lru_cache(maxsize=256)
-def gconv_plan(cout: int, groups: int) -> Tuple[int, int]:
-    """(bc, opt) of a grouped conv: the block's channels (whole groups, 64
-    or one group if wider, at most ``cout``) and the outputs a thread
-    (8, 4 or 2 consecutive channels of one group)."""
-    og = cout // groups
-    opt = next(o for o in (8, 4, 2) if og % o == 0)
-    return min(og * max(1, 64 // og), cout), opt
+class GPlan(NamedTuple):
+    """A grouped conv's plan: block tile ``bm`` pixel rows x ``bn`` output
+    channels, runs of ``u`` n8 tiles sharing a window, spatial tile
+    ``imgs`` images x ``th`` output rows x ``tw`` columns, the halo's copy
+    width ``vec`` bytes, ``wb`` window bytes a pixel (each n8 tile's input
+    channels from its run's first group, down to a multiple of 4), ``ch``
+    k32 chunks, the halo's ``hr`` x ``hc`` pixels an image, a slab's stride
+    ``slab`` bytes, the dynamic shared bytes ``smem`` and the blocks an SM
+    holds by it."""
+    bm: int
+    bn: int
+    u: int
+    imgs: int
+    th: int
+    tw: int
+    vec: int
+    wb: int
+    ch: int
+    hr: int
+    hc: int
+    slab: int
+    smem: int
+    per_sm: int
 
 
-def gconv_items(m: int, cout: int, groups: int) -> torch.Tensor:
-    """(pixel, first channel) of every thread item of a grouped conv of
-    ``m`` output pixels, in the kernel's order: block ``b`` takes pixels
-    ``b // n_tiles * 128`` on and channels ``b % n_tiles * bc`` on, item
-    ``i`` of a block the chunk ``i // 128`` (``opt`` channels) at pixel
-    ``i % 128``; items past ``m`` or ``cout`` do nothing and are left
-    out."""
-    bc, opt = gconv_plan(cout, groups)
-    n_tiles = -(-cout // bc)
-    n_blocks = -(-m // GCONV_PIXELS) * n_tiles
-    block = torch.arange(n_blocks)[:, None]
-    item = torch.arange(GCONV_PIXELS * (bc // opt))[None, :]
-    pixel = block // n_tiles * GCONV_PIXELS + item % GCONV_PIXELS
-    chan = block % n_tiles * bc + item // GCONV_PIXELS * opt
-    keep = (pixel < m) & (chan < cout)
-    return torch.stack([pixel[keep], chan[keep]], 1)
+def _out_hw(h: int, w: int, k: int, stride: int, dilation: int):
+    pad = dilation * (k // 2)
+    return ((h + 2 * pad - dilation * (k - 1) - 1) // stride + 1,
+            (w + 2 * pad - dilation * (k - 1) - 1) // stride + 1)
 
 
-def gconv_words(w: torch.Tensor) -> torch.Tensor:
-    """The int32 words a block stages for each output channel of ``w``
-    (Cout, k, k, cg): its k*k*cg bytes in (tap, channel) order, zero-padded
-    to a multiple of 4, little-endian (at cg = 2 a word holds two taps)."""
+def gconv_window(n0: int, nj: int, cout: int, groups: int, cin: int,
+                 u: int) -> Tuple[int, int]:
+    """(lo, hi) of n8 tile ``nj`` (its first output channel) in the block
+    of channel tile ``n0`` under runs of ``u`` tiles: its run's window
+    starts at the run's first group's channel, down to a multiple of 4
+    (``lo``); the tile's groups end at channel ``hi`` (the window check in
+    ``csrc/int8_gconv.cu``)."""
+    cg, og = cin // groups, cout // groups
+    run = n0 + (nj - n0) // (8 * u) * 8 * u
+    return run // og * cg & ~3, ((min(nj + 8, cout) - 1) // og + 1) * cg
+
+
+def slab_bytes(pixels: int, wb: int) -> int:
+    """A halo slab's stride (``slab_bytes`` in ``csrc/int8_gconv.cu``):
+    ``pixels`` windows of ``wb`` bytes, padded to 16 bytes past a multiple
+    of 128."""
+    return (pixels * wb + 111) // 128 * 128 + 16
+
+
+@functools.lru_cache(maxsize=1024)
+def gconv_tile(bsz: int, h: int, w: int, cin: int, cout: int, groups: int,
+               k: int, stride: int, dilation: int, bm: int,
+               bn: int) -> Optional[GPlan]:
+    """The plan of a grouped conv under block tile ``bm`` x ``bn``, or None
+    where its shared memory exceeds a block's. The spatial tile is whole
+    images where one fits ``bm`` pixels, else whole rows, else a part of a
+    row; n8 tiles of one group share A (og a multiple of 8 u); the window
+    is the widest any n8 tile needs, in 8-byte pieces, copied in the widest
+    of 16, 8 and 4 bytes every window start and Cin allow (bytes where Cin
+    is not a multiple of 4). Cached: a forced tile's launch asks on every
+    call."""
+    ho, wo = _out_hw(h, w, k, stride, dilation)
+    cg, og = cin // groups, cout // groups
+    tw = min(wo, bm)
+    th = min(ho, bm // tw)
+    imgs = min(bsz, bm // (th * tw)) if th == ho and tw == wo else 1
+    u = next(u for u in (4, 2, 1)
+             if u == 1 or (og % (8 * u) == 0 and bn % og == 0))
+    los, need = set(), 8
+    for n0 in range(0, cout, bn):
+        for nj in range(n0, min(n0 + bn, cout), 8):
+            lo, hi = gconv_window(n0, nj, cout, groups, cin, u)
+            los.add(lo)
+            need = max(need, hi - lo)
+    wb = -(-need // 8) * 8
+    vec = 1 if cin % 4 else next(
+        v for v in (16, 8, 4)
+        if wb % v == 0 and cin % v == 0 and all(lo % v == 0 for lo in los))
+    group = bn // 8 // u * (wb // vec)
+    ch = -(-k * k * (wb // 8) // 4)
+    hr = (th - 1) * stride + (k - 1) * dilation + 1
+    hc = (tw - 1) * stride + (k - 1) * dilation + 1
+    slab = slab_bytes(imgs * hr * hc, wb)
+    # the weight rows with each piece's tap and each output's group
+    rows = -(-bn * k * k * cg // 16) * 16 + 32 * ch + 4 * bn
+    region = -(-max(bn // 8 // u * slab, rows, bm * (bn + 8) * 4) // 16) * 16
+    smem = bn * ch * 34 + region + 8 * bn + 16 * bm
+    if smem > _SMEM_MAX or group > 256 or 256 % group or wb > 2040:
+        return None
+    per_sm = min(2, _SMEM_SM // (smem + 1024))
+    return GPlan(bm, bn, u, imgs, th, tw, vec, wb, ch, hr, hc, slab, smem,
+                 per_sm)
+
+
+def gconv_spatial_tiles(bsz: int, ho: int, wo: int,
+                        plan: GPlan) -> Tuple[int, int, int]:
+    """(image tiles, row tiles, column tiles) of a grouped conv's output."""
+    return (-(-bsz // plan.imgs), -(-ho // plan.th), -(-wo // plan.tw))
+
+
+def gconv_cost(bsz: int, h: int, w: int, cin: int, cout: int, groups: int,
+               k: int, stride: int, dilation: int, plan: GPlan) -> float:
+    """A grouped conv's time under ``plan`` in estimated clocks: its
+    (spatial tile, channel tile) pairs over 132 SMs, each the products
+    (A's two 64-bit shared loads a run and the mma of its valid m16
+    tiles), the halo's bytes and the epilogue, the second block of an SM
+    hiding ``_OVERLAP`` of it (the ``_LDS_CLK`` ... ``_OVERLAP`` model)."""
+    ho, wo = _out_hw(h, w, k, stride, dilation)
+    it, rt, ct = gconv_spatial_tiles(bsz, ho, wo, plan)
+    n_tiles = it * rt * ct * -(-cout // plan.bn)
+    m16 = min(plan.bm // 16, -(-plan.imgs * plan.th * plan.tw // 16))
+    n8 = plan.bn // 8
+    prod = m16 * n8 * plan.ch * (_LDS_CLK * 4 / plan.u + _GMMA_CLK)
+    halo = (n8 // plan.u * plan.imgs * plan.hr * plan.hc * plan.wb
+            / _HALO_BYTES_CLK)
+    epi = _EPI_CLK * plan.bm * plan.bn / (128 * 128)
+    tile = prod + halo + epi + _FIXED
+    if plan.per_sm > 1:
+        tile *= 1.0 - _OVERLAP
+    return -(-n_tiles // _SMS) * tile
+
+
+def gconv_issued_ops(bsz: int, h: int, w: int, cin: int, cout: int,
+                     groups: int, k: int, stride: int, dilation: int,
+                     plan: GPlan) -> int:
+    """The int8 tensor-core operations (2 a multiply-add) the grouped
+    kernel issues under ``plan``: every m16 tile it runs (a spatial tile's
+    rows rounded up to 16) x every column of its channel tiles x 32 k a
+    chunk, the zeros off the groups' diagonal and of the padding
+    included."""
+    ho, wo = _out_hw(h, w, k, stride, dilation)
+    it, rt, ct = gconv_spatial_tiles(bsz, ho, wo, plan)
+    rows = min(plan.bm, -(-plan.imgs * plan.th * plan.tw // 16) * 16)
+    return (2 * it * rt * ct * rows * -(-cout // plan.bn) * plan.bn * 32
+            * plan.ch)
+
+
+@functools.lru_cache(maxsize=1024)
+def gconv_plan(bsz: int, h: int, w: int, cin: int, cout: int, groups: int,
+               k: int, stride: int, dilation: int) -> GPlan:
+    """The plan of a grouped conv of a (bsz, h, w, cin) input: of
+    :data:`GCONV_TILES`, the tile with the least :func:`gconv_cost`, and of
+    those the largest. Cached: the wrapper asks once a call."""
+    plans = [p for p in (gconv_tile(bsz, h, w, cin, cout, groups, k, stride,
+                                    dilation, *t) for t in GCONV_TILES) if p]
+    if not plans:
+        raise ValueError(f"int8_conv: no grouped tile fits shared memory at "
+                         f"x {(bsz, h, w, cin)}, cout {cout}, k {k}")
+    return min(plans, key=lambda p: (gconv_cost(
+        bsz, h, w, cin, cout, groups, k, stride, dilation, p),
+        -p.bm * p.bn))
+
+
+def gconv_tables(w: torch.Tensor, groups: int, cin: int, n0: int,
+                 plan: GPlan, k: int, dilation: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tables a block of channel tile ``n0`` builds from ``w`` (Cout,
+    k, k, cg), as the kernel builds them. Piece t of k32 chunk c of n8 tile
+    j (lane t's two A and B words) is piece P = 4 c + t of the tile's K
+    sequence: tap P // (wb / 8), 8 bytes from 8 (P % (wb / 8)) of its run's
+    window. Returns its byte offset from a row's halo pixel in the run's
+    slab, (bn / 8, ch, 4) int64; and B, (bn / 8, ch, 4, 2, 4, 8) int64: byte
+    b of word h of piece t for the tile's column g, zero off g's group, on
+    the padding pieces past k*k taps and past Cout."""
     cout = w.shape[0]
-    flat = w.reshape(cout, -1)
-    pad = -flat.shape[1] % 4
-    b = torch.cat([flat, flat.new_zeros(cout, pad)], 1).to(torch.int64) & 255
-    b = b.reshape(cout, -1, 4)
-    word = b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24
-    return torch.where(word >= 2 ** 31, word - 2 ** 32, word).to(torch.int32)
+    cg, og = cin // groups, cout // groups
+    nb, ch, ppt = plan.bn // 8, plan.ch, plan.wb // 8
+    j = torch.arange(nb)[:, None, None]
+    piece = torch.arange(ch)[None, :, None] * 4 + torch.arange(4)
+    nj = n0 + 8 * j
+    jr = j // plan.u
+    lo = torch.tensor([gconv_window(n0, min(int(v), cout - 1), cout, groups,
+                                    cin, plan.u)[0] if v < cout else 0
+                       for v in nj.flatten()]).reshape(nj.shape)
+    tap, half = piece // ppt, piece % ppt
+    pad = tap >= k * k
+    off = jr * plan.slab + torch.where(
+        pad, 0, (tap // k * plan.hc + tap % k) * dilation * plan.wb
+        + 8 * half)
+    # B: channel lo + 8 half + 4 h + b of output n = nj + g
+    n = nj[..., None, None, None] + torch.arange(8)       # (nb,1,1,1,1,8)
+    chan = (lo + 8 * half)[..., None, None, None] + (
+        4 * torch.arange(2)[:, None, None] + torch.arange(4)[:, None])
+    cl = chan - n // og * cg
+    ok = (~pad[..., None, None, None]) & (n < cout) & (cl >= 0) & (cl < cg)
+    wq = w.to(torch.int64).reshape(cout, k * k, cg)
+    val = wq[n.clamp(max=cout - 1),
+             tap.clamp(max=k * k - 1)[..., None, None, None],
+             cl.clamp(0, cg - 1)]
+    return off, torch.where(ok, val, 0)
 
 
 def _quant_i8(y: torch.Tensor, q: float) -> torch.Tensor:
@@ -326,14 +498,20 @@ def _launch(x, w, gain_a, bias_b, stride, relu, q, residual, res_scale,
 
 
 def _launch_grouped(x, w, gain_a, bias_b, stride, relu, q, residual,
-                    res_scale, res_mode, dilation, bend, groups):
-    """The grouped kernel on the card (checked operands)."""
+                    res_scale, res_mode, dilation, bend, groups, tile=None):
+    """The grouped kernel on the card (checked operands) under
+    :func:`gconv_plan`'s plan, or under block tile ``tile`` = (bm, bn) of
+    :data:`GCONV_TILES` (the card tests and the plans tool)."""
     bsz, h, wd, cin = x.shape
     cout, k = w.shape[0], w.shape[1]
     pad = dilation * (k // 2)
     out, out_bf16 = _empty_outputs(x, w, stride, pad, dilation, q, bend)
     ho, wo = out.shape[1], out.shape[2]
-    bc, opt = gconv_plan(cout, groups)
+    args = (bsz, h, wd, cin, cout, groups, k, stride, dilation)
+    p = gconv_plan(*args) if tile is None else gconv_tile(*args, *tile)
+    if p is None:
+        raise ValueError(f"int8_conv: grouped tile {tile} exceeds shared "
+                         f"memory")
     with device_of(x):
         check(library().pcv_int8_gconv(
             x.data_ptr(), w.data_ptr(), gain_a.data_ptr(), bias_b.data_ptr(),
@@ -341,23 +519,23 @@ def _launch_grouped(x, w, gain_a, bias_b, stride, relu, q, residual,
             float(res_scale or 0.0), res_mode, int(relu), float(q or 0.0),
             int(q is not None), out.data_ptr(),
             out_bf16.data_ptr() if bend else None, bsz, h, wd, cin, ho, wo,
-            cout, k, stride, pad, dilation, groups, bc, opt, stream_of(x)),
+            cout, k, stride, pad, dilation, groups, p.bm, p.bn, p.u, p.imgs,
+            p.th, p.tw, p.vec, p.wb, stream_of(x)),
             "int8_conv (grouped)")
     LAUNCHES["int8_gconv"] += 1
     return (out, out_bf16) if bend else out
 
 
-def gconv_info(cout: int, cin: int, groups: int) -> dict:
-    """Registers a thread, spilled (local) bytes and static shared memory of
-    the grouped instance a conv of ``cout`` x ``cin`` channels in
-    ``groups`` groups launches, with its plan's ``bc`` and ``opt`` (needs
-    the card)."""
-    bc, opt = gconv_plan(cout, groups)
-    out = (ctypes.c_int * 3)()
-    check(library().pcv_int8_gconv_info(cin // groups, opt, out),
+def gconv_info(plan: GPlan) -> dict:
+    """Registers a thread, spilled (local) bytes and static shared memory
+    of the grouped instance ``plan`` launches, and the blocks an SM holds at
+    its dynamic shared memory (needs the card)."""
+    out = (ctypes.c_int * 4)()
+    check(library().pcv_int8_gconv_info(plan.bm, plan.bn, plan.u,
+                                        plan.smem, out),
           "int8_conv (grouped) info")
-    return dict(zip(("registers", "spill_bytes", "static_smem"), out),
-                bc=bc, opt=opt)
+    return dict(zip(("registers", "spill_bytes", "static_smem",
+                     "blocks_per_sm"), out), dynamic_smem=plan.smem)
 
 
 def instance_info(bm: int, bn: int, vec16: bool) -> dict:

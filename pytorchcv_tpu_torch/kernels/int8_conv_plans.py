@@ -1,7 +1,10 @@
 """K2 timed under every tile, on the int8 conv shapes of ResNet-50,
-WRN-50-2 (224x224) and DANet (480x480):
+WRN-50-2 (224x224) and DANet (480x480), and the grouped K2 under every
+grouped tile on the grouped convs of ResNeXt-50, SE-ResNeXt-50 and
+SENet-16:
 
     python -m pytorchcv_tpu_torch.kernels.int8_conv_plans [batch [seg_batch]]
+    python -m pytorchcv_tpu_torch.kernels.int8_conv_plans grouped [batch [senet_batch]]
 
 Needs one CUDA card and nvcc. For each distinct conv of each path at
 ``batch`` (default 128; DANet at ``seg_batch``, default 8) it draws int8
@@ -13,8 +16,17 @@ fastest. Then K3 (the stem) at ResNet's 7x7 and DANet's 3x3 under several
 output rows a tile, beside cuDNN's f32 conv of the same image. The last
 line is one JSON object with the times in ms.
 
-:func:`conv_shapes` lists the convs each path gives K2 (the CPU tests read
-it too).
+The grouped sweep (batch default 128, SENet-16 at ``senet_batch``,
+default 32) prints per distinct grouped conv and tile the device ms
+(``torch.profiler`` over 10 launches after 1, the mean of the launches it
+recorded: ``_parts.launch_ms``; CUDA events beside it),
+useful TOP/s, issued tensor-core TOP/s
+(the zeros of the block-diagonal tiles and of the k32 padding included),
+the plan's cost and which tile the plan picks, then per path the sum over
+a forward under the plan's tiles and under each shape's fastest.
+
+:func:`conv_shapes` and :func:`gconv_shapes` list the convs each path gives
+K2 and the grouped K2 (the CPU tests read them too).
 """
 
 from __future__ import annotations
@@ -97,17 +109,103 @@ def out_hw(conv: Conv) -> Tuple[int, int]:
             (w + 2 * pad - dil * (k - 1) - 1) // st + 1)
 
 
+# (k, stride, cin, cout, groups, h, w) of one grouped K2 call; h, w the
+# input map.
+GConv = Tuple[int, int, int, int, int, int, int]
+
+
+def gconv_shapes(name: str) -> List[GConv]:
+    """The grouped convs of one forward of ``name`` ("resnext50_32x4d",
+    "seresnext50_32x4d" or "senet16") at 224x224, in order: each unit's
+    grouped 3x3 (32 groups; the stride at the first unit of stages 2-4),
+    cg = og (ResNeXt, SE-ResNeXt: 128-1024 channels) or og = 2 cg (SENet-16:
+    its conv1 halves the width)."""
+    units = (1, 1, 1, 1) if name == "senet16" else (3, 4, 6, 3)
+    half = name == "senet16"
+    convs: List[GConv] = []
+    hw = 56
+    for si, n in enumerate(units):
+        gw = 128 << si
+        for uj in range(n):
+            st = 2 if si > 0 and uj == 0 else 1
+            convs.append((3, st, gw // 2 if half else gw, gw, 32, hw, hw))
+            hw //= st
+    return convs
+
+
+def _grouped_sweep(name_card: str, rng, times: dict) -> None:
+    """Every grouped tile at every grouped conv of the three paths, by
+    device time."""
+    from . import int8_conv as k2
+    from ._build import f32
+    from ._parts import launch_ms
+    bsz = int(sys.argv[2]) if len(sys.argv) > 2 else 128
+    se_bsz = int(sys.argv[3]) if len(sys.argv) > 3 else 32
+    for path in ("resnext50_32x4d", "seresnext50_32x4d", "senet16"):
+        b = se_bsz if path == "senet16" else bsz
+        convs = gconv_shapes(path)
+        fwd_plan = fwd_best = 0.0
+        for conv in sorted(set(convs)):
+            k, st, cin, cout, groups, h, w = conv
+            ho, wo = out_hw((k, st, 1, cin, cout, h, w, False))
+            x = torch.from_numpy(rng.integers(-127, 128, (b, h, w, cin),
+                                              dtype=np.int8)).cuda()
+            wt = torch.from_numpy(rng.integers(
+                -127, 128, (cout, k, k, cin // groups), dtype=np.int8)).cuda()
+            a = torch.from_numpy(rng.uniform(2e-5, 2e-4, cout).astype(
+                np.float32)).cuda()
+            bb = torch.from_numpy(rng.standard_normal(cout).astype(
+                np.float32)).cuda()
+            args = (b, h, w, cin, cout, groups, k, st, 1)
+            pick = k2.gconv_plan(*args)
+            useful = 2 * b * ho * wo * cout * k * k * cin // groups
+            tile_ms = {}
+            for tile in k2.GCONV_TILES:
+                p = k2.gconv_tile(*args, *tile)
+                if p is None:
+                    continue
+                with torch.inference_mode():
+                    ms, _, wall = launch_ms(lambda: k2._launch_grouped(
+                        x, wt, a, bb, st, True, f32(0.7), None, None,
+                        k2._RES_NONE, 1, False, groups, tile),
+                        "int8_gconv_kernel")
+                if ms is None:
+                    raise RuntimeError("the profiler recorded no grouped K2")
+                issued = k2.gconv_issued_ops(*args, p)
+                key = (f"{path} k{k} s{st} {cin}->{cout} g{groups} {h}x{w} "
+                       f"{tile[0]}x{tile[1]}")
+                times[key] = tile_ms[tile] = ms
+                print(f"[{name_card}] grouped K2 batch {b} {key} (u {p.u}, "
+                      f"{p.imgs}x{p.th}x{p.tw} a tile, {p.ch} k32 chunks, "
+                      f"{p.smem} shared bytes): {ms:.4f} ms on the device "
+                      f"({wall:.4f} back to back), "
+                      f"{useful / ms / 1e9:.1f} useful TOP/s, "
+                      f"{issued / ms / 1e9:.1f} issued TOP/s, model cost "
+                      f"{k2.gconv_cost(*args, p):.0f}"
+                      f"{'  <- plan' if p == pick else ''}")
+            n = convs.count(conv)
+            fwd_plan += n * tile_ms[(pick.bm, pick.bn)]
+            fwd_best += n * min(tile_ms.values())
+        print(f"[{name_card}] grouped K2 batch {b} {path}: the {len(convs)} "
+              f"grouped convs of a forward, {fwd_plan:.4f} ms under the "
+              f"plan's tiles, {fwd_best:.4f} ms under each shape's fastest")
+
+
 def main() -> None:
     from . import int8_conv as k2
     from ._build import f32
     from ._parts import card, cuda_ms
     if not torch.cuda.is_available():
         raise RuntimeError("int8_conv_plans needs a CUDA card")
-    bsz = int(sys.argv[1]) if len(sys.argv) > 1 else 128
-    seg_bsz = int(sys.argv[2]) if len(sys.argv) > 2 else 8
     name_card = card()
     rng = np.random.default_rng(0)
     times = {}
+    if len(sys.argv) > 1 and sys.argv[1] == "grouped":
+        _grouped_sweep(name_card, rng, times)
+        print(json.dumps({"card": name_card, "ms": times}))
+        return
+    bsz = int(sys.argv[1]) if len(sys.argv) > 1 else 128
+    seg_bsz = int(sys.argv[2]) if len(sys.argv) > 2 else 8
     for path, b in (("resnet50", bsz), ("wrn50_2", bsz), ("danet", seg_bsz)):
         convs = conv_shapes(path)
         fwd_plan = fwd_best = 0.0

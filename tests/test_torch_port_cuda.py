@@ -18,7 +18,8 @@ ProPainter generator on the card against the CPU, the fused bottleneck
 chain (K8) at odd maps, ragged row tiles and WRN-50-2's widest stage, the
 int8 stem (K9) at odd sizes and at 224 -> 112 with O 64, 8 and 40 and
 after writes through ``.data``, the
-window-sum probe (K10) at odd sizes, the ResNet-50
+window-sum probe (K10) at odd sizes, the grouped K2 under every grouped
+tile at ragged pixel and channel tiles, the ResNet-50
 logits with and without K8 chains, DANet's position-attention gradients
 against the CPU's and a direct f32 forward under torch's TF32 defaults;
 K2 under each of its block tiles at sizes no tile divides, and K3 at the
@@ -430,6 +431,19 @@ def _k2_modes(rng, shape, dev):
             dict(relu=False, residual=res_bf)]
 
 
+def _grouped_forced(x, w, a, b, stride, groups, tile, **kw):
+    """The grouped kernel under block tile ``tile`` (the private launch the
+    plans tool uses), with ``int8_conv``'s epilogue keywords."""
+    from pytorchcv_tpu_torch.kernels import int8_conv as k2
+    res = kw.get("residual")
+    mode = (k2._RES_NONE if res is None else k2._RES_BF16
+            if res.dtype == torch.bfloat16 else k2._RES_I8_BF16
+            if kw.get("round_res") else k2._RES_I8)
+    return k2._launch_grouped(x, w, a, b, stride, kw.get("relu", True),
+                              kw.get("q"), res, kw.get("res_scale"), mode, 1,
+                              kw.get("bend", False), groups, tile)
+
+
 @pytest.mark.parametrize("cg,og,groups,stride,hw,bsz", [
     (2, 2, 32, 1, (56, 56), 2), (2, 4, 32, 2, (28, 28), 2),
     (4, 4, 32, 1, (28, 28), 2), (4, 8, 32, 2, (14, 14), 3),
@@ -437,14 +451,18 @@ def _k2_modes(rng, shape, dev):
     (16, 16, 32, 1, (14, 14), 2), (16, 32, 32, 2, (14, 14), 2),
     (32, 32, 32, 1, (7, 7), 3), (32, 32, 64, 2, (14, 14), 1),
     (2, 6, 5, 1, (9, 13), 3), (16, 16, 5, 2, (11, 7), 3),
-    (4, 2, 7, 1, (5, 6), 1)])
+    (4, 2, 7, 1, (5, 6), 1), (32, 32, 3, 1, (9, 9), 5),
+    (8, 8, 20, 1, (13, 150), 1)])
 def test_grouped_int8_conv_kernel_matches_plain(cg, og, groups, stride, hw,
                                                 bsz):
     """The grouped K2 at every per-group width of the ResNeXt, SE-ResNeXt
-    and SENet paths (cg = og and og = 2 cg) and at ragged shapes (pixels
-    no block of 128 divides, channels no block of whole groups divides,
-    og 6 and 2), in every epilogue mode: bit-exact against the plain
-    version, counted under ``int8_gconv``."""
+    and SENet paths (cg = og and og = 2 cg) and at ragged shapes (pixels no
+    spatial tile divides, images wider than a tile, channel tiles the
+    groups do not fill: Cout 96 and 160 under 128-channel blocks, og 6 and
+    2), in every epilogue mode under the plan and under every tile of
+    ``GCONV_TILES``: bit-exact against the plain version, counted under
+    ``int8_gconv``."""
+    from pytorchcv_tpu_torch.kernels import int8_conv as k2
     dev = _cuda()
     rng = np.random.default_rng(cg * 1000 + og * 10 + groups)
     cin, cout = cg * groups, og * groups
@@ -459,23 +477,30 @@ def test_grouped_int8_conv_kernel_matches_plain(cg, og, groups, stride, hw,
         got = int8_conv(x, w, a, b, stride, groups=groups, **kw)
         assert LAUNCHES["int8_gconv"] == 1 and LAUNCHES["int8_conv"] == 0
         ref = int8_conv_reference(x, w, a, b, stride, groups=groups, **kw)
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
-        for g_, r_ in zip(got, ref):
-            assert torch.equal(g_, r_), (kw.keys(), (g_.float() - r_.float())
-                                         .abs().max())
+        runs = [("plan", got)] + [
+            (tile, _grouped_forced(x, w, a, b, stride, groups, tile, **kw))
+            for tile in k2.GCONV_TILES]
+        torch.cuda.synchronize()
+        for tile, out in runs:
+            out = out if isinstance(out, tuple) else (out,)
+            for g_, r_ in zip(out, ref):
+                assert torch.equal(g_, r_), (tile, kw.keys(), (
+                    g_.float() - r_.float()).abs().max())
 
 
 def test_grouped_int8_conv_instances_spill_nothing():
-    """Every grouped instance (cg 2-32 x 2, 4 or 8 outputs a thread): no
-    local memory."""
+    """Every grouped instance (the four block tiles x runs of 1, 2 and 4 n8
+    tiles sharing A): no local memory, and the two blocks an SM the plan
+    counts on at its shared memory of a ResNeXt-50 stage-1 conv."""
     from pytorchcv_tpu_torch.kernels import int8_conv as k2
     _cuda()
-    for cg in k2.GROUP_WIDTHS:
-        for og in (2, 4, 8):
-            info = k2.gconv_info(og * 4, cg * 4, 4)
-            assert info["spill_bytes"] == 0 and info["opt"] == og, info
+    for tile in k2.GCONV_TILES:
+        plan = k2.gconv_tile(128, 56, 56, 128, 128, 32, 3, 1, 1, *tile)
+        for u in (1, 2, 4):
+            info = k2.gconv_info(plan._replace(u=u))
+            assert info["spill_bytes"] == 0, (tile, u, info)
+            assert info["blocks_per_sm"] >= plan.per_sm, (tile, u, info)
 
 
 @pytest.mark.parametrize("c,out_i8", [(256, True), (2048, False),

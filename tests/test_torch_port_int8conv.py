@@ -4,7 +4,10 @@ only run on the card:
 
 * K2's plan covers every output tile once, within a block's shared memory,
   on every conv of ResNet-50, WRN-50-2 and DANet and at the card tests'
-  shapes;
+  shapes; the grouped K2's plan (``gconv_plan``) on every grouped conv of
+  ResNeXt-50, SE-ResNeXt-50 and SENet-16 at batch 128, 32 and 3: two
+  blocks an SM within shared memory, spatial tiles covering every output
+  once, each n8 tile's groups inside its run's window;
 * a torch emulation of K2's K walk (tap by tap, 64-byte chunks of Cin in
   two 32-byte mma steps, the image border and a tap's ragged end as zeros,
   int32 sums) and its epilogue is bit-equal to ``int8_conv_reference``;
@@ -23,7 +26,8 @@ import torch.nn.functional as F
 
 from pytorchcv_tpu_torch.kernels import int8_conv as k2
 from pytorchcv_tpu_torch.kernels import stem as k3
-from pytorchcv_tpu_torch.kernels.int8_conv_plans import conv_shapes, out_hw
+from pytorchcv_tpu_torch.kernels.int8_conv_plans import (conv_shapes,
+                                                          gconv_shapes, out_hw)
 
 _SMEM_MAX = 232_448
 
@@ -108,6 +112,36 @@ def _k_walk(x, w, stride, dilation):
                     acc += (a[:, half].to(torch.float64)
                             @ wb[:, half].T.to(torch.float64)).to(torch.int32)
     return acc.reshape(b, ho, wo, cout)
+
+
+@pytest.mark.parametrize("name", ["resnext50_32x4d", "seresnext50_32x4d",
+                                  "senet16"])
+@pytest.mark.parametrize("bsz", [128, 32, 3])
+def test_gconv_plan_covers_every_output_within_shared_memory(name, bsz):
+    """Every grouped conv of the path: the plan's tile is one of
+    ``GCONV_TILES``, holds two blocks an SM, its spatial tiles cover the
+    output map once (rows and columns of whole tiles, images in whole
+    groups), every n8 tile's groups lie in its run's window of ``wb``
+    bytes, and its copies fit the 256 threads."""
+    convs = gconv_shapes(name)
+    assert len(convs) == (4 if name == "senet16" else 16)
+    for k, stride, cin, cout, groups, h, w in set(convs):
+        plan = k2.gconv_plan(bsz, h, w, cin, cout, groups, k, stride, 1)
+        assert (plan.bm, plan.bn) in k2.GCONV_TILES
+        assert plan.per_sm == 2 and plan.smem <= _SMEM_MAX
+        ho, wo = out_hw((k, stride, 1, cin, cout, h, w, False))
+        it, rt, ct = k2.gconv_spatial_tiles(bsz, ho, wo, plan)
+        assert plan.imgs * plan.th * plan.tw <= plan.bm
+        assert (it - 1) * plan.imgs < bsz <= it * plan.imgs
+        assert (rt - 1) * plan.th < ho <= rt * plan.th
+        assert (ct - 1) * plan.tw < wo <= ct * plan.tw
+        assert plan.imgs == 1 or (plan.th, plan.tw) == (ho, wo)
+        for n0 in range(0, cout, plan.bn):
+            for nj in range(n0, min(n0 + plan.bn, cout), 8):
+                lo, hi = k2.gconv_window(n0, nj, cout, groups, cin, plan.u)
+                assert lo <= nj // (cout // groups) * (cin // groups)
+                assert hi <= lo + plan.wb and lo % plan.vec == 0
+        assert 256 % (plan.bn // 8 // plan.u * plan.wb // plan.vec) == 0
 
 
 def _k2_epilogue(acc, a, bias, relu, q, residual, res_scale, round_res,

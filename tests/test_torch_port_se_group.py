@@ -8,8 +8,9 @@ tree loaded back through ``load_jax_variables`` (strict); ``calibrate_int8``'s
 key set against the JAX package's; the grouped K2 through its plain
 version bit-exact against JAX ``_cell`` with the grouped kernel as it is
 and merged block-diagonal (``_merge_grouped_weights``); the grouped
-kernel's walk of thread items and its weight words, emulated in torch,
-bit-equal to the plain version; K11's plain version against JAX's SE tail
+kernel's block-diagonal walk (window-major halo, tables, k32 chunks),
+emulated in torch under every grouped tile, bit-equal to JAX ``_conv_i8``
+and the plain version; K11's plain version against JAX's SE tail
 handed JAX's gate; the int8 route end to end at 64x64 against JAX's
 ``prepare_int8_resnet`` (resnext14_32x4d bit-exact with an exact stem;
 seresnet18 and senet16 at cosine >= 0.999: the squeeze's f32 mean sums in
@@ -191,67 +192,110 @@ def test_grouped_int8_conv_bit_exact_vs_jax_cell(cg, og, groups, stride):
                 got, np.asarray(want.astype(jnp.float32)))
 
 
-def _emulated_grouped_acc(x, w, groups, stride, pad):
-    """The grouped kernel's int32 sums, walked as it walks them: thread
-    items from ``gconv_items``, each reading its group's cg channels of
-    each tap as 4-byte words (at cg = 2, two taps a word), meeting the
-    weight words of ``gconv_words`` with a 4-way int8 dot product; every
-    output exactly once."""
+def _emulated_grouped_acc(x, w, groups, stride, dilation, plan, rng):
+    """The grouped kernel's int32 sums under ``plan``, walked as it walks
+    them: per (channel tile, spatial tile) the halo window-major (one slab
+    per run of u n8 tiles: each halo pixel's wb bytes from the run's window
+    start, zeros outside the images and past Cin, random bytes where the
+    kernel leaves shared memory stale), the block's tables from
+    ``gconv_tables`` (B fragments zero off the diagonal, each piece's halo
+    offset), and for each row of the tile, n8 tile and k32 chunk lane t's
+    8 bytes of A at the row's halo pixel + piece t's offset against the 8 B
+    columns; each valid output written once."""
     bsz, h, wd, cin = x.shape
-    cout, k, _, cg = w.shape
-    og = cout // groups
-    ho = (h + 2 * pad - k) // stride + 1
-    wo = (wd + 2 * pad - k) // stride + 1
-    items = k2.gconv_items(bsz * ho * wo, cout, groups)
-    _, opt = k2.gconv_plan(cout, groups)
-    pix, chan = items[:, 0], items[:, 1]
-    img, oh, ow = pix // (ho * wo), pix // wo % ho, pix % wo
-    xp = torch.nn.functional.pad(x.to(torch.int64),
-                                 (0, 0, pad, pad, pad, pad))
-    # the bytes of each item's (tap, channel) sequence, zero-padded as the
-    # weight words are
-    taps = torch.arange(k * k)
-    rows = oh[:, None] * stride + taps // k
-    cols = ow[:, None] * stride + taps % k
-    base = chan // og * cg
-    seq = xp[img[:, None, None], rows[:, :, None], cols[:, :, None],
-             base[:, None, None] + torch.arange(cg)]       # (items, k*k, cg)
-    seq = seq.reshape(len(items), -1)
-    seq = torch.cat([seq, seq.new_zeros(len(items), -seq.shape[1] % 4)], 1)
-    xw = seq.reshape(len(items), -1, 4)                     # words of bytes
-    words = k2.gconv_words(w).to(torch.int64)               # (cout, KW)
-    wb = torch.stack([(words >> (8 * i)) & 255 for i in range(4)], -1)
-    wb = torch.where(wb >= 128, wb - 256, wb)               # signed bytes
-    out = torch.zeros((bsz * ho * wo, cout), dtype=torch.int64)
-    seen = torch.zeros((bsz * ho * wo, cout), dtype=torch.int64)
-    for o in range(opt):
-        wo_b = wb[chan + o]                                  # (items, KW, 4)
-        acc = (xw * wo_b).sum(dim=(1, 2))
-        out[pix, chan + o] = acc
-        seen[pix, chan + o] += 1
+    cout, k = w.shape[0], w.shape[1]
+    pad = dilation * (k // 2)
+    ho = (h + 2 * pad - dilation * (k - 1) - 1) // stride + 1
+    wo = (wd + 2 * pad - dilation * (k - 1) - 1) // stride + 1
+    it, rt, ct = k2.gconv_spatial_tiles(bsz, ho, wo, plan)
+    per_tile = plan.imgs * plan.th * plan.tw
+    r = torch.arange(plan.bm)
+    im, ohl, owl = (r // (plan.th * plan.tw), r % (plan.th * plan.tw)
+                    // plan.tw, r % plan.tw)
+    rb = torch.where(r < per_tile, ((im * plan.hr + ohl * stride) * plan.hc
+                                    + owl * stride) * plan.wb, 0)
+    him, hr, hc = torch.meshgrid(torch.arange(plan.imgs),
+                                 torch.arange(plan.hr),
+                                 torch.arange(plan.hc), indexing="ij")
+    xl = x.to(torch.int64)
+    out = torch.zeros((bsz, ho, wo, cout), dtype=torch.int64)
+    seen = torch.zeros((bsz, ho, wo, cout), dtype=torch.int64)
+    nw, pixels = plan.bn // 8 // plan.u, plan.imgs * plan.hr * plan.hc
+    for n0 in range(0, cout, plan.bn):
+        off, bt = k2.gconv_tables(w, groups, cin, n0, plan, k, dilation)
+        runs = [n0 + 8 * plan.u * jw for jw in range(nw)]
+        los = [k2.gconv_window(n0, nj, cout, groups, cin, plan.u)[0]
+               if nj < cout else 0 for nj in runs]
+        chan = torch.tensor(los)[:, None] + torch.arange(plan.wb)
+        for sp in range(it * rt * ct):
+            img0 = sp // (rt * ct) * plan.imgs
+            oh0, ow0 = sp // ct % rt * plan.th, sp % ct * plan.tw
+            img = (img0 + him).reshape(1, -1, 1)
+            ih = (oh0 * stride - pad + hr).reshape(1, -1, 1)
+            iw = (ow0 * stride - pad + hc).reshape(1, -1, 1)
+            ch3 = chan[:, None, :]
+            inside = ((img < bsz) & (ih >= 0) & (ih < h) & (iw >= 0) &
+                      (iw < wd) & (ch3 < cin))
+            halo = torch.where(inside, xl[img.clamp(max=bsz - 1),
+                                          ih.clamp(0, h - 1),
+                                          iw.clamp(0, wd - 1),
+                                          ch3.clamp(max=cin - 1)], 0)
+            region = torch.from_numpy(rng.integers(-128, 128,
+                                                   (nw, plan.slab)))
+            region[:, :pixels * plan.wb] = halo.reshape(nw, -1)
+            region = region.reshape(-1)
+            a = region[rb[:, None, None, None, None, None]
+                       + off[None, ..., None, None]
+                       + 4 * torch.arange(2)[:, None] + torch.arange(4)]
+            acc = torch.einsum("pjcthb,jcthbg->pjg", a, bt).reshape(
+                plan.bm, -1)                       # a: (bm, nb, ch, 4, 2, 4)
+            oimg, oh, ow = img0 + im, oh0 + ohl, ow0 + owl
+            n = n0 + torch.arange(plan.bn)
+            keep = ((r < per_tile) & (oimg < bsz) & (oh < ho) &
+                    (ow < wo))[:, None] & (n < cout)
+            rows, cols = keep.nonzero(as_tuple=True)
+            idx = (oimg[rows], oh[rows], ow[rows], n[cols])
+            out[idx] = acc[rows, cols]
+            seen[idx] += 1
     assert torch.equal(seen, torch.ones_like(seen)), "not every output once"
-    return out.reshape(bsz, ho, wo, cout)
+    return out
 
 
-@pytest.mark.parametrize("cg,og,groups,stride,hw", [
-    (2, 2, 32, 1, (5, 7)), (2, 4, 16, 2, (9, 6)), (4, 4, 8, 1, (6, 6)),
-    (4, 8, 8, 2, (7, 7)), (8, 8, 8, 1, (5, 6)), (8, 16, 4, 2, (7, 5)),
-    (16, 16, 4, 1, (6, 5)), (16, 32, 2, 2, (5, 9)), (32, 32, 3, 1, (4, 5))])
-def test_grouped_tile_walk_bit_equal_to_plain(cg, og, groups, stride, hw):
-    """``gconv_items`` covers every output once (blocks of 128 pixels x
-    ``gconv_plan``'s channels, ragged in both), and the kernel's word-wise
-    sums, through the epilogue, give the plain version's int8 bit for
-    bit."""
+@pytest.mark.parametrize("cg,og,groups,stride,hw,dilation", [
+    (2, 2, 32, 1, (5, 7), 1), (2, 4, 16, 2, (9, 6), 1),
+    (4, 4, 8, 1, (6, 6), 1), (4, 8, 8, 2, (7, 7), 1),
+    (8, 8, 8, 1, (5, 6), 1), (8, 16, 4, 2, (7, 5), 1),
+    (16, 16, 4, 1, (6, 5), 1), (16, 32, 2, 2, (5, 9), 1),
+    (32, 32, 3, 1, (4, 5), 1), (2, 6, 5, 1, (9, 13), 1),
+    (4, 2, 7, 1, (5, 6), 1), (8, 8, 16, 1, (6, 7), 2)])
+def test_grouped_tile_walk_bit_equal_to_plain(cg, og, groups, stride, hw,
+                                              dilation):
+    """Under every tile of ``GCONV_TILES`` (the plan's among them): the
+    block-diagonal walk covers every output once (channel tiles ragged past
+    Cout, spatial tiles past the map, rows past the tile), its sums equal
+    JAX ``_conv_i8``'s and, through the epilogue, give the plain version's
+    int8 bit for bit."""
     rng = np.random.default_rng(cg + og + groups)
     x, cell = _grouped_case(rng, cg, og, groups, hw=hw, bsz=3)
     xt = torch.from_numpy(x)
     pcell = _port_cell(cell, stride, groups)
-    acc = _emulated_grouped_acc(xt, pcell["wq"], groups, stride, 1)
+    pcell["dilation"] = dilation
+    want = np.asarray(jq._conv_i8(jnp.asarray(x), jnp.asarray(cell["wq"]),
+                                  stride, dilation=dilation))
     step = _conv_step(pcell, 2.5, True, 1.7)
-    y = torch.clamp_min(acc.to(torch.float32) * step["a"] + step["b"], 0.0)
-    emulated = torch.clamp(torch.round(y * step["q"]), -127, 127).to(
-        torch.int8)
-    assert torch.equal(emulated, _run_step(step, xt))
+    ref = _run_step(step, xt)
+    args = (3, *hw, cg * groups, og * groups, groups, 3, stride, dilation)
+    plans = [k2.gconv_tile(*args, *t) for t in k2.GCONV_TILES]
+    assert k2.gconv_plan(*args) in plans
+    for plan in plans:
+        acc = _emulated_grouped_acc(xt, pcell["wq"], groups, stride,
+                                    dilation, plan, rng)
+        np.testing.assert_array_equal(acc.numpy(), want)
+        y = torch.clamp_min(acc.to(torch.float32) * step["a"] + step["b"],
+                            0.0)
+        emulated = torch.clamp(torch.round(y * step["q"]), -127, 127).to(
+            torch.int8)
+        assert torch.equal(emulated, ref), plan
 
 
 def test_grouped_int8_conv_rejects_what_the_kernel_does_not_take():
