@@ -4,9 +4,11 @@ int8 DANet (ResNet-D50b) Cityscapes segmentation serving, ProPainter
 recurrent flow completion (RFC) streaming, bf16 EfficientNet-B0
 classification, ProPainter's generator (image propagation, the sparse
 window transformer, the mask blend) streaming, int8 WRN-50-2
-classification and int8 SE-ResNeXt-50, ResNeXt-50 and SENet-16
-classification, on the port's hand-written CUDA kernels, with the int8
-7x7 stem and the window-sum probe on their own entry points.
+classification, int8 SE-ResNeXt-50, ResNeXt-50 and SENet-16
+classification, and video inpainting from raw frames through
+``ProPainterIterator`` (RAFT flow, RFC, image propagation, the generator,
+the blend), on the port's hand-written CUDA kernels, with the int8 7x7
+stem and the window-sum probe on their own entry points.
 
     python3 chip_smoke.py
 
@@ -190,7 +192,35 @@ use (one nvcc per source, in parallel). Phases, each ending in
    K11 0, the unit tails in K2;
 25. the SENet-16 slice (``senet16``: the deep stem on K3 3x3 and two K2
    convs, cg = og / 2, 3x3 identity convs), as phase 23 at batch 32: K2
-   14 + 4, K11 4.
+   14 + 4, K11 4;
+26. the pipeline slice: ``ProPainterIterator(TensorSequencer(frames),
+   TensorSequencer(masks), raft, rfc, generator)`` on the card over an
+   80-frame 240x432 clip from raw frames (``_pipe_clip``: seeded uint8
+   frames in [-1, 1] that move 1-3 px a frame, ``_rfc_video``'s moving
+   ellipse masks), chunks of 10; ``raft_things`` (``in_normalize=False``,
+   20 refinements, windows of 12; ``_tame_raft``), ``propainter_rfc``
+   (window 80; ``_tame_rfc``) and ``propainter`` (``_tame_propainter``),
+   all seed 0: launch counts K5 = sum over RFC windows of 4 (T_w - 1) plus
+   2 (l_t - 1) per generator call, K7 16 per generator call, nothing else
+   (RAFT none); finite (80, 3, 240, 432) frames, equal to the input
+   outside the masks; the chunks against the same stages run one after
+   another without trimming, and a ``host_buffers=True`` run, within 1e-6
+   of max |out| (bit-equality printed); the largest length of each stage's
+   buffer; max |flow| after RAFT and after RFC; RAFT on the first 2 pairs
+   against a CPU copy within 1e-4 of max |flow| (its CPU seconds printed);
+   ``lookup_corr`` against ``lookup_corr_gather`` at the path's shapes
+   (a RAFT window's last refinement) within 1e-5 of max |corr|; K5 and K7
+   against their plain versions on every distinct call of the run;
+27. pipeline timing with CUDA events after the warm passes above:
+   inpainted frames/s end to end, each stage's ms and share (RAFT, RFC,
+   IP, IT, IM and the engine), RAFT in pairs/s, one RAFT window split
+   into the two encoders, the pyramid, the lookups and the update blocks
+   (x 20) and the upsampling, ``lookup_corr`` against
+   ``lookup_corr_gather`` a call, the device's busy time and idle share
+   over a pass (``torch.profiler``) with the share of K5 and K7 launches
+   it recorded, K5's and K7's ms inside the pipeline; for the record, K5
+   at RFC's first call and K7 on a transformer block's two calls at the
+   largest t, each beside its plain version, library call and bound.
 
 The generator's CPU tests are ``tests/test_torch_port_propainter.py`` (the
 port against the JAX package at 96x176). To rehearse phases 15-17 without
@@ -201,6 +231,14 @@ a card: exec a copy of this file with "cuda" replaced by "cpu",
 launches, ``models.propainter_ip_stream.resolve_device`` returning the
 CPU, ``PP_FRAMES`` 16, ``PP_HW`` (96, 176) and ``ATTN_BIG_N`` 100, then
 call ``_propainter``.
+
+The pipeline's CPU tests are ``tests/test_torch_port_raft.py``. To rehearse
+phases 26-27 without a card, exec a copy of this file as for phases 15-17
+(also ``models.propainter_stream.resolve_device`` returning the CPU, and
+``ProfilerActivity.CUDA``/``DeviceType.CUDA`` read as the CPU's) with
+``PIPE_FRAMES`` 14, ``PIPE_HW`` (128, 176) (RFC's 1/8 map at least K5's
+window of 14, the pyramid's last level at least 2x2) and
+``PIPE_RAFT_ITERS`` 3, then call ``_pipeline``.
 
 Any failure raises. The last lines are the card, the kernels' JSON record
 (one entry per kernel and path) and ``{"ok": true, "device": {...}}``.
@@ -276,6 +314,14 @@ PP_K5_CHECKED = 10             # K5 calls held against the plain version
 K5_REPS = 500
 ATTN_WIN_TOL = 2e-5            # K7: max |err| / max |plain|
 ATTN_BIG_N = 65600             # problems of K7's check beyond 65,535
+
+PIPE_FRAMES = 80               # phase 15's clip, from raw frames
+PIPE_HW = (240, 432)           # ProPainter's default input
+PIPE_RAFT_ITERS = 20           # RAFTSequencer's default refinements
+PIPE_ITER_TOL = 1e-6           # iterator vs the stages: of max |out|
+PIPE_LOOKUP_TOL = 1e-5         # lookup_corr vs the gather: of max |corr|
+PIPE_RAFT_CPU_PAIRS = 2        # RAFT card-vs-CPU frame pairs
+PIPE_RAFT_CPU_TOL = 1e-4       # its max |delta| / max |flow|
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): HBM bytes/s and
 # operations/s by operand type.
@@ -726,13 +772,16 @@ def _int_mm_library(a):
 
 def _k2_per_shape(card, tag, calls):
     """K2 at each distinct conv of a path's recorded calls: its device ms
-    (``torch.profiler``; a short conv's back-to-back calls wait on the
-    wrapper's host time, printed beside it), TOP/s, bound and by what, the
+    (``kernels._parts.launch_ms``: the mean over the launches
+    ``torch.profiler`` recorded, with their share of the launches run; a
+    short conv's back-to-back calls wait on the wrapper's host time,
+    printed beside it), TOP/s, bound and by what, the
     plan's tile and the instance's registers, spills (any fails the run)
     and shared memory; and ``torch._int_mm`` on the operands of every 1x1
     stride-1 conv, summed over the path's calls of those shapes beside
     K2's device time for the same calls. Returns the library sum (None
     where torch refused a shape)."""
+    from pytorchcv_tpu_torch.kernels._parts import launch_ms
     from pytorchcv_tpu_torch.kernels.int8_conv import int8_conv, kernel_info
     seen = {}
     for a, k, out in calls:
@@ -745,9 +794,9 @@ def _k2_per_shape(card, tag, calls):
         x, w = a[0], a[1]
         o = out[0] if isinstance(out, tuple) else out
         m = o.shape[0] * o.shape[1] * o.shape[2]
-        kernels, _, wall, _ = _device_kernels(lambda: int8_conv(*a, **k), 10)
-        ms = sum(v for name, v in kernels.items() if "int8_conv_kernel" in name)
-        if ms == 0.0:
+        ms, share, wall = launch_ms(lambda: int8_conv(*a, **k),
+                                    "int8_conv_kernel", 1, 10)
+        if ms is None:
             print(f"[{card}] {tag} K2: the profiler saw no device time; "
                   f"CUDA events instead")
             ms = wall
@@ -763,7 +812,9 @@ def _k2_per_shape(card, tag, calls):
             k2_sum += count * ms
         print(f"[{card}] {tag} K2 k={key[0]} s={key[1]} d={key[2]} "
               f"cin={key[3]} cout={key[4]} h={key[5]} {key[6]} (x{count}): "
-              f"{ms:.4f} ms on the device ({wall:.4f} back to back), "
+              f"{ms:.4f} ms on the device (the mean of the {100 * share:.0f} "
+              f"% of launches the profiler recorded; {wall:.4f} back to "
+              f"back), "
               f"{ops / ms / 1e9:.1f} TOP/s, bound "
               f"{bound[0]:.4f} ms ({bound[1]}), tile {info['bm']}x"
               f"{info['bn']}, {info['registers']} registers, "
@@ -2430,18 +2481,64 @@ def _work_window_attention(q, k, v, out):
     return _nbytes(q, k, v, out), ops
 
 
+def _k7_pair(card, tag, k7_seen):
+    """K7 on a transformer block's two calls at the largest t of a path's
+    recorded calls (``_first_calls``): the full path's and the local
+    path's, each beside its plain version, f32 SDPA and its bounds (f32 on
+    the CUDA cores; 3xTF32 on the tensor cores), with its registers, spills
+    and shared memory. Returns their sums (ms, plain ms, SDPA ms, bytes,
+    operations) and the pair's bound as three TF32 products on the tensor
+    cores, the fastest way the card computes them in f32 (the record's)."""
+    import torch.nn.functional as F
+    from pytorchcv_tpu_torch.kernels.attention import (
+        fused_window_attention, fused_window_attention_reference)
+    from pytorchcv_tpu_torch.kernels.attention import \
+        kernel_info as k7_kernel_info
+    full = max((c for c in k7_seen.values() if c[0][0].dim() == 5),
+               key=lambda c: (c[0][1].shape[-2], c[0][0].shape[-2]))
+    local = max((c for c in k7_seen.values() if c[0][0].dim() == 6),
+                key=lambda c: c[0][0].numel())
+    t7 = {}
+    with torch.inference_mode():
+        for name, (a, _, o) in (("full", full), ("local", local)):
+            q, kk, v, scale = a[:4]
+            n, lq, lk, d = (q.numel() // (q.shape[-2] * q.shape[-1]),
+                            q.shape[-2], kk.shape[-2], q.shape[-1])
+            ms = _cuda_ms(lambda: fused_window_attention(*a), 10)
+            plain = _cuda_ms(lambda: fused_window_attention_reference(*a), 5)
+            q3, k3, v3 = (x.reshape(n, -1, d) for x in (q, kk, v))
+            lib = _cuda_ms(lambda: F.scaled_dot_product_attention(
+                q3, k3, v3, scale=scale), 10)
+            lib_err = float((F.scaled_dot_product_attention(
+                q3, k3, v3, scale=scale).view_as(o) - o).abs().max())
+            nbytes, ops = _work_window_attention(q, kk, v, o)
+            bound = _bound(nbytes, ops, "f32")
+            # the same work as three TF32 products on the tensor cores
+            bound_tc = _bound(nbytes, 3 * ops, "tf32")
+            t7[name] = (ms, plain, lib, nbytes, ops)
+            print(f"[{card}] {tag} K7 {name} path n {n} Lq {lq} Lk {lk} "
+                  f"D {d}: {ms:.4f} ms a call ({ops / ms / 1e9:.2f} TFLOP/s), "
+                  f"plain {plain:.4f} ms, SDPA f32 {lib:.4f} ms (max |diff| "
+                  f"to K7 {lib_err:.2e}), bound {bound[0]:.4f} ms "
+                  f"({bound[1]}, f32 on the CUDA cores; "
+                  f"{100.0 * bound[0] / ms:.1f} % of it), 3xTF32 bound "
+                  f"{bound_tc[0]:.4f} ms ({bound_tc[1]}, tensor cores at 495 "
+                  f"TFLOP/s; {100.0 * bound_tc[0] / ms:.1f} % of it)")
+            _print_info(card, f"{tag} K7 {name} path",
+                        k7_kernel_info(d, q.dtype, lq))
+    pair = [sum(t7[p][i] for p in t7) for i in range(5)]
+    return pair, _bound(pair[3], 3 * pair[4], "tf32")
+
+
 def _propainter(card, record) -> None:
     import pytorchcv_tpu_torch as pt
     import pytorchcv_tpu_torch.models.propainter as pp_mod
     import pytorchcv_tpu_torch.models.propainter_rfc as rfc_mod
     import pytorchcv_tpu_torch.nn.deform as deform_mod
-    import torch.nn.functional as F
     from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from pytorchcv_tpu_torch.kernels._build import no_tf32
     from pytorchcv_tpu_torch.kernels.attention import (
         fused_window_attention, fused_window_attention_reference)
-    from pytorchcv_tpu_torch.kernels.attention import \
-        kernel_info as k7_kernel_info
     from pytorchcv_tpu_torch.kernels.deform_patch import (
         deform_sample, deform_sample_reference)
 
@@ -2593,42 +2690,8 @@ def _propainter(card, record) -> None:
           f"{', '.join(f'{x:.3f}' for x in ip_ms)} ms; generator calls "
           f"{', '.join(f'{x:.3f}' for x in it_ms)} ms (sum "
           f"{sum(it_ms):.3f}, {len(it_ms) * 1000.0 / sum(it_ms):.3f} calls/s)")
-    full = max((c for c in k7_seen.values() if c[0][0].dim() == 5),
-               key=lambda c: (c[0][1].shape[-2], c[0][0].shape[-2]))
-    local = max((c for c in k7_seen.values() if c[0][0].dim() == 6),
-                key=lambda c: c[0][0].numel())
-    t7 = {}
+    pair, pair_bound = _k7_pair(card, "propainter", k7_seen)
     with torch.inference_mode():
-        for name, (a, _, o) in (("full", full), ("local", local)):
-            q, kk, v, scale = a[:4]
-            n, lq, lk, d = (q.numel() // (q.shape[-2] * q.shape[-1]),
-                            q.shape[-2], kk.shape[-2], q.shape[-1])
-            ms = _cuda_ms(lambda: fused_window_attention(*a), 10)
-            plain = _cuda_ms(lambda: fused_window_attention_reference(*a), 5)
-            q3, k3, v3 = (x.reshape(n, -1, d) for x in (q, kk, v))
-            lib = _cuda_ms(lambda: F.scaled_dot_product_attention(
-                q3, k3, v3, scale=scale), 10)
-            lib_err = float((F.scaled_dot_product_attention(
-                q3, k3, v3, scale=scale).view_as(o) - o).abs().max())
-            nbytes, ops = _work_window_attention(q, kk, v, o)
-            bound = _bound(nbytes, ops, "f32")
-            # the same work as three TF32 products on the tensor cores
-            bound_tc = _bound(nbytes, 3 * ops, "tf32")
-            t7[name] = (ms, plain, lib, nbytes, ops)
-            print(f"[{card}] propainter K7 {name} path n {n} Lq {lq} Lk {lk} "
-                  f"D {d}: {ms:.4f} ms a call ({ops / ms / 1e9:.2f} TFLOP/s), "
-                  f"plain {plain:.4f} ms, SDPA f32 {lib:.4f} ms (max |diff| "
-                  f"to K7 {lib_err:.2e}), bound {bound[0]:.4f} ms "
-                  f"({bound[1]}, f32 on the CUDA cores; "
-                  f"{100.0 * bound[0] / ms:.1f} % of it), 3xTF32 bound "
-                  f"{bound_tc[0]:.4f} ms ({bound_tc[1]}, tensor cores at 495 "
-                  f"TFLOP/s; {100.0 * bound_tc[0] / ms:.1f} % of it)")
-            _print_info(card, f"propainter K7 {name} path",
-                        k7_kernel_info(d, q.dtype, lq))
-        pair = [sum(t7[p][i] for p in t7) for i in range(5)]
-        # the record's bound: the products as three TF32 products on the
-        # tensor cores, the fastest way the card computes them in f32
-        pair_bound = _bound(pair[3], 3 * pair[4], "tf32")
         # one generator call at the clip's largest t, split into its parts
         a_big = keep["largest"]
         tf = model.transformers.transformer
@@ -2730,6 +2793,443 @@ def _propainter(card, record) -> None:
         launches["deform_sample"], max(errs5), ms5, plain5, bound5, lib5))
 
 
+def _pipe_clip(seed: int):
+    """The pipeline's clip on the card: PIPE_FRAMES seeded uint8 frames at
+    PIPE_HW scaled to [-1, 1] and ``_rfc_video``'s moving ellipse masks.
+    Frame t is a seeded texture (uint8 noise at a quarter of the size,
+    upsampled) seen through ``_rfc_video``'s smooth displacement field t
+    (|d| <= 10 px, drifting ~1 px a frame) plus a pan of (0.75, 0.25) px a
+    frame: consecutive frames move by 1-3 px, so RAFT's flows mean
+    something."""
+    import torch.nn.functional as F
+    t, (h, w), m = PIPE_FRAMES, PIPE_HW, 80
+    disp, masks = _rfc_video(seed, t + 1, PIPE_HW)
+    g = torch.Generator().manual_seed(seed)
+    tex = torch.randint(0, 256, (1, 3, (h + 2 * m) // 4, (w + 2 * m) // 4),
+                        generator=g).to(torch.float32).cuda()
+    tex = F.interpolate(tex, (h + 2 * m, w + 2 * m), mode="bilinear",
+                        align_corners=False)
+    ys = torch.arange(h, device="cuda", dtype=torch.float32)[:, None]
+    xs = torch.arange(w, device="cuda", dtype=torch.float32)[None, :]
+    frames = []
+    for i in range(t):
+        px = xs + m + disp[i, 0] + 0.75 * i - 30.0
+        py = ys + m + disp[i, 1] + 0.25 * i - 10.0
+        grid = torch.stack([2.0 * px / (w + 2 * m - 1) - 1.0,
+                            2.0 * py / (h + 2 * m - 1) - 1.0], dim=-1)
+        frames.append(F.grid_sample(tex, grid[None], align_corners=True)[0])
+    u8 = torch.stack(frames).round().clamp(0, 255).to(torch.uint8)
+    return u8.to(torch.float32) / 127.5 - 1.0, masks[:t]
+
+
+def _tame_raft(model) -> None:
+    """RAFT's flow head's last conv at a hundredth of the init's scale. At
+    the init's scale each of the 20 refinements adds a random delta of tens
+    of px: on a 240x432 pair that moves ~2 px, the flows reach ~300 px
+    (mean 55) and the recurrence amplifies rounding (the port's f32 forward
+    against the same model in f64: 3e-3 of max |flow|; a CPU run). At a
+    hundredth the flows stay within ~5 px and the same comparison gives
+    1.2e-5."""
+    with torch.no_grad():
+        model.update_block.flow_head.conv2.weight.mul_(0.01)
+
+
+def _tame_rfc(model) -> None:
+    """The last conv of each RFC ``conv_offset`` at a tenth of the init's
+    scale, as the CPU parity test draws it (``tests/test_torch_port_rfc.py``;
+    the reference zero-initializes it): at the init's scale the offsets
+    saturate at +-5 px and the recurrence is chaotic."""
+    with torch.no_grad():
+        for align in model.hg.skip_seq.skip4.feat_prop_module.deform_align \
+                .values():
+            align.conv_offset.conv4.conv.weight.mul_(0.1)
+
+
+@contextlib.contextmanager
+def _buffer_peaks(stages):
+    """The largest length each stage's buffer reaches, read before every
+    trim (the iterator trims each buffer after every chunk)."""
+    peaks = dict.fromkeys(stages, 0)
+    for name, seq in stages.items():
+        def trim(start, _n=name, _s=seq, _trim=seq.trim_buffer_to):
+            if _s.buffer is not None:
+                peaks[_n] = max(peaks[_n], len(_s.buffer))
+            return _trim(start)
+        seq.trim_buffer_to = trim
+    try:
+        yield peaks
+    finally:
+        for seq in stages.values():
+            del seq.trim_buffer_to
+
+
+@contextlib.contextmanager
+def _timed_stages(named):
+    """CUDA events around every call of each sequencer's
+    ``_calc_data_items``: a stage's own work (the engine reads its sources,
+    and so runs the stages before it, first). Yields name -> [(start,
+    end)]."""
+    marks = {name: [] for name in named}
+    for name, seq in named.items():
+        def timed(chunks, _n=name, _calc=seq._calc_data_items):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = _calc(chunks)
+            end.record()
+            marks[_n].append((start, end))
+            return out
+        seq._calc_data_items = timed
+    try:
+        yield marks
+    finally:
+        for seq in named.values():
+            del seq._calc_data_items
+
+
+def _profiled_pass(fn):
+    """One call of ``fn`` under ``torch.profiler`` (CUDA activity): its
+    ms by CUDA events, the ms in which some device operation ran (the union
+    of their intervals; None where the profiler recorded none), and each
+    device operation's summed ms and count, by name. It reads the raw
+    trace (``kineto_results``): building the profiler's own event tree for
+    a pipeline pass (~0.4 M device operations) took 72 s."""
+    from torch.profiler import ProfilerActivity, profile
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ev[0].record()
+        fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+    kernels, spans = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        start, dur = e.start_ns(), e.duration_ns()
+        spans.append((start, start + dur))
+        name = _kernel_name(e.name())
+        ms, n = kernels.get(name, (0.0, 0))
+        kernels[name] = (ms + dur / 1e6, n + 1)
+    spans.sort()
+    covered, reach = 0, None
+    for start, end in spans:
+        covered += max(0, end - (start if reach is None else max(start,
+                                                                 reach)))
+        reach = end if reach is None else max(reach, end)
+    return (ev[0].elapsed_time(ev[1]), covered / 1e6 if spans else None,
+            kernels)
+
+
+def _print_device_items(card, tag, kernels, top: int = 8):
+    """The largest device items of a ``_profiled_pass``, ms and count."""
+    items = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
+    print(f"[{card}] {tag} largest device items (ms, count): " + "; ".join(
+        f"{n_[:70]} {v[0]:.3f} ({v[1]})" for n_, v in items))
+
+
+def _pipeline(card, record) -> None:
+    import pytorchcv_tpu_torch as pt
+    import pytorchcv_tpu_torch.models.propainter as pp_mod
+    import pytorchcv_tpu_torch.models.raft as raft_mod
+    import pytorchcv_tpu_torch.nn.deform as deform_mod
+    from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from pytorchcv_tpu_torch.kernels._build import no_tf32
+    from pytorchcv_tpu_torch.kernels.deform_patch import (
+        deform_sample, deform_sample_reference)
+    from pytorchcv_tpu_torch.models.propainter_rfc_stream import \
+        ProPainterRFCSequencer
+    from pytorchcv_tpu_torch.models.propainter_stream import (
+        ProPainterIterator, TensorSequencer)
+    from pytorchcv_tpu_torch.models.raft_stream import RAFTSequencer
+
+    # -- 26. the pipeline slice: ProPainterIterator from raw frames
+    t_phase = time.perf_counter()
+    raft = pt.get_model("raft_things", rng=0, device="cuda",
+                        in_normalize=False, iters=PIPE_RAFT_ITERS)
+    _tame_raft(raft)
+    rfc = pt.get_model("propainter_rfc", rng=0, device="cuda")
+    _tame_rfc(rfc)
+    gen = pt.get_model("propainter", rng=0, device="cuda")
+    _tame_propainter(gen)
+    k7_per_call = 2 * len(gen.transformers.transformer)
+    frames, masks = _pipe_clip(seed=7)
+    t_clip = PIPE_FRAMES
+
+    def iterator(host=False):
+        return ProPainterIterator(TensorSequencer(frames),
+                                  TensorSequencer(masks), raft, rfc, gen,
+                                  host_buffers=host)
+    it = iterator()
+    rfc_k5 = [4 * (m.sources[0].stop - m.sources[0].start - 1)
+              for m in it.comp_flow_sequencer.window_index]
+    print(f"pipeline {t_clip} frames at {PIPE_HW[0]}x{PIPE_HW[1]}, chunks "
+          f"of {it.step}; windows (target:offset <- sources): RAFT "
+          f"{it.flow_sequencer.window_index}; RFC "
+          f"{it.comp_flow_sequencer.window_index} (K5 {rfc_k5}); IP "
+          f"{it.prop_framemask_sequencer.window_index}; IT "
+          f"{len(it.trans_frame_sequencer.window_index)} windows")
+    calls = {"raft": [], "gen": []}
+
+    def pre(name):
+        def hook(m, a):
+            calls[name].append([a[4] if name == "gen" else a[0].shape[0],
+                                dict(LAUNCHES)])
+        return hook
+
+    def post(name):
+        def hook(m, a, out):
+            c = calls[name][-1]
+            c[1] = {k: LAUNCHES[k] - c[1][k] for k in LAUNCHES}
+        return hook
+    hooks = [mod.register_forward_pre_hook(pre(name))
+             for name, mod in (("raft", raft), ("gen", gen))]
+    hooks += [mod.register_forward_hook(post(name))
+              for name, mod in (("raft", raft), ("gen", gen))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stages = {"generated frames": it.trans_frame_sequencer,
+              "propagated frames": it.prop_framemask_sequencer,
+              "completed flows": it.comp_flow_sequencer,
+              "flows": it.flow_sequencer, "masks": it.masks,
+              "frames": it.frames}
+    with _buffer_peaks(stages) as peaks, \
+            _first_calls(deform_mod, "deform_sample") as (k5_seen, _), \
+            _first_calls(pp_mod, "fused_window_attention") as (k7_seen, _):
+        reset_launch_counts()
+        chunks = list(it)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    s_iter = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    out = torch.cat(chunks)
+    print(f"pipeline launches over {t_clip} frames ({len(chunks)} chunks, "
+          f"{len(calls['raft'])} RAFT calls, {len(calls['gen'])} generator "
+          f"calls, {s_iter:.2f} s with the recording): {launches}")
+    print("pipeline largest buffer of each stage (frames): " + ", ".join(
+        f"{n} {v}" for n, v in peaks.items()))
+    for i, (pairs, d) in enumerate(calls["raft"]):
+        _require(not any(d.values()), f"RAFT call {i} ({pairs} pairs) "
+                 f"launched {d}")
+    gen_k5 = 0
+    for i, (l_t, d) in enumerate(calls["gen"]):
+        want = dict.fromkeys(LAUNCHES, 0)
+        want.update(window_attention=k7_per_call,
+                    deform_sample=2 * (l_t - 1))
+        _require(d == want, f"pipeline IT call {i} launches {d}, want {want}")
+        gen_k5 += 2 * (l_t - 1)
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(window_attention=k7_per_call * len(calls["gen"]),
+                deform_sample=sum(rfc_k5) + gen_k5)
+    _require(launches == want, f"pipeline launches {launches}, want {want}")
+    _require(tuple(out.shape) == (t_clip, 3, *PIPE_HW), out.shape)
+    _require(bool(torch.isfinite(out).all()), "non-finite frames")
+    known = (masks == 0).expand_as(frames)
+    _require(torch.equal(out[known], frames[known]),
+             "pipeline frames outside the masks changed")
+    max_out = float(out.abs().max())
+    print(f"pipeline frames {tuple(out.shape)}: finite, equal to the input "
+          f"outside the masks ({float(masks.mean()):.4f} of pixels masked), "
+          f"max |out| {max_out:.4f}; K5 {sum(rfc_k5)} on RFC + {gen_k5} on "
+          f"the generator, K7 {k7_per_call} x {len(calls['gen'])}, RAFT "
+          f"none")
+
+    # the same stages one after another, untrimmed
+    flows = RAFTSequencer(frames, raft)[0:t_clip - 1]
+    comp = ProPainterRFCSequencer(flows, masks, rfc)[0:t_clip - 1]
+    staged = _pp_chain(gen, frames, masks, comp)[2][0:t_clip]
+    torch.cuda.synchronize()
+    print(f"pipeline max |flow| after RAFT {float(flows.abs().max()):.4f} "
+          f"(mean {float(flows.abs().mean()):.4f}), after RFC "
+          f"{float(comp.abs().max()):.4f}")
+    del flows, comp
+    delta = float((out - staged).abs().max())
+    print(f"pipeline iterator vs the stages run one after another, "
+          f"untrimmed: {'bit-equal' if torch.equal(out, staged) else 'DIFFER'}"
+          f", max |delta| {delta:.3e} = {delta / max_out:.3e} of max |out| "
+          f"(gate {PIPE_ITER_TOL})")
+    _require(delta <= PIPE_ITER_TOL * max_out,
+             f"iterator vs stages: {delta} > {PIPE_ITER_TOL} * {max_out}")
+    del staged
+    host = torch.cat([torch.from_numpy(c) for c in iterator(host=True)])
+    hdelta = float((host - out.cpu()).abs().max())
+    print(f"pipeline host_buffers=True vs device buffers: "
+          f"{'bit-equal' if torch.equal(host, out.cpu()) else 'DIFFER'}, max "
+          f"|delta| {hdelta:.3e} = {hdelta / max_out:.3e} of max |out| (gate "
+          f"{PIPE_ITER_TOL})")
+    _require(hdelta <= PIPE_ITER_TOL * max_out,
+             f"host buffers: {hdelta} > {PIPE_ITER_TOL} * {max_out}")
+    del host
+    # RAFT on the first window's first pairs against a CPU copy
+    n_cpu = PIPE_RAFT_CPU_PAIRS
+    a, b = frames[:n_cpu], frames[1:n_cpu + 1]
+    with torch.inference_mode():
+        on_card = raft(a, b)
+        cpu_raft = copy.deepcopy(raft).cpu()
+        t0 = time.perf_counter()
+        on_cpu = cpu_raft(a.cpu(), b.cpu())
+        s_cpu = time.perf_counter() - t0
+    del cpu_raft
+    rel = max(float((x.cpu() - y).abs().max() / y.abs().max())
+              for x, y in zip(on_card, on_cpu))
+    print(f"pipeline RAFT on {n_cpu} pairs, card vs CPU: max |delta| "
+          f"{rel:.3e} of max |flow| {float(on_cpu[1].abs().max()):.4f} (gate "
+          f"{PIPE_RAFT_CPU_TOL}); the CPU took {s_cpu:.1f} s on "
+          f"{torch.get_num_threads()} threads")
+    _require(rel <= PIPE_RAFT_CPU_TOL, f"RAFT card vs CPU: {rel}")
+    # the two lookups at the path's shapes: the last refinement's call of
+    # one RAFT window
+    win = it.flow_sequencer.window_index[0].sources[0]
+    a, b = frames[win.start:win.stop - 1], frames[win.start + 1:win.stop]
+    with _calls_of(raft_mod, "lookup_corr", PIPE_RAFT_ITERS) as lk, \
+            torch.inference_mode():
+        raft(a, b)
+    (pyramid, coords, radius), _, corr = lk[-1]
+    del lk
+    with torch.inference_mode(), no_tf32():
+        gathered = raft_mod.lookup_corr_gather(pyramid, coords, radius)
+    lk_err = float((corr - gathered).abs().max())
+    rel = lk_err / float(gathered.abs().max())
+    print(f"pipeline lookup_corr vs lookup_corr_gather at corr "
+          f"{tuple(pyramid[0].shape)}, coords {tuple(coords.shape)}, radius "
+          f"{radius}: max |delta| {lk_err:.3e} = {rel:.3e} of max |corr| "
+          f"(gate {PIPE_LOOKUP_TOL})")
+    _require(rel <= PIPE_LOOKUP_TOL, f"lookups differ: {rel}")
+    # K5 and K7 against their plain versions on the pipeline's calls
+    errs5 = [_check_deform(a_, o_, "pipeline")
+             for _, (a_, _k, o_) in sorted(k5_seen.items())]
+    errs7 = [_check_window_attention(*a_[:4], None, o_, "pipeline")
+             for _, (a_, _k, o_) in sorted(k7_seen.items())]
+    torch.cuda.synchronize()
+    print(f"phase 26: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 27. timing: one pass after the passes above, then its parts
+    t_phase = time.perf_counter()
+    it = iterator()
+    named = {"RAFT": it.flow_sequencer, "RFC": it.comp_flow_sequencer,
+             "IP": it.prop_framemask_sequencer,
+             "IT": it.trans_frame_sequencer, "IM": it.inp_frame_sequencer}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with _timed_stages(named) as marks:
+        ev[0].record()
+        n_out = sum(len(c) for c in it)
+        ev[1].record()
+        torch.cuda.synchronize()
+    _require(n_out == t_clip, n_out)
+    ms_pass = ev[0].elapsed_time(ev[1])
+    stage_ms = {n: sum(s_.elapsed_time(e_) for s_, e_ in marks[n])
+                for n in named}
+    rest = ms_pass - sum(stage_ms.values())
+    pairs = t_clip - 1
+    print(f"[{card}] pipeline {t_clip} frames at {PIPE_HW[0]}x{PIPE_HW[1]} "
+          f"from raw frames (f32, no TF32): {ms_pass:.3f} ms, "
+          f"{t_clip * 1000.0 / ms_pass:.3f} inpainted frames/s; " + ", ".join(
+              f"{n} {v:.3f} ms ({100.0 * v / ms_pass:.1f} %)"
+              for n, v in stage_ms.items()) + f", the engine and the rest "
+          f"{rest:.3f} ms ({100.0 * rest / ms_pass:.1f} %)")
+    print(f"[{card}] pipeline RAFT: {pairs} frame pairs both ways in "
+          f"{stage_ms['RAFT']:.3f} ms, {pairs * 1000.0 / stage_ms['RAFT']:.3f}"
+          f" pairs/s, {stage_ms['RAFT'] / (2 * pairs):.3f} ms a pair and "
+          f"direction ({len(marks['RAFT'])} windows)")
+    parts = [("fnet", raft.fnet), ("cnet", raft.cnet),
+             ("update", raft.update_block), ("call", raft)]
+    with torch.inference_mode():
+        raft(a, b)
+        with _timed_modules(parts) as mods, \
+                _timed_calls(raft_mod, "lookup_corr") as lk_m, \
+                _timed_calls(raft_mod, "build_corr_pyramid") as py_m, \
+                _timed_calls(raft_mod, "upsample_flow_using_mask") as up_m:
+            raft(a, b)
+            torch.cuda.synchronize()
+        ms_lk = _cuda_ms(lambda: raft_mod.lookup_corr(pyramid, coords,
+                                                      radius), 10)
+        ms_gather = _cuda_ms(lambda: raft_mod.lookup_corr_gather(
+            pyramid, coords, radius), 10)
+    part = {n: sum(_event_ms(mods, n)) for n, _ in parts}
+    lk_ms = [s_.elapsed_time(e_) for s_, e_ in lk_m]
+    py_ms = sum(s_.elapsed_time(e_) for s_, e_ in py_m)
+    up_ms = sum(s_.elapsed_time(e_) for s_, e_ in up_m)
+    rest = part["call"] - part["fnet"] - part["cnet"] - part["update"] - \
+        py_ms - sum(lk_ms) - up_ms
+    print(f"[{card}] pipeline one RAFT call ({a.shape[0]} pairs, "
+          f"{PIPE_RAFT_ITERS} refinements): {part['call']:.3f} ms; fnet "
+          f"(both frames) {part['fnet']:.3f}, cnet {part['cnet']:.3f}, "
+          f"pyramid {py_ms:.3f}, lookups {len(lk_ms)} x "
+          f"{sum(lk_ms) / max(len(lk_ms), 1):.3f} = {sum(lk_ms):.3f}, update "
+          f"blocks {len(_event_ms(mods, 'update'))} x "
+          f"{part['update'] / max(len(_event_ms(mods, 'update')), 1):.3f} = "
+          f"{part['update']:.3f}, upsampling {up_ms:.3f}, the rest {rest:.3f}"
+          f" ms")
+    with torch.inference_mode():
+        ms_raft, covered_raft, raft_items = _profiled_pass(lambda: raft(a, b))
+    if covered_raft is not None:
+        idle = 100.0 * (1 - covered_raft / ms_raft)
+        print(f"[{card}] pipeline one RAFT call under the profiler: "
+              f"{ms_raft:.3f} ms, some device operation running "
+              f"{covered_raft:.3f} ms (idle {idle:.1f} %), "
+              f"{sum(v[1] for v in raft_items.values())} device operations")
+        _print_device_items(card, "pipeline one RAFT call", raft_items)
+    print(f"[{card}] pipeline lookup_corr (banded one-hot products) "
+          f"{ms_lk:.4f} ms a call, lookup_corr_gather (grid_sample) "
+          f"{ms_gather:.4f} ms, at corr {tuple(pyramid[0].shape)}, radius "
+          f"{radius}")
+    del pyramid, coords, corr, gathered
+    it = iterator()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ms_prof, covered, kernels = _profiled_pass(lambda: list(it))
+    print(f"pipeline profiled pass and its reading: "
+          f"{time.perf_counter() - t0:.1f} s")
+    run = dict(LAUNCHES)
+    k5_ms, k5_n = (sum(v[i] for k_, v in kernels.items()
+                       if "deform_sample_kernel" in k_) for i in range(2))
+    k7_ms, k7_n = (sum(v[i] for k_, v in kernels.items()
+                       if "window_attention_kernel" in k_) for i in range(2))
+    busy = sum(v[0] for v in kernels.values())
+    share = (k5_n + k7_n) / max(run["deform_sample"] +
+                                run["window_attention"], 1)
+    if covered is None:
+        print(f"[{card}] pipeline device busy and idle share: not measured "
+              f"(the profiler listed no device intervals; kernel times "
+              f"summed {busy:.3f} ms of {ms_prof:.3f})")
+    else:
+        print(f"[{card}] pipeline under the profiler: {ms_prof:.3f} ms a "
+              f"pass, some device operation running {covered:.3f} ms, idle "
+              f"share {100.0 * (1 - covered / ms_prof):.1f} %; kernel times "
+              f"summed {busy:.3f} ms, {sum(v[1] for v in kernels.values())} "
+              f"device operations; the profiler recorded {k5_n} of "
+              f"{run['deform_sample']} K5 and {k7_n} of "
+              f"{run['window_attention']} K7 launches "
+              f"({100.0 * share:.0f} %)")
+    _print_device_items(card, "pipeline pass", kernels)
+    print(f"[{card}] pipeline K5 inside the pipeline: {k5_ms:.3f} ms over "
+          f"{k5_n} recorded launches ({k5_ms / max(k5_n, 1):.4f} a launch); "
+          f"K7 {k7_ms:.3f} ms over {k7_n} ({k7_ms / max(k7_n, 1):.4f} a "
+          f"launch)")
+    # the record: K5 at the path's first call (RFC's shape), K7 on a
+    # block's two calls at the largest t
+    a5, k5k, o5 = next(iter(k5_seen.values()))
+    with torch.inference_mode():
+        ms5 = _cuda_ms(lambda: deform_sample(*a5, **k5k), K5_REPS)
+        plain5 = _cuda_ms(lambda: deform_sample_reference(*a5[:4]), 20)
+        lib5, _ = _deform_library(a5, o5)
+    print(f"[{card}] pipeline K5 at x {tuple(a5[0].shape)} G {a5[3]}: "
+          f"{ms5:.4f} ms a call back to back, plain {plain5:.4f} ms, "
+          f"grid_sample x mask {lib5:.4f} ms")
+    pair, pair_bound = _k7_pair(card, "pipeline", k7_seen)
+    record.append(_record_entry(
+        "deform_sample", "propainter_iterator", "deform_sample.cu",
+        "pytorchcv_tpu/kernels/deform_patch.py:81",
+        launches["deform_sample"], max(errs5), ms5, plain5,
+        _work_deform(a5, o5), lib5))
+    record.append(_record_entry(
+        "window_attention", "propainter_iterator", "window_attention.cu",
+        "pytorchcv_tpu/kernels/attention.py:91",
+        launches["window_attention"], max(errs7), pair[0], pair[1],
+        pair_bound, pair[2]))
+    print(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is False; "
@@ -2779,6 +3279,9 @@ def main() -> None:
         t0 = time.perf_counter()
         _se_group_route(card, record, name)
         print(f"{name} phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _pipeline(card, record)
+    print(f"pipeline phases: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": record}))

@@ -18,12 +18,14 @@ from .propainter_rfc import calc_bidirectional_opt_flow_completion_by_pprfc
 __all__ = ["ProPainterRFCSequencer", "chunks_on", "model_device"]
 
 
-def _resolve_apply(model, name: str):
+def _resolve_apply(model, name: str, device=None, **kwargs):
     """A module or a callable as given; None builds the registered model
-    ``name`` on the card (JAX ``models/raft_stream.py:17``)."""
+    ``name`` with constructor ``kwargs`` on ``device`` (default: the card)
+    (JAX ``models/raft_stream.py:17``). Nothing is memoized: torch keeps
+    no compiled program that a second construction would rebuild."""
     if model is None:
         from ..model_provider import get_model
-        model = get_model(name)
+        model = get_model(name, device=device, **kwargs)
     return model
 
 
@@ -55,11 +57,14 @@ class ProPainterRFCSequencer(WindowBufferedSequencer):
     ``propainter_rfc_stream.py:17``). Sources: ``flows`` (T-1, 4, H, W)
     and ``masks`` (T, 1, H, W); it produces completed flows (T-1, 4, H, W).
     Each window runs under ``torch.inference_mode`` in f32 with TF32 off
-    (``no_tf32``) on the model's device; a tensor on another device raises,
-    numpy chunks (``host_buffers``) are copied there."""
+    (``no_tf32``) on the model's device (``pprfc_model`` None builds
+    ``propainter_rfc`` on ``device``, by default the card); a tensor on
+    another device raises, numpy chunks (``host_buffers``) are copied
+    there."""
 
     def __init__(self, flows, masks, pprfc_model=None,
-                 window_size: int = 80, padding: int = 5, **kwargs):
+                 window_size: int = 80, padding: int = 5, device=None,
+                 **kwargs):
         assert len(masks) > 0
         super().__init__(
             data=[flows, masks],
@@ -67,7 +72,7 @@ class ProPainterRFCSequencer(WindowBufferedSequencer):
                 video_length=len(masks), window_size=window_size,
                 padding=padding),
             **kwargs)
-        self.net = _resolve_apply(pprfc_model, "propainter_rfc")
+        self.net = _resolve_apply(pprfc_model, "propainter_rfc", device)
 
     def _calc_data_items(self, raw_data_chunk_list):
         assert len(raw_data_chunk_list) == 2

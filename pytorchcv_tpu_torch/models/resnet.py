@@ -11,6 +11,7 @@ from torch import nn
 
 from ..nn import Sequential, conv1x1_block, conv3x3_block, conv7x7_block
 from ..nn.activ import Activation, create_activation
+from ..nn.conv import Normalization
 from .registry import register_model
 from .shell import ImageClassifier
 
@@ -19,40 +20,52 @@ __all__ = ["ResBlock", "ResBottleneck", "ResUnit", "ResInitBlock",
 
 
 class ResBlock(nn.Module):
-    """Two 3x3 conv blocks; no activation after the second. ProPainter's
-    take ``bias``, no BN and LeakyReLU (JAX ``models/resnet.py:32``)."""
+    """Two 3x3 conv blocks; ``final_activation`` (none by default) after
+    the second. ProPainter's take ``bias``, no BN and LeakyReLU, RAFT's
+    encoder ``bias``, instance norm or none and a final ReLU (JAX
+    ``models/resnet.py:32``)."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int,
-                 bias: bool = False, normalization: bool = True,
-                 activation: Activation = True):
+                 bias: bool = False, normalization: Normalization = True,
+                 activation: Activation = True,
+                 final_activation: Activation = False):
         super().__init__()
         cell = dict(bias=bias, normalization=normalization)
         self.conv1 = conv3x3_block(in_channels, out_channels, stride=stride,
                                    activation=activation, **cell)
         self.conv2 = conv3x3_block(out_channels, out_channels,
-                                   activation=False, **cell)
+                                   activation=final_activation, **cell)
 
     def forward(self, x):
         return self.conv2(self.conv1(x))
 
 
 class ResBottleneck(nn.Module):
-    """1x1 down, 3x3, 1x1 up. The stride sits on conv1 when
-    ``conv1_stride`` (pytorchcv resnet50), else on conv2 (resnet50b); the
-    3x3 takes ``padding`` and ``dilation`` (the dilated ResNet(D))."""
+    """1x1 down, 3x3, 1x1 up, ``final_activation`` (none by default) after
+    the last. The stride sits on conv1 when ``conv1_stride`` (pytorchcv
+    resnet50), else on conv2 (resnet50b); the 3x3 takes ``padding`` and
+    ``dilation`` (the dilated ResNet(D)); ``bias`` and ``normalization``
+    reach all three (JAX ``models/resnet.py:55``)."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int,
                  conv1_stride: bool, bottleneck_factor: int = 4,
-                 padding: int = 1, dilation: int = 1):
+                 padding: int = 1, dilation: int = 1, bias: bool = False,
+                 normalization: Normalization = True,
+                 activation: Activation = True,
+                 final_activation: Activation = False):
         super().__init__()
         mid = out_channels // bottleneck_factor
+        cell = dict(bias=bias, normalization=normalization)
         self.conv1_stride = conv1_stride
         self.conv1 = conv1x1_block(in_channels, mid,
-                                   stride=stride if conv1_stride else 1)
+                                   stride=stride if conv1_stride else 1,
+                                   activation=activation, **cell)
         self.conv2 = conv3x3_block(mid, mid,
                                    stride=1 if conv1_stride else stride,
-                                   padding=padding, dilation=dilation)
-        self.conv3 = conv1x1_block(mid, out_channels, activation=False)
+                                   padding=padding, dilation=dilation,
+                                   activation=activation, **cell)
+        self.conv3 = conv1x1_block(mid, out_channels,
+                                   activation=final_activation, **cell)
 
     def forward(self, x):
         return self.conv3(self.conv2(self.conv1(x)))
@@ -60,23 +73,28 @@ class ResBottleneck(nn.Module):
 
 class ResUnit(nn.Module):
     """body + identity (a 1x1 conv block when the shape changes) +
-    ``final_activation`` (ReLU by default). The simple body takes ``bias``,
-    ``normalization`` and ``activation`` (JAX ``models/resnet.py:90``)."""
+    ``final_activation`` (ReLU by default). Both bodies take ``bias``,
+    ``normalization`` (True BN, a factory of channels, or None),
+    ``activation`` and ``final_body_activation``, the activation of the
+    body's last conv before the add (JAX ``models/resnet.py:90``)."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int,
                  bottleneck: bool, conv1_stride: bool, padding: int = 1,
                  dilation: int = 1, bias: bool = False,
-                 normalization: bool = True, activation: Activation = True,
+                 normalization: Normalization = True,
+                 activation: Activation = True,
+                 final_body_activation: Activation = False,
                  final_activation: Activation = True):
         super().__init__()
+        cell = dict(bias=bias, normalization=normalization,
+                    activation=activation,
+                    final_activation=final_body_activation)
         if bottleneck:
             self.body = ResBottleneck(in_channels, out_channels, stride,
                                       conv1_stride, padding=padding,
-                                      dilation=dilation)
+                                      dilation=dilation, **cell)
         else:
-            self.body = ResBlock(in_channels, out_channels, stride,
-                                 bias=bias, normalization=normalization,
-                                 activation=activation)
+            self.body = ResBlock(in_channels, out_channels, stride, **cell)
         if in_channels != out_channels or stride != 1:
             self.identity_conv = conv1x1_block(
                 in_channels, out_channels, stride=stride, bias=bias,

@@ -8,7 +8,7 @@ from .conv import (ConvBlock, conv1x1, conv1x1_block, conv3x3_block,
 from .arch import (Hourglass, IndexedSeq, MultiOutputSequential, Sequential,
                    positional_layers)
 from .att import SEBlock, round_channels
-from .norm import fold_batchnorm, lambda_batchnorm2d
+from .norm import fold_batchnorm, lambda_batchnorm2d, lambda_instancenorm2d
 from .ops import (BreakBlock, InterpolationBlock, global_avg_pool2d,
                   grid_sample, interpolate)
 
@@ -20,4 +20,4 @@ __all__ = ["ConvBlock", "conv1x1", "conv1x1_block", "conv3x3_block",
            "BreakBlock", "InterpolationBlock", "global_avg_pool2d",
            "SEBlock", "round_channels", "create_activation",
            "lambda_leakyrelu", "lambda_swish", "lambda_sigmoid", "lambda_tanh",
-           "lambda_batchnorm2d", "fold_batchnorm"]
+           "lambda_batchnorm2d", "lambda_instancenorm2d", "fold_batchnorm"]

@@ -19,7 +19,9 @@ chain (K8) at odd maps, ragged row tiles and WRN-50-2's widest stage, the
 int8 stem (K9) at odd sizes and at 224 -> 112 with O 64, 8 and 40 and
 after writes through ``.data``, the
 window-sum probe (K10) at odd sizes, the grouped K2 under every grouped
-tile at ragged pixel and channel tiles, the ResNet-50
+tile at ragged pixel and channel tiles, RAFT (no kernel of ours) against
+the CPU and its two correlation lookups against each other,
+``ProPainterIterator`` from frames and masks against the CPU, the ResNet-50
 logits with and without K8 chains, DANet's position-attention gradients
 against the CPU's and a direct f32 forward under torch's TF32 defaults;
 K2 under each of its block tiles at sizes no tile divides, and K3 at the
@@ -1306,3 +1308,114 @@ def test_direct_forward_computes_f32_under_tf32_defaults():
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = old
     assert torch.equal(y_default, y_f32)
+
+
+def _moving_frames(t, h, w, g):
+    """(t, 3, H, W) frames in [-1, 1]: a smooth random texture shifted by
+    ~3 px from frame to frame."""
+    ys = torch.arange(h, dtype=torch.float32)[:, None]
+    xs = torch.arange(w, dtype=torch.float32)[None, :]
+    out = torch.zeros(t, 3, h, w)
+    for _ in range(6):
+        fy, fx = (torch.rand(2, generator=g) * 0.15 + 0.02).tolist()
+        ph = torch.rand(3, 1, 1, generator=g) * 6.2832
+        for i in range(t):
+            out[i] += torch.sin(fy * (ys + 1.5 * i) + fx * (xs + 2.5 * i)
+                                + ph) / 3
+    return out.clamp(-1.0, 1.0)
+
+
+def _tamed_raft(name, **kw):
+    """RAFT on the CPU with its flow head's last conv at a tenth: at the
+    init's scale the random refinements reach flows of tens of px."""
+    model = pt.get_model(name, device="cpu", in_normalize=False, **kw)
+    with torch.no_grad():
+        model.update_block.flow_head.conv2.weight.mul_(0.1)
+    return model
+
+
+@pytest.mark.parametrize("name,iters", [("raft_things", 12),
+                                        ("raft_small", 12)])
+def test_raft_on_cuda_matches_cpu(name, iters):
+    """RAFT at 96x176 on 3 frame pairs, f32 with TF32 off, against the
+    same model on the CPU within 1e-4 of max |flow|; no hand kernel
+    runs."""
+    dev = _cuda()
+    model = _tamed_raft(name, iters=iters)
+    frames = _moving_frames(4, 96, 176, torch.Generator().manual_seed(14))
+    with torch.inference_mode():
+        y_cpu = model(frames[:-1], frames[1:])
+        gpu = copy.deepcopy(model).to(dev)
+        reset_launch_counts()
+        y_gpu = gpu(frames[:-1].to(dev), frames[1:].to(dev))
+    assert not any(LAUNCHES.values()), dict(LAUNCHES)
+    for g, c in zip(y_gpu, y_cpu):
+        err = float((g.cpu() - c).abs().max() / c.abs().max())
+        assert err <= 1e-4, err
+
+
+@pytest.mark.parametrize("radius", [4, 3])
+def test_raft_lookups_agree_on_cuda(radius):
+    """``lookup_corr`` (banded one-hot products) against
+    ``lookup_corr_gather`` (``grid_sample``) on the card at RAFT's 1/8 map
+    of 240x432 (30x54; levels 15x27, 7x13, 3x6), coordinates up to 4 px
+    off the map, within 1e-5 of max |corr|."""
+    dev = _cuda()
+    from pytorchcv_tpu_torch.models.raft import (build_corr_pyramid,
+                                                 lookup_corr,
+                                                 lookup_corr_gather)
+    g = torch.Generator().manual_seed(15)
+    f1, f2 = (torch.randn(2, 64, 30, 54, generator=g).to(dev)
+              for _ in range(2))
+    coords = (torch.rand(2, 2, 30, 54, generator=g) * torch.tensor(
+        [62.0, 38.0])[None, :, None, None] - 4.0).to(dev)
+    with no_tf32():
+        pyramid = build_corr_pyramid(f1, f2, 4)
+        got = lookup_corr(pyramid, coords, radius)
+        ref = lookup_corr_gather(pyramid, coords, radius)
+    assert got.shape == (2, 4 * (2 * radius + 1) ** 2, 30, 54)
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert err <= 1e-5, err
+
+
+def test_propainter_iterator_on_cuda_matches_cpu():
+    """``ProPainterIterator`` from frames and masks over 12 frames of
+    96x176 in chunks of 10: raft_small, RFC (its last offset convs at a
+    tenth) and the narrow generator on the card, image propagation there
+    too, against the same pipeline on the CPU within 1e-4 of max |out|;
+    K7 4 launches per generator call (3 calls), K5 2 (l_t - 1) per call on
+    the generator's propagation (RFC's 1/8 map, 12x22, is below K5's
+    window: its general route), no other kernel; host buffers equal device
+    buffers."""
+    dev = _cuda()
+    from pytorchcv_tpu_torch.models.propainter_stream import (
+        ProPainterIterator, TensorSequencer)
+    g = torch.Generator().manual_seed(16)
+    frames = _moving_frames(12, 96, 176, g)
+    masks = (torch.rand((12, 1, 96, 176), generator=g) > 0.9).float()
+    raft = _tamed_raft("raft_small", iters=12)
+    rfc = pt.get_model("propainter_rfc", device="cpu")
+    with torch.no_grad():
+        for align in rfc.hg.skip_seq.skip4.feat_prop_module.deform_align \
+                .values():
+            align.conv_offset.conv4.conv.weight.mul_(0.1)
+    gen = _narrow_propainter()
+
+    def run(device, host=False):
+        models = [copy.deepcopy(m).to(device) for m in (raft, rfc, gen)]
+        it = ProPainterIterator(
+            TensorSequencer(frames.to(device)),
+            TensorSequencer(masks.to(device)), *models, step=10,
+            host_buffers=host, device=device)
+        return [torch.as_tensor(c).cpu() for c in it]
+    y_cpu = torch.cat(run("cpu"))
+    reset_launch_counts()
+    y_gpu = run(dev)
+    want = {k: 0 for k in LAUNCHES}
+    want.update(window_attention=3 * 4, deform_sample=2 * (5 + 10 + 6))
+    assert LAUNCHES == want, dict(LAUNCHES)
+    err = float((torch.cat(y_gpu) - y_cpu).abs().max() / y_cpu.abs().max())
+    assert err <= 1e-4, err
+    y_host = run(dev, host=True)
+    for h, d in zip(y_host, y_gpu):
+        assert torch.equal(h, d)
