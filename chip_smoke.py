@@ -5,10 +5,11 @@ recurrent flow completion (RFC) streaming, bf16 EfficientNet-B0
 classification, ProPainter's generator (image propagation, the sparse
 window transformer, the mask blend) streaming, int8 WRN-50-2
 classification, int8 SE-ResNeXt-50, ResNeXt-50 and SENet-16
-classification, and video inpainting from raw frames through
+classification, video inpainting from raw frames through
 ``ProPainterIterator`` (RAFT flow, RFC, image propagation, the generator,
-the blend), on the port's hand-written CUDA kernels, with the int8 7x7
-stem and the window-sum probe on their own entry points.
+the blend), and int8 MobileNet v1 / v2 and bf16 MobileNetV3
+classification, on the port's hand-written CUDA kernels, with the int8
+7x7 stem and the window-sum probe on their own entry points.
 
     python3 chip_smoke.py
 
@@ -109,8 +110,9 @@ use (one nvcc per source, in parallel). Phases, each ending in
    TF32, depthwise blocks unfused: K6 0), top-1 agreement printed;
 14. EfficientNet timing at batch 128: serving images/s, K6 per forward
    beside its plain version, cuDNN's depthwise conv with the affine and
-   swish in bf16 and its bound; each distinct K6 call on the device and
-   back to back beside its bytes bound, cuDNN's depthwise conv alone and
+   swish in bf16 and its bound; each distinct K6 call on the device (the
+   mean over the launches the profiler recorded, ``_launch_ms``) and back
+   to back beside its bytes bound, cuDNN's depthwise conv alone and
    with the affine and swish, and its plan; K1 beside its plain version,
    the einsum and its bound (and its resources), cuDNN's other convs, the
    SE blocks and the BN fold replayed alone, and the device's busy time
@@ -169,7 +171,8 @@ use (one nvcc per source, in parallel). Phases, each ending in
    against its plain version at the probe tool's shapes (H 60, W 128, C
    128, n 6480, numpy seed 0), within 1e-5 of max |plain| and bit-equal
    to the fixed-order sum, 2 launches (the table of 714 distinct windows
-   and the gather), back to back and on the device, with its bound (the
+   and the gather), back to back and on the device (each kernel's mean
+   over the launches the profiler recorded), with its bound (the
    map read once against 240 adds per distinct window at the f32 add
    rate);
 23. the SE-ResNeXt-50 slice: ``make_serving_fn("seresnext50_32x4d", (256,
@@ -220,7 +223,28 @@ use (one nvcc per source, in parallel). Phases, each ending in
    over a pass (``torch.profiler``) with the share of K5 and K7 launches
    it recorded, K5's and K7's ms inside the pipeline; for the record, K5
    at RFC's first call and K7 on a transformer block's two calls at the
-   largest t, each beside its plain version, library call and bound.
+   largest t, each beside its plain version, library call and bound;
+28. the int8 MobileNet slices, ``make_serving_fn("mobilenetv2_w1")`` and
+   ``("mobilenet_w1")`` on seed-0 weights, BN randomized from seed 1, one
+   batch of 32: K1 within 1 bf16 ulp, K3 (ReLU6 on v2) at most 0.1 % of
+   elements off by 1, every distinct K12 (the int8 depthwise conv) and K2
+   call bit-exact, launch counts K1 1 / K3 1 / K12 17 / K2 35 and 1 / 1 /
+   13 / 13 and nothing else, finite logits at cosine >= 0.99 against the
+   f32 oracle (no K6, no TF32);
+29. their timing at batch 128: img/s beside the same model's bf16 route
+   (K6 with ReLU6 / ReLU, its ms a forward on the device), each kernel's
+   ms a forward beside its plain version, bound and library call, K12 at
+   each distinct call on the device (``launch_ms``) beside its bytes bound
+   and cuDNN's bf16 depthwise conv (a yardstick: not the same function),
+   its instances' registers and spills (a spill fails), K2 at each
+   distinct conv as in phase 4, the device's idle share (profiler);
+30. ``mobilenetv3_large_w1`` in bf16 (its route in auto): K6 at every
+   distinct call (ReLU and the dividing hswish, 3x3 and 5x5, stride 1 and
+   2) in bf16 within 1 bf16 ulp and in f32 bit-exact, launches K1 1 / K6
+   15, cosine >= 0.99; img/s, K6 a forward and a call on the device
+   beside its bound, the idle share;
+31. ``mobilenetv2_w3d4`` (18-channel maps that ``prepare`` pads to 20) at
+   batch 32 with phase 28's checks and gates.
 
 The generator's CPU tests are ``tests/test_torch_port_propainter.py`` (the
 port against the JAX package at 96x176). To rehearse phases 15-17 without
@@ -282,7 +306,7 @@ SEG_LAUNCHES = {"preprocess": 1, "stem": 1, "maxpool_i8": 1, "int8_conv": 54,
                 "flash_attention": 1, "deform_sample": 0, "dwconv": 0,
                 "window_attention": 0, "fused_bottleneck": 0, "stem_int8": 0,
                 "patch_window_sum": 0, "int8_gconv": 0,
-                "se_tail": 0}
+                "se_tail": 0, "dwconv_i8": 0}
 ATTN_F32_RTOL = 1e-4           # K4 f32: max |err| / max |plain|
 
 RFC_HW = (240, 432)            # ProPainter's default input
@@ -300,8 +324,9 @@ EFF_LAUNCHES = {"preprocess": 1, "stem": 0, "maxpool_i8": 0, "int8_conv": 0,
                 "flash_attention": 0, "deform_sample": 0, "dwconv": 16,
                 "window_attention": 0, "fused_bottleneck": 0, "stem_int8": 0,
                 "patch_window_sum": 0, "int8_gconv": 0,
-                "se_tail": 0}
-DW_EXACT_ACTS = ("none", "relu", "relu6", "hswish", "hsigmoid")
+                "se_tail": 0, "dwconv_i8": 0}
+DW_EXACT_ACTS = ("none", "relu", "relu6", "hswish", "hsigmoid",
+                 "hswish_div")
 DW_F32_RTOL = 1e-6             # K6 f32 sigmoid/swish: max |err| / max |plain|
 
 PP_FRAMES = 80                 # the middle windows reach t = 18 (11 local)
@@ -314,6 +339,19 @@ PP_K5_CHECKED = 10             # K5 calls held against the plain version
 K5_REPS = 500
 ATTN_WIN_TOL = 2e-5            # K7: max |err| / max |plain|
 ATTN_BIG_N = 65600             # problems of K7's check beyond 65,535
+
+# The int8 MobileNet routes (phases 28-29, 31): K3, K12 and K2 launches in
+# one forward beside K1's 1, each read from the model (v2: 17 expansion
+# convs, 17 projections and the final block on K2; v2's w3d4 carries
+# 18-channel maps that prepare pads to 20), and the bf16 MobileNetV3 route
+# (phase 30): K6 once per depthwise block. The int8 names' bf16 routes
+# (phase 29): K6 once per depthwise block, with ReLU6 (v2) or ReLU (v1).
+MOB_INT8 = {"mobilenetv2_w1": {"stem": 1, "dwconv_i8": 17, "int8_conv": 35},
+            "mobilenet_w1": {"stem": 1, "dwconv_i8": 13, "int8_conv": 13}}
+MOB_BF16_K6 = {"mobilenetv2_w1": (17, "relu6"), "mobilenet_w1": (13, "relu")}
+MOB_PAD_NAME = "mobilenetv2_w3d4"
+MOB_V3_NAME = "mobilenetv3_large_w1"
+MOB_V3_K6 = 15
 
 PIPE_FRAMES = 80               # phase 15's clip, from raw frames
 PIPE_HW = (240, 432)           # ProPainter's default input
@@ -436,10 +474,12 @@ def _conv_key(a, k):
     x, w = a[0], a[1]
     res = k.get("residual")
     groups = k.get("groups", 1)
-    mode = ("int8" if k["q"] is not None else "bf16",
-            "relu" if k["relu"] else "linear",
+    mode = ("int8" if k["q"] is not None else
+            "f32" if k.get("out_f32") else "bf16",
+            k.get("act", "relu") or "linear",
             "no-res" if res is None else
-            f"res-{str(res.dtype)[6:]}{'-bf16round' if k.get('round_res') else ''}")
+            f"res-{str(res.dtype)[6:]}{'-bf16round' if k.get('round_res') else ''}"
+            f"{'-linear' if k.get('linear_res') else ''}")
     if k.get("bend"):
         mode += ("bend",)
     if groups > 1:
@@ -1193,10 +1233,10 @@ def _patch_probe(card, record) -> None:
         _require(rel <= PROBE_TOL, f"K10 rel err {rel}")
         _require(same, "K10 differs from the fixed-order sum")
         ms = _cuda_ms(lambda: patch_window_sum(x, starts), 200)
-        kernels, _, _, _ = _device_kernels(
-            lambda: patch_window_sum(x, starts), 50)
-        device = {k: v for k, v in kernels.items() if "window_sum" in k
-                  or "gather" in k}
+        device, shares = {}, {}
+        for kname in ("window_sum_kernel", "gather_kernel"):
+            device[kname], shares[kname], _ = _launch_ms(
+                lambda: patch_window_sum(x, starts), kname, reps=50)
         plain = _cuda_ms(lambda: patch_window_sum_reference(x, starts), 5)
     nbytes = _nbytes(x, starts, out)
     windows = distinct_windows(h, w)
@@ -1205,7 +1245,8 @@ def _patch_probe(card, record) -> None:
     print(f"[{card}] K10 window sums ({windows} distinct windows, 2 "
           f"launches): kernel {ms:.4f} ms back to back, "
           f"{sum(device.values()):.4f} ms on the device ("
-          + ", ".join(f"{_kernel_name(k)} {v:.4f}"
+          + ", ".join(f"{k} {v:.4f}, the mean of the "
+                      f"{100 * shares[k]:.0f} % of launches recorded"
                       for k, v in sorted(device.items()))
           + f"), plain {plain:.4f} ms, library none, bound "
           f"{bound[0]:.4f} ms ({bound[1]}; 240 adds an output value instead "
@@ -1848,6 +1889,18 @@ def _device_kernels(fn, reps: int):
             ev[0].elapsed_time(ev[1]) / reps, covered / 1e3 / reps)
 
 
+def _launch_ms(fn, name: str, launches: int = 1, reps: int = 10):
+    """(ms, share, events ms) of ``fn``'s launches of the kernels whose name
+    holds ``name``: ``kernels._parts.launch_ms``'s mean over the launches
+    ``torch.profiler`` recorded, times ``launches``, and the share of the
+    launches run it recorded (a sum divided by the launches run reads low:
+    the profiler may record part of a short window's launches); CUDA
+    events over the profiled calls where it recorded none (share 0)."""
+    from pytorchcv_tpu_torch.kernels._parts import launch_ms
+    ms, share, wall = launch_ms(fn, name, launches, reps)
+    return (wall if ms is None else ms), share, wall
+
+
 def _rfc(card, record) -> None:
     import pytorchcv_tpu_torch as pt
     import pytorchcv_tpu_torch.models.propainter_rfc as rfc_mod
@@ -2245,9 +2298,9 @@ def _effnet(card, record) -> None:
             for a, _ in dws:
                 cudnn_dw(a)
 
-        def device_ms(fn, name=""):
+        def device_ms(fn):
             kernels, _, wall, _ = _device_kernels(fn, 10)
-            ms = sum(v for n_, v in kernels.items() if name in n_)
+            ms = sum(kernels.values())
             return ms if ms else wall
 
         ms_dw = _cuda_ms(lambda: [dwconv2d_bn_act(*a, **k) for a, k in dws],
@@ -2262,11 +2315,11 @@ def _effnet(card, record) -> None:
                 per_call[key]["count"] += 1
                 continue
             x_ = a[0]
+            dev, share, _ = _launch_ms(lambda: dwconv2d_bn_act(*a, **k),
+                                       "dwconv_kernel")
             per_call[key] = dict(
-                a=a, count=1,
-                ms=_cuda_ms(lambda: dwconv2d_bn_act(*a, **k), 20),
-                dev=device_ms(lambda: dwconv2d_bn_act(*a, **k),
-                              "dwconv_kernel"),
+                a=a, count=1, share=share,
+                ms=_cuda_ms(lambda: dwconv2d_bn_act(*a, **k), 20), dev=dev,
                 bound=_work_dwconv([(a, k, out)])[0],
                 conv=device_ms(lambda: cudnn_dw(a, affine=False)),
                 full=device_ms(lambda: cudnn_dw(a)),
@@ -2282,13 +2335,16 @@ def _effnet(card, record) -> None:
         ms_se = _cuda_ms(lambda: [m(x) for m, x in se], 10)
         ms_fold = _cuda_ms(lambda: [fold_batchnorm(b) for b in bns], 20)
         dev, n_ops, _, _ = _device_kernels(lambda: serve(raw128), 1)
-        k6_dev = sum(v for n_, v in dev.items() if "dwconv_kernel" in n_)
+        k6_dev, k6_share, _ = _launch_ms(lambda: serve(raw128),
+                                         "dwconv_kernel", launches["dwconv"],
+                                         reps=3)
         n_conv, n_se, n_fold = len(convs), len(se), len(bns)
         del dws, convs, se, bns, calls128
     print(f"[{card}] {EFF_NAME} K6 batch {BATCH_TIME} ({launches['dwconv']} "
           f"calls of one forward): kernel {ms_dw:.4f} ms "
           f"({ms_dw / launches['dwconv']:.4f} ms a call; on the device "
-          f"{f'{k6_dev:.4f} ms' if k6_dev else 'not measured'}, profiler), "
+          f"{k6_dev:.4f} ms, the mean of the {100 * k6_share:.0f} % of "
+          f"launches the profiler recorded, times {launches['dwconv']}), "
           f"plain {plain_dw:.4f} ms, library (cuDNN depthwise conv, affine, "
           f"swish in bf16) {lib_dw:.4f} ms, bound {dw_bound[0]:.4f} ms "
           f"({dw_bound[1]}), share of the batch "
@@ -2297,8 +2353,9 @@ def _effnet(card, record) -> None:
         a, p_ = e["a"], e["plan"]
         print(f"[{card}] {EFF_NAME} K6 call {i + 1} (x{e['count']} a "
               f"forward) x {tuple(a[0].shape)} k {a[1].shape[-1]} s {a[4]}: "
-              f"{e['dev']:.4f} ms on the device ({e['ms']:.4f} back to "
-              f"back), bound {e['bound']:.4f} ms "
+              f"{e['dev']:.4f} ms on the device (the mean of the "
+              f"{100 * e['share']:.0f} % of launches the profiler recorded; "
+              f"{e['ms']:.4f} back to back), bound {e['bound']:.4f} ms "
               f"({e['dev'] / e['bound']:.1f}x); cuDNN depthwise conv alone "
               f"{e['conv']:.4f} ms, with affine and swish {e['full']:.4f} "
               f"ms; plan v {p_.v}, {p_.planes} planes x {p_.rows} rows, "
@@ -3230,6 +3287,446 @@ def _pipeline(card, record) -> None:
     print(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
 
 
+def _mobilenet_targets():
+    import pytorchcv_tpu_torch.kernels.preprocess as pre_mod
+    import pytorchcv_tpu_torch.quant.mobilenet_int8 as mq
+    return [(pre_mod, "preprocess", "preprocess"),
+            (mq, "stem_conv", "stem"), (mq, "dwconv_i8", "dwconv_i8"),
+            (mq, "int8_conv", "int8_conv")]
+
+
+def _i8dw_key(a):
+    return (tuple(a[0].shape), a[5], a[6])
+
+
+def _check_dwconv_i8(calls, max_err, tag):
+    """K12 against its plain version, bit-exact, at every distinct call."""
+    from pytorchcv_tpu_torch.kernels.dwconv_i8 import dwconv_i8_reference
+    seen = {}
+    for a, k, out in calls:
+        seen.setdefault(_i8dw_key(a), (a, k, out))
+    max_err["dwconv_i8"] = 0.0
+    for key, (a, k, out) in sorted(seen.items()):
+        ref = dwconv_i8_reference(*a, **k)
+        same = torch.equal(out, ref)
+        max_err["dwconv_i8"] = max(max_err["dwconv_i8"], float(
+            (out.float() - ref.float()).abs().max()))
+        print(f"{tag} K12 x {key[0]} s {key[1]} {key[2]}: "
+              f"{'bit-exact' if same else 'DIFFERS'}")
+        _require(same, f"{tag} K12 not bit-exact at {key}")
+    print(f"{tag} K12: {len(seen)} distinct calls of {len(calls)} bit-exact")
+
+
+def _work_dwconv_i8(calls):
+    """Bytes: x, w, A, B read once and the output written once.
+    Operations: 9 multiply-adds an output element (int8)."""
+    nbytes = ops = 0
+    for a, k, out in calls:
+        nbytes += _nbytes(*a[:4], out)
+        ops += 18 * out.numel()
+    return _bound(nbytes, ops, "int8")
+
+
+def _mobilenet_check(name: str, gates: dict):
+    """Phases 28 and 31: the int8 MobileNet route of ``make_serving_fn(
+    name)`` at batch 32 on seed-0 weights, BN randomized from seed 1: K1
+    within 1 bf16 ulp, K3 (ReLU6 on v2) at most 0.1 % of elements off by 1,
+    every distinct K12 and K2 call bit-exact, the launch counts, finite
+    logits at cosine >= 0.99 against the f32 oracle. Returns (serve,
+    model, max_err, launches)."""
+    import pytorchcv_tpu_torch as pt
+    from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    model = pt.get_model(name, rng=0, device="cuda")
+    _randomize_bn(model, seed=1)
+    t0 = time.perf_counter()
+    serve = pt.make_serving_fn(name, SOURCE_HW, device="cuda", model=model)
+    torch.cuda.synchronize()
+    route = "mobilenet_v1" if name.startswith("mobilenet_") else "mobilenetv2"
+    print(f"{name} serving fn built (calibrate + quantize): "
+          f"{time.perf_counter() - t0:.3f} s, route {serve.route}")
+    _require(serve.route == route, f"{name} route {serve.route}")
+    raw = _raw_batch(BATCH_CHECK, seed=2)
+    reset_launch_counts()
+    with _recording(_mobilenet_targets()) as calls:
+        logits = serve(raw)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    max_err = {}
+    with torch.inference_mode():
+        _check_preprocess(calls["preprocess"], max_err, name)
+        _check_stem(calls["stem"], max_err, name)
+        _check_dwconv_i8(calls["dwconv_i8"], max_err, name)
+        _check_convs(calls["int8_conv"], max_err, name)
+    del calls
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(preprocess=1, **gates)
+    print(f"{name} launches in one forward: {launches}")
+    _require(launches == want, f"{name} launches {launches}, want {want}")
+    _require(tuple(logits.shape) == (BATCH_CHECK, 1000) and
+             logits.dtype == torch.bfloat16, (logits.shape, logits.dtype))
+    y = logits.float()
+    _require(bool(torch.isfinite(y).all()), f"{name} non-finite logits")
+    reset_launch_counts()
+    yf = serve.make_reference_forward()(raw).float()
+    torch.cuda.synchronize()
+    _require(all(LAUNCHES[k] == 0 for k in gates) and
+             LAUNCHES["dwconv"] == 0,
+             f"the f32 oracle launched {dict(LAUNCHES)}")
+    cos = float((y * yf).sum() / (y.norm() * yf.norm()))
+    top1 = float((y.argmax(1) == yf.argmax(1)).float().mean())
+    print(f"{name} int8 vs f32 reference (no TF32, no K6): cosine "
+          f"{cos:.6f}, top-1 agreement {top1}")
+    _require(cos >= 0.99, f"{name} cosine {cos} < 0.99")
+    return serve, model, max_err, launches
+
+
+def _mobilenet_bf16_check(name: str, model):
+    """Phase 29's check: the ``mode="bf16"`` route of ``name`` at batch 32
+    on the same weights: the launch counts (K1 1, K6 ``MOB_BF16_K6``,
+    nothing else), K1 within 1 bf16 ulp, every distinct K6 call against
+    its plain version in bf16 as run and again in f32 (``_check_dwconv``),
+    finite logits at cosine >= 0.99 against the f32 oracle. Returns
+    (serve, K6's max abs err, its launches)."""
+    import pytorchcv_tpu_torch as pt
+    import pytorchcv_tpu_torch.nn.conv as conv_mod
+    from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from pytorchcv_tpu_torch.kernels.dwconv import dwconv2d_bn_act
+    k6_n, act = MOB_BF16_K6[name]
+    serve = pt.make_serving_fn(name, SOURCE_HW, mode="bf16", device="cuda",
+                               model=model)
+    _require(serve.route == "bf16", f"{name} bf16 route {serve.route}")
+    raw = _raw_batch(BATCH_CHECK, seed=2)
+    targets = [_mobilenet_targets()[0],
+               (conv_mod, "dwconv2d_bn_act", "dwconv")]
+    reset_launch_counts()
+    with _recording(targets) as calls:
+        logits = serve(raw)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(preprocess=1, dwconv=k6_n)
+    print(f"{name} bf16 launches in one forward: {launches}")
+    _require(launches == want, f"{name} bf16 launches {launches}")
+    errs = []
+    with torch.inference_mode():
+        _check_preprocess(calls["preprocess"], {}, f"{name} bf16")
+        seen = {}
+        for a, _, out in calls["dwconv"]:
+            seen.setdefault(_dw_key(a), (a, out))
+        for key, (a, out) in sorted(seen.items()):
+            errs.append(_check_dwconv(a, out, f"{name} bf16"))
+            a32 = (a[0].float(), a[1].float(), *a[2:])
+            errs.append(_check_dwconv(a32, dwconv2d_bn_act(*a32),
+                                      f"{name} bf16"))
+    acts = sorted({a[6] for a, _ in seen.values()})
+    print(f"{name} bf16 K6: {len(seen)} distinct calls ({acts}) of "
+          f"{len(calls['dwconv'])}, bf16 as run and again in f32")
+    _require(acts == [act], f"{name} bf16 K6 activations {acts}")
+    del calls
+    y = logits.float()
+    _require(bool(torch.isfinite(y).all()) and tuple(y.shape) ==
+             (BATCH_CHECK, 1000), f"{name} bf16 logits")
+    reset_launch_counts()
+    yf = serve.make_reference_forward()(raw).float()
+    torch.cuda.synchronize()
+    _require(LAUNCHES["dwconv"] == 0, "the f32 oracle ran K6")
+    cos = float((y * yf).sum() / (y.norm() * yf.norm()))
+    print(f"{name} bf16 vs f32 reference (no K6): cosine {cos:.6f}, top-1 "
+          f"agreement {float((y.argmax(1) == yf.argmax(1)).float().mean())}")
+    _require(cos >= 0.99, f"{name} bf16 cosine {cos} < 0.99")
+    return serve, max(errs), k6_n
+
+
+def _busy(card, tag, fn, ms_batch):
+    """The device's busy time and idle share over one call of ``fn`` that
+    takes ``ms_batch`` ms (profiler)."""
+    dev, n_ops, _, covered = _device_kernels(fn, 1)
+    if not dev:
+        print(f"[{card}] {tag} device busy and idle share: not measured "
+              f"(the profiler saw no device activity)")
+        return
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[{card}] {tag} one batch on the device (profiler): busy "
+          f"{covered:.3f} ms of {ms_batch:.3f} ms, idle share "
+          f"{100.0 * (1 - covered / ms_batch):.1f} %, {n_ops:.0f} device "
+          f"operations; largest: " +
+          "; ".join(f"{_kernel_name(n_)[:50]} {v:.3f} ms" for n_, v in top))
+
+
+def _mobilenet(card, record) -> None:
+    """Phases 28-31: the MobileNet family on the card."""
+    import pytorchcv_tpu_torch as pt
+    import pytorchcv_tpu_torch.nn.conv as conv_mod
+    import torch.nn.functional as F
+    from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from pytorchcv_tpu_torch.kernels.dwconv import (dwconv2d_bn_act,
+                                                    dwconv2d_bn_act_reference)
+    from pytorchcv_tpu_torch.kernels.dwconv_i8 import (dwconv_i8,
+                                                       dwconv_i8_plan,
+                                                       dwconv_i8_reference)
+    from pytorchcv_tpu_torch.kernels.dwconv_i8 import \
+        kernel_info as i8dw_info
+    from pytorchcv_tpu_torch.kernels.int8_conv import (int8_conv,
+                                                       int8_conv_reference)
+    from pytorchcv_tpu_torch.kernels.stem import (stem_conv,
+                                                  stem_conv_reference)
+    for name, gates in MOB_INT8.items():
+        t_phase = time.perf_counter()
+        # -- 28. kernels vs plain versions, launch counts, logits
+        serve, model, max_err, launches = _mobilenet_check(name, gates)
+        # -- 29. the bf16 route on the same weights (K6 checked at every
+        # distinct call), then both timed at batch 128
+        serve_bf, k6_err, k6_n = _mobilenet_bf16_check(name, model)
+        raw128 = _raw_batch(BATCH_TIME, seed=3)
+        with torch.inference_mode():
+            ms_serve = _cuda_ms(lambda: serve(raw128), reps=10, warmup=3)
+            ms_bf = _cuda_ms(lambda: serve_bf(raw128), reps=10, warmup=3)
+            reset_launch_counts()
+            with _recording([(conv_mod, "dwconv2d_bn_act", "dwconv")]) as bf:
+                serve_bf(raw128)
+            torch.cuda.synchronize()
+            _require(LAUNCHES["dwconv"] == k6_n,
+                     f"{name} bf16 K6 {LAUNCHES['dwconv']} at batch "
+                     f"{BATCH_TIME}")
+            dws = [(a, k) for a, k, _ in bf["dwconv"]]
+            k6_t = (_cuda_ms(lambda: [dwconv2d_bn_act(*a, **k)
+                                      for a, k in dws], 10),
+                    _cuda_ms(lambda: [dwconv2d_bn_act_reference(*a, **k)
+                                      for a, k in dws], 2, warmup=1),
+                    None, _work_dwconv(bf["dwconv"]))
+            del bf, dws
+            k6_fwd, k6_share, _ = _launch_ms(lambda: serve_bf(raw128),
+                                             "dwconv_kernel", k6_n, reps=3)
+            print(f"[{card}] serving {name} int8 batch {BATCH_TIME}: "
+                  f"{ms_serve:.3f} ms/batch, "
+                  f"{BATCH_TIME * 1000.0 / ms_serve:.1f} img/s; the bf16 "
+                  f"route (K6 with ReLU{'6' if 'v2' in name else ''}, "
+                  f"{k6_n} calls) {ms_bf:.3f} ms/batch, "
+                  f"{BATCH_TIME * 1000.0 / ms_bf:.1f} img/s, K6 "
+                  f"{k6_fwd:.4f} ms a forward on the device (the mean of "
+                  f"the {100 * k6_share:.0f} % of launches recorded), "
+                  f"{k6_t[0]:.4f} ms back to back, plain {k6_t[1]:.4f} ms, "
+                  f"bound {k6_t[3][0]:.4f} ms ({k6_t[3][1]})")
+            with _recording(_mobilenet_targets()) as calls:
+                serve(raw128)
+            torch.cuda.synchronize()
+            (pa, pk, pout), = calls["preprocess"]
+            ms_pre, plain_pre, lib_pre, pre_bound = _preprocess_times(
+                card, name, pa, pk, pout)
+            (sa, sk, sout), = calls["stem"]
+            xs, ws = sa[0].float(), sa[1].permute(3, 0, 1, 2).float()
+            stem_t = (_cuda_ms(lambda: stem_conv(*sa, **sk), 20),
+                      _cuda_ms(lambda: stem_conv_reference(*sa, **sk), 5),
+                      _cuda_ms(lambda: F.conv2d(xs, ws, stride=2,
+                                                padding=1), 20),
+                      _work_stem(sa, sk, sout))
+            del xs
+            _stem_info(card, name, sa)
+            dws = [(a, k) for a, k, _ in calls["dwconv_i8"]]
+            k12_t = (_cuda_ms(lambda: [dwconv_i8(*a, **k) for a, k in dws],
+                              10),
+                     _cuda_ms(lambda: [dwconv_i8_reference(*a, **k)
+                                       for a, k in dws], 2, warmup=1),
+                     None, _work_dwconv_i8(calls["dwconv_i8"]))
+            # each distinct K12 call on the device beside its bytes bound
+            # and cuDNN's bf16 depthwise conv of the same shape (a
+            # yardstick: bf16 in and out, no epilogue)
+            per = {}
+            for a, k, out in calls["dwconv_i8"]:
+                key = _i8dw_key(a)
+                if key in per:
+                    per[key]["count"] += 1
+                    continue
+                dev, share, wall = _launch_ms(lambda: dwconv_i8(*a, **k),
+                                              "dwconv_i8_kernel")
+                xb = a[0].permute(0, 3, 1, 2).to(torch.bfloat16)
+                wb = a[1].permute(2, 0, 1).unsqueeze(1).to(torch.bfloat16)
+                c = a[0].shape[3]
+                cudnn = _cuda_ms(lambda: F.conv2d(xb, wb, None, a[5], 1, 1,
+                                                  c), 20)
+                x_ = a[0]
+                ptrs = x_.data_ptr() | a[1].data_ptr() | out.data_ptr() | 16
+                per[key] = dict(count=1, dev=dev, share=share, wall=wall,
+                                cudnn=cudnn,
+                                bound=_work_dwconv_i8([(a, k, out)]),
+                                plan=dwconv_i8_plan(*x_.shape, a[5],
+                                                    ptrs & -ptrs))
+                del xb
+            for key, e in sorted(per.items()):
+                vb, run = e["plan"]
+                print(f"[{card}] {name} K12 x {key[0]} s {key[1]} (x"
+                      f"{e['count']} a forward): {e['dev']:.4f} ms on the "
+                      f"device (the mean of the {100 * e['share']:.0f} % of "
+                      f"launches recorded; {e['wall']:.4f} back to back), "
+                      f"bound {e['bound'][0]:.4f} ms ({e['bound'][1]}, "
+                      f"{e['dev'] / e['bound'][0]:.1f}x); cuDNN bf16 "
+                      f"depthwise conv {e['cudnn']:.4f} ms; {vb}-byte "
+                      f"vectors, {run} rows a thread")
+            for vb in sorted({e["plan"][0] for e in per.values()}):
+                info = i8dw_info(vb)
+                print(f"[{card}] {name} K12 {vb}-byte instance: "
+                      f"{info['registers']} registers a thread, "
+                      f"{info['spill_bytes']} bytes spilled")
+                _require(info["spill_bytes"] == 0, f"K12 spills at {vb}")
+            k12_dev = sum(e["count"] * e["dev"] for e in per.values())
+            k12_cudnn = sum(e["count"] * e["cudnn"] for e in per.values())
+            convs = [(a, k) for a, k, _ in calls["int8_conv"]]
+            k2_lib = _k2_per_shape(card, name, calls["int8_conv"])
+            k2_t = (_cuda_ms(lambda: [int8_conv(*a, **k) for a, k in convs],
+                             10),
+                    _cuda_ms(lambda: [int8_conv_reference(*a, **k)
+                                      for a, k in convs], 2, warmup=1),
+                    k2_lib, _work_convs(calls["int8_conv"]))
+            del calls, dws, convs
+            _busy(card, f"{name} int8", lambda: serve(raw128), ms_serve)
+        print(f"[{card}] {name} K12 per forward: {k12_t[0]:.4f} ms back to "
+              f"back, {k12_dev:.4f} ms on the device from the distinct "
+              f"calls, plain {k12_t[1]:.4f} ms, bound {k12_t[3][0]:.4f} ms "
+              f"({k12_t[3][1]}), library none (PyTorch's CUDA convolutions "
+              f"take no int8; cuDNN's bf16 depthwise conv on the same "
+              f"shapes {k12_cudnn:.4f} ms)")
+        times = {"preprocess": (ms_pre, plain_pre, lib_pre, pre_bound),
+                 "stem": stem_t, "dwconv_i8": k12_t, "int8_conv": k2_t}
+        for kname, (ms, plain, lib, bound) in times.items():
+            print(f"[{card}] {name} {kname} batch {BATCH_TIME} "
+                  f"({launches[kname]} calls a forward): kernel {ms:.4f} ms "
+                  f"({100.0 * ms / ms_serve:.1f} % of the batch), plain "
+                  f"{plain:.4f} ms, library "
+                  f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+                  f"{bound[0]:.4f} ms ({bound[1]})")
+        v1 = name.startswith("mobilenet_")
+        replaces = {
+            "preprocess": ("preprocess.cu",
+                           "pytorchcv_tpu/kernels/preprocess.py:133"),
+            "stem": ("stem.cu", "pytorchcv_tpu/quant/mobilenet_int8.py:"
+                     + ("211" if v1 else "117")),
+            "dwconv_i8": ("dwconv_i8.cu",
+                          "pytorchcv_tpu/quant/mobilenet_int8.py:61"),
+            "int8_conv": ("int8_conv.cu",
+                          "pytorchcv_tpu/quant/mobilenet_int8.py:72")}
+        for kname, (source, rep) in replaces.items():
+            ms, plain, lib, bound = times[kname]
+            record.append(_record_entry(kname, name, source, rep,
+                                        launches[kname], max_err[kname], ms,
+                                        plain, bound, lib))
+        record.append(_record_entry(
+            "dwconv", f"{name} bf16", "dwconv.cu",
+            "pytorchcv_tpu/kernels/dwconv.py:124", k6_n, k6_err, k6_t[0],
+            k6_t[1], k6_t[3], None))
+        del serve, serve_bf, model, raw128
+        torch.cuda.empty_cache()
+        print(f"phases 28-29 ({name}): "
+              f"{time.perf_counter() - t_phase:.1f} s")
+
+    # -- 30. MobileNetV3-large, bf16 (auto): K6 with ReLU and hswish_div
+    t_phase = time.perf_counter()
+    model = pt.get_model(MOB_V3_NAME, rng=0, device="cuda")
+    _randomize_bn(model, seed=1)
+    serve = pt.make_serving_fn(MOB_V3_NAME, SOURCE_HW, device="cuda",
+                               model=model)
+    _require(serve.route == "bf16", f"{MOB_V3_NAME} route {serve.route}")
+    raw = _raw_batch(BATCH_CHECK, seed=2)
+    targets = [_mobilenet_targets()[0],
+               (conv_mod, "dwconv2d_bn_act", "dwconv")]
+    reset_launch_counts()
+    with _recording(targets) as calls:
+        logits = serve(raw)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    max_err = {}
+    errs = []
+    with torch.inference_mode():
+        _check_preprocess(calls["preprocess"], max_err, MOB_V3_NAME)
+        seen = {}
+        for a, _, out in calls["dwconv"]:
+            seen.setdefault(_dw_key(a), (a, out))
+        for key, (a, out) in sorted(seen.items()):
+            errs.append(_check_dwconv(a, out, MOB_V3_NAME))
+            a32 = (a[0].float(), a[1].float(), *a[2:])
+            errs.append(_check_dwconv(a32, dwconv2d_bn_act(*a32),
+                                      MOB_V3_NAME))
+    max_err["dwconv"] = max(errs)
+    acts = sorted({a[6] for a, _ in seen.values()})
+    print(f"{MOB_V3_NAME} K6: {len(seen)} distinct calls ({acts}) of "
+          f"{len(calls['dwconv'])}, bf16 as run and again in f32")
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(preprocess=1, dwconv=MOB_V3_K6)
+    print(f"{MOB_V3_NAME} launches in one forward: {launches}")
+    _require(launches == want, f"{MOB_V3_NAME} launches {launches}")
+    _require(acts == ["hswish_div", "relu"], acts)
+    y = logits.float()
+    _require(bool(torch.isfinite(y).all()) and tuple(y.shape) ==
+             (BATCH_CHECK, 1000), f"{MOB_V3_NAME} logits")
+    reset_launch_counts()
+    yf = serve.make_reference_forward()(raw).float()
+    torch.cuda.synchronize()
+    _require(LAUNCHES["dwconv"] == 0, "the f32 oracle ran K6")
+    cos = float((y * yf).sum() / (y.norm() * yf.norm()))
+    print(f"{MOB_V3_NAME} bf16 vs f32 reference (no K6): cosine {cos:.6f}, "
+          f"top-1 agreement "
+          f"{float((y.argmax(1) == yf.argmax(1)).float().mean())}")
+    _require(cos >= 0.99, f"{MOB_V3_NAME} cosine {cos} < 0.99")
+    del calls
+    raw128 = _raw_batch(BATCH_TIME, seed=3)
+    with torch.inference_mode():
+        ms_serve = _cuda_ms(lambda: serve(raw128), reps=10, warmup=3)
+        with _recording(targets) as calls:
+            serve(raw128)
+        torch.cuda.synchronize()
+        dws = [(a, k) for a, k, _ in calls["dwconv"]]
+        ms_dw = _cuda_ms(lambda: [dwconv2d_bn_act(*a, **k) for a, k in dws],
+                         10)
+        plain_dw = _cuda_ms(lambda: [dwconv2d_bn_act_reference(*a, **k)
+                                     for a, k in dws], 2, warmup=1)
+        dw_bound = _work_dwconv(calls["dwconv"])
+        k6_fwd, k6_share, _ = _launch_ms(lambda: serve(raw128),
+                                         "dwconv_kernel", MOB_V3_K6, reps=3)
+        per = {}
+        for a, k, out in calls["dwconv"]:
+            key = _dw_key(a)
+            if key in per:
+                per[key]["count"] += 1
+                continue
+            dev, share, wall = _launch_ms(lambda: dwconv2d_bn_act(*a, **k),
+                                          "dwconv_kernel")
+            per[key] = dict(count=1, dev=dev, share=share, wall=wall,
+                            bound=_work_dwconv([(a, k, out)])[0])
+        (pa, pk, pout), = calls["preprocess"]
+        ms_pre, plain_pre, lib_pre, pre_bound = _preprocess_times(
+            card, MOB_V3_NAME, pa, pk, pout)
+        del calls, dws
+        _busy(card, f"{MOB_V3_NAME} bf16", lambda: serve(raw128), ms_serve)
+    print(f"[{card}] serving {MOB_V3_NAME} bf16 batch {BATCH_TIME}: "
+          f"{ms_serve:.3f} ms/batch, {BATCH_TIME * 1000.0 / ms_serve:.1f} "
+          f"img/s; K6 ({MOB_V3_K6} calls) {ms_dw:.4f} ms a forward back to "
+          f"back, {k6_fwd:.4f} ms on the device (the mean of the "
+          f"{100 * k6_share:.0f} % of launches recorded), plain "
+          f"{plain_dw:.4f} ms, bound {dw_bound[0]:.4f} ms ({dw_bound[1]})")
+    for key, e in sorted(per.items()):
+        print(f"[{card}] {MOB_V3_NAME} K6 x {key[0]} k {key[1]} s {key[2]} "
+              f"{key[4]} (x{e['count']}): {e['dev']:.4f} ms on the device "
+              f"(the mean of the {100 * e['share']:.0f} % of launches "
+              f"recorded; {e['wall']:.4f} back to back), bound "
+              f"{e['bound']:.4f} ms ({e['dev'] / e['bound']:.1f}x)")
+    record.append(_record_entry(
+        "dwconv", MOB_V3_NAME, "dwconv.cu",
+        "pytorchcv_tpu/kernels/dwconv.py:124", launches["dwconv"],
+        max_err["dwconv"], ms_dw, plain_dw, dw_bound, None))
+    record.append(_record_entry(
+        "preprocess", MOB_V3_NAME, "preprocess.cu",
+        "pytorchcv_tpu/kernels/preprocess.py:133", launches["preprocess"],
+        max_err["preprocess"], ms_pre, plain_pre, pre_bound, lib_pre))
+    del serve, model, raw128
+    torch.cuda.empty_cache()
+    print(f"phase 30: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 31. the padded-channel route's gates (18-channel maps padded to 20)
+    t_phase = time.perf_counter()
+    _mobilenet_check(MOB_PAD_NAME, MOB_INT8["mobilenetv2_w1"])
+    torch.cuda.empty_cache()
+    print(f"phase 31: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is False; "
@@ -3282,6 +3779,9 @@ def main() -> None:
     t0 = time.perf_counter()
     _pipeline(card, record)
     print(f"pipeline phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _mobilenet(card, record)
+    print(f"mobilenet phases: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": record}))

@@ -19,6 +19,14 @@ __device__ __forceinline__ int8_t quant_i8(float v, float q) {
   return static_cast<int8_t>(__float2int_rn(z));
 }
 
+// The int8 routes' activation codes (K2, K3, K12): 0 none, 1 ReLU
+// (max(y, 0)), 2 ReLU6 (clip(y, 0, 6): jnp.clip is min(max(y, 0), 6)).
+__device__ __forceinline__ float activate_i8(float v, int act) {
+  if (act == 1) return fmaxf(v, 0.f);
+  if (act == 2) return fminf(fmaxf(v, 0.f), 6.f);
+  return v;
+}
+
 // float32 -> bfloat16 -> float32, round to nearest even (XLA's astype).
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));

@@ -76,8 +76,10 @@ __device__ __forceinline__ float sigmoid_bf16(float v) {
   return fmaf(0.5f, t, 0.5f);
 }
 
-// 0 none, 1 relu, 2 relu6, 3 hswish, 4 hsigmoid, 5 swish, 6 sigmoid; BF16:
-// the result is cast to bf16.
+// 0 none, 1 relu, 2 relu6, 3 hswish, 4 hsigmoid, 5 swish, 6 sigmoid, then
+// the port's 7 hswish_div: the model's hswish, x * clip(x + 3, 0, 6) / 6
+// with a rounded division (MobileNetV3's blocks); BF16: the result is
+// cast to bf16.
 template <bool BF16>
 __device__ __forceinline__ float activate(float v, int act) {
   switch (act) {
@@ -88,6 +90,7 @@ __device__ __forceinline__ float activate(float v, int act) {
     case 4: return __fmul_rn(clip06(__fadd_rn(v, 3.f)), 1.f / 6.f);
     case 5: return __fmul_rn(v, BF16 ? sigmoid_bf16(v) : sigmoid(v));
     case 6: return BF16 ? sigmoid_bf16(v) : sigmoid(v);
+    case 7: return __fdiv_rn(__fmul_rn(v, clip06(__fadd_rn(v, 3.f))), 6.f);
     default: return v;
   }
 }

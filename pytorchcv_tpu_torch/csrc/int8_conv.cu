@@ -9,7 +9,10 @@
 //   and every int8 conv of the dilated segmentation backbone
 //   (pytorchcv_tpu/quant/seg_backbone_int8.py:_forward): 3x3 at dilation
 //   2 and 4 with pad dilation*(k//2), and the stage-3 "bend", the bf16 tail
-//   value that the last stage-3 unit writes beside its int8 output.
+//   value that the last stage-3 unit writes beside its int8 output; and the
+//   1x1 convs of the int8 MobileNet routes (pytorchcv_tpu/quant/
+//   mobilenet_int8.py:_cell6, cell_relu): ReLU6, the projection's linear
+//   residual in f32, the final block's f32 output.
 //
 // Bound on the H100: ResNet-50's 19 K2 convs are 0.401 T int8 operations at
 //   batch 128 (0.20 ms at the int8 tensor-core peak) against 1.26 GB of
@@ -37,8 +40,8 @@
 //   hold their four 16-byte chunks XOR-swizzled by row / 2, so ldmatrix's
 //   8 rows read 8 bank groups. The epilogue stages the int32 tile in shared
 //   memory (over the ring) and walks it row by row, 8 channels a thread:
-//   per-channel A and B from shared memory, the residual read and the int8
-//   or bf16 output (and the bend) written with 8- or 16-byte coalesced
+//   per-channel A and B from shared memory, the residual read and the int8,
+//   bf16 or f32 output (and the bend) written with coalesced vector
 //   accesses, each step rounded in _cell's f32 order (__fmul_rn, __fadd_rn,
 //   round_bf16, quant_i8) as before.
 //
@@ -97,8 +100,8 @@ template <int BM, int BN, bool VEC16>
 __global__ void __launch_bounds__(kThreads, 2) int8_conv_kernel(
     const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     const float* __restrict__ gain_a, const float* __restrict__ bias_b,
-    const void* __restrict__ res, float res_scale, int res_mode, int relu,
-    float q, int out_i8, void* __restrict__ out,
+    const void* __restrict__ res, float res_scale, int res_mode, int act,
+    float q, int out_mode, void* __restrict__ out,
     __nv_bfloat16* __restrict__ out_bf16, int vec_out, int H, int W,
     int Cin, int Ho, int Wo, int Cout, int KS, int stride, int pad, int dil,
     int M) {
@@ -275,7 +278,7 @@ __global__ void __launch_bounds__(kThreads, 2) int8_conv_kernel(
     const float4* sa = reinterpret_cast<const float4*>(s_a + cg * 8);
     const float4* sb = reinterpret_cast<const float4*>(s_b + cg * 8);
     pcv::epilogue8(sw ? h1 : h0, sw ? h0 : h1, sa[0], sa[1], sb[0], sb[1],
-                   idx, cnt, vec, res, res_scale, res_mode, relu, q, out_i8,
+                   idx, cnt, vec, res, res_scale, res_mode, act, q, out_mode,
                    out, out_bf16);
   }
 }
@@ -321,8 +324,8 @@ bool aligned16(const void* p) {
 // output and the residual are 16-byte aligned.
 extern "C" int pcv_int8_conv(const void* x, const void* w, const void* gain_a,
                              const void* bias_b, const void* res,
-                             float res_scale, int res_mode, int relu, float q,
-                             int out_i8, void* out, int N, int H, int W,
+                             float res_scale, int res_mode, int act, float q,
+                             int out_mode, void* out, int N, int H, int W,
                              int Cin, int Ho, int Wo, int Cout, int KH, int KW,
                              int stride, int pad, int dilation, void* out_bf16,
                              int bm, int bn, void* stream) {
@@ -344,7 +347,7 @@ extern "C" int pcv_int8_conv(const void* x, const void* w, const void* gain_a,
   kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(gain_a), static_cast<const float*>(bias_b),
-      res, res_scale, res_mode, relu, q, out_i8, out,
+      res, res_scale, res_mode, act, q, out_mode, out,
       static_cast<__nv_bfloat16*>(out_bf16), vec_out, H, W, Cin, Ho, Wo,
       Cout, KH, stride, pad, dilation, M);
   return static_cast<int>(cudaGetLastError());

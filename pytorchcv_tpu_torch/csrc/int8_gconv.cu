@@ -68,7 +68,7 @@ struct GArgs {
   void* out;
   __nv_bfloat16* out_bf16;
   float res_scale, q;
-  int res_mode, relu, out_i8, vec_out;
+  int res_mode, act, out_mode, vec_out;
   int N, H, W, Cin, Ho, Wo, Cout, KS, stride, pad, dil, cg, og;
   // the plan: a spatial tile, the halo's copy width (16, 8, 4 or 1 bytes)
   // and window bytes a pixel
@@ -354,7 +354,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int4 h0 = src[sw], h1 = src[sw ^ 1];
       pcv::epilogue8(sw ? h1 : h0, sw ? h0 : h1, a0, a1, b0, b1, idx, cnt,
                      p.vec_out && cnt == 8, p.res, p.res_scale, p.res_mode,
-                     p.relu, p.q, p.out_i8, p.out, p.out_bf16);
+                     p.act, p.q, p.out_mode, p.out, p.out_bf16);
     }
     __syncthreads();
   }
@@ -402,8 +402,8 @@ int sm_count() {
 // x and w 16-byte aligned.
 extern "C" int pcv_int8_gconv(
     const void* x, const void* w, const void* gain_a, const void* bias_b,
-    const void* res, float res_scale, int res_mode, int relu, float q,
-    int out_i8, void* out, void* out_bf16, int N, int H, int W, int Cin,
+    const void* res, float res_scale, int res_mode, int act, float q,
+    int out_mode, void* out, void* out_bf16, int N, int H, int W, int Cin,
     int Ho, int Wo, int Cout, int KS, int stride, int pad, int dilation,
     int groups, int bm, int bn, int u, int imgs, int th, int tw, int vec,
     int wb, void* stream) {
@@ -428,8 +428,8 @@ extern "C" int pcv_int8_gconv(
   p.res_scale = res_scale;
   p.q = q;
   p.res_mode = res_mode;
-  p.relu = relu;
-  p.out_i8 = out_i8;
+  p.act = act;
+  p.out_mode = out_mode;
   p.vec_out = Cout % 8 == 0 && aligned(out, 16) &&
               (res == nullptr || aligned(res, 16)) &&
               (out_bf16 == nullptr || aligned(out_bf16, 16));

@@ -8,7 +8,10 @@
 //     which computes an int8-input variant that serving does not run;
 //   - 3x3/s2 pad 1, conv1 of the SENet deep stem of
 //     pytorchcv_tpu/quant/seg_backbone_int8.py:_forward (:85-93), which
-//     pools (_maxpool_i8) after its int8 conv2 and conv3.
+//     pools (_maxpool_i8) after its int8 conv2 and conv3;
+//   - 3x3/s2 pad 1 with ReLU (MobileNet v1) or clip(0, 6) (MobileNetV2)
+//     and no pool, the stems of pytorchcv_tpu/quant/mobilenet_int8.py
+//     (:117-122, :211-217).
 //   Both pools run as a launch of their own, pcv_maxpool_i8.
 //
 // Bound on the H100: with 3 input channels the conv is 27 or 147 MACs per
@@ -93,8 +96,9 @@ __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
 template <int KS, bool VEC16>
 __global__ void __launch_bounds__(kThreads, 2) stem_conv_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wt,
-    const float* __restrict__ bias, float q, int8_t* __restrict__ y, int B,
-    int H, int W, int Ho, int Wo, int Cout, int R) {
+    const float* __restrict__ bias, float q, int act,
+    int8_t* __restrict__ y, int B, int H, int W, int Ho, int Wo, int Cout,
+    int R) {
   using G = Geom<KS>;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* s_w = smem;
@@ -225,7 +229,8 @@ __global__ void __launch_bounds__(kThreads, 2) stem_conv_kernel(
           }
         }
       }
-      // Bias, ReLU, quant to the warp's staging: pixel 4 g + 2 mt + h at
+      // Bias, ReLU (ReLU6: act 2), quant to the warp's staging: pixel
+      // 4 g + 2 mt + h at
       // row g + 8 (2 mt + h), so the 8 g's stores hit 8 bank groups.
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
@@ -237,9 +242,10 @@ __global__ void __launch_bounds__(kThreads, 2) stem_conv_kernel(
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int8_t o0 = pcv::quant_i8(
-                fmaxf(__fadd_rn(acc[mt][nt][2 * h], b0), 0.f), q);
+                pcv::activate_i8(__fadd_rn(acc[mt][nt][2 * h], b0), act), q);
             const int8_t o1 = pcv::quant_i8(
-                fmaxf(__fadd_rn(acc[mt][nt][2 * h + 1], b1), 0.f), q);
+                pcv::activate_i8(__fadd_rn(acc[mt][nt][2 * h + 1], b1), act),
+                q);
             *reinterpret_cast<char2*>(
                 stage + (g + 8 * (2 * mt + h)) * kStagePitch + n) =
                 make_char2(o0, o1);
@@ -410,16 +416,16 @@ PoolKernel pool_instance(int vb) {
 
 // The stem over x (B, 3, H, W) in tiles of `rows` output rows (the host's
 // plan), two persistent blocks an SM; window copies are 16 bytes where W %
-// 8 == 0 and x is 16-byte aligned.
+// 8 == 0 and x is 16-byte aligned. act: 1 ReLU, 2 ReLU6 (MobileNetV2).
 extern "C" int pcv_stem(const void* x, const void* wt, const void* bias,
-                        float q, int ksize, void* conv_out, int B, int H,
-                        int W, int Ho, int Wo, int Cout, int rows,
+                        float q, int act, int ksize, void* conv_out, int B,
+                        int H, int W, int Ho, int Wo, int Cout, int rows,
                         void* stream) {
   const bool vec16 =
       W % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   StemKernel kernel;
   int smem;
-  if (Cout % 8 != 0 || Cout > kMaxCout || rows < 1 ||
+  if (Cout % 8 != 0 || Cout > kMaxCout || rows < 1 || act < 1 || act > 2 ||
       !stem_instance(ksize, vec16, rows, W, &kernel, &smem))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
@@ -440,7 +446,7 @@ extern "C" int pcv_stem(const void* x, const void* wt, const void* bias,
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(wt), static_cast<const float*>(bias),
-      q, static_cast<int8_t*>(conv_out), B, H, W, Ho, Wo, Cout, rows);
+      q, act, static_cast<int8_t*>(conv_out), B, H, W, Ho, Wo, Cout, rows);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -35,7 +36,7 @@ LAUNCHES: Dict[str, int] = {"preprocess": 0, "int8_conv": 0, "stem": 0,
                             "deform_sample": 0, "dwconv": 0,
                             "window_attention": 0, "fused_bottleneck": 0,
                             "stem_int8": 0, "patch_window_sum": 0,
-                            "int8_gconv": 0, "se_tail": 0}
+                            "int8_gconv": 0, "se_tail": 0, "dwconv_i8": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -49,7 +50,7 @@ _SIGNATURES = {
     "pcv_int8_gconv": [_P, _P, _P, _P, _P, _F, _I, _I, _F, _I, _P, _P]
     + [_I] * 20 + [_P],
     "pcv_int8_gconv_info": [_I, _I, _I, _I, _P],
-    "pcv_stem": [_P, _P, _P, _F, _I, _P] + [_I] * 7 + [_P],
+    "pcv_stem": [_P, _P, _P, _F, _I, _I, _P] + [_I] * 7 + [_P],
     "pcv_stem_info": [_I] * 4 + [_P],
     "pcv_maxpool_i8": [_P, _P] + [_I] * 8 + [_P],
     "pcv_maxpool_i8_info": [_I, _P],
@@ -67,6 +68,8 @@ _SIGNATURES = {
     "pcv_stem_int8_info": [_I] * 3 + [_P],
     "pcv_patch_window_sum": [_P] * 4 + [_I] * 4 + [_P, _P],
     "pcv_se_tail": [_P, _P, _P, _I, _F, _F, _I, _P, _I, _I, _I, _P],
+    "pcv_dwconv_i8": [_P, _P, _P, _P, _F, _I, _P] + [_I] * 9 + [_P],
+    "pcv_dwconv_i8_info": [_I, _P],
 }
 
 
@@ -75,6 +78,44 @@ def f32(v: float) -> float:
     JAX rounds a Python scalar that meets a float32 array."""
     import numpy as np
     return float(np.float32(v))
+
+
+@functools.lru_cache(maxsize=None)
+def _six(device, dtype):
+    import torch
+    with torch.inference_mode(False):
+        return torch.full((), 6.0, dtype=dtype, device=device)
+
+
+def div6(x):
+    """``x / 6``, correctly rounded on every device: PyTorch's CUDA division
+    by a Python scalar multiplies by its reciprocal (a bit may differ), by
+    a tensor it divides. The 0-dim divisor of a real CUDA tensor is made
+    once per card and dtype (no fill launch a call)."""
+    import torch
+    if type(x) is torch.Tensor and x.device.type == "cuda":
+        return x / _six(x.device, x.dtype)
+    return x / torch.full((), 6.0, dtype=x.dtype, device=x.device)
+
+
+# The int8 epilogues' activations (K2, K3, K12) and their codes
+# (``activate_i8`` in ``csrc/common.cuh``).
+ACTS_I8 = {None: 0, "relu": 1, "relu6": 2}
+
+
+def act_code_i8(name: str, act) -> int:
+    """``act``'s code in ``ACTS_I8``; raise for another activation."""
+    if act not in ACTS_I8:
+        raise ValueError(f"{name}: act {act!r} is not one of "
+                         f"{tuple(ACTS_I8)}")
+    return ACTS_I8[act]
+
+
+def activate_i8_reference(y, act):
+    """``activate_i8`` in torch: none, ``max(y, 0)`` or ``clip(y, 0, 6)``."""
+    if act == "relu6":
+        return y.clamp(0.0, 6.0)
+    return y.clamp_min(0.0) if act == "relu" else y
 
 
 def reset_launch_counts() -> None:

@@ -31,10 +31,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ._build import (LAUNCHES, autograd_records, check, device_of, library,
-                     require_cuda_or_cpu, stream_of)
+from ._build import (LAUNCHES, autograd_records, check, device_of, div6,
+                     library, require_cuda_or_cpu, stream_of)
 
-__all__ = ["ACTIVATIONS", "DwPlan", "dwconv2d_bn_act",
+__all__ = ["ACTIVATIONS", "MODEL_ACTIVATIONS", "DwPlan", "dwconv2d_bn_act",
            "dwconv2d_bn_act_reference", "dwconv_plan", "tile_geometry",
            "kernel_info"]
 
@@ -58,7 +58,17 @@ ACTIVATIONS = {
     "swish": lambda y: y * torch.sigmoid(y),
     "sigmoid": torch.sigmoid,
 }
-_ACT_CODES = {name: i for i, name in enumerate(ACTIVATIONS)}
+
+
+# K6's codes past the TPU kernel's: "hswish_div" is the model's hswish
+# (JAX ``nn/activ.py:35``, ``nn.activ.HSwish``), ``y * clip(y + 3, 0, 6) /
+# 6``, the product first, then a division by 6 (bit-exact in f32 against
+# the unfused block, where "hswish" is not).
+MODEL_ACTIVATIONS = {
+    "hswish_div": lambda y: div6(y * _clip06(y + 3.0)),
+}
+_ALL_ACTS = {**ACTIVATIONS, **MODEL_ACTIVATIONS}
+_ACT_CODES = {name: i for i, name in enumerate(_ALL_ACTS)}
 
 Pad = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -323,7 +333,7 @@ def dwconv2d_bn_act_reference(x: torch.Tensor, w: torch.Tensor,
                   dj:dj + stride * (wo - 1) + 1:stride] * w_taps[t]
         acc = prod if acc is None else acc + prod
     y = acc * scale.view(1, c, 1, 1) + shift.view(1, c, 1, 1)
-    return ACTIVATIONS[act](y).to(x.dtype)
+    return _ALL_ACTS[act](y).to(x.dtype)
 
 
 def dwconv2d_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -334,7 +344,8 @@ def dwconv2d_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     x's type with k in (3, 5, 7), as the depthwise conv stores it;
     ``scale``, ``shift`` f32 (C,), the folded BN; ``stride`` 1 or 2;
     ``pad`` ((top, bottom), (left, right)) zeros; ``act`` one of
-    :data:`ACTIVATIONS`. Returns (N, C, Ho, Wo) in x's type.
+    :data:`ACTIVATIONS` or :data:`MODEL_ACTIVATIONS`. Returns (N, C, Ho,
+    Wo) in x's type.
 
     Anything else raises, a call that autograd would record included (K6
     has no backward yet). CUDA tensors run the kernel, CPU tensors the
@@ -360,8 +371,8 @@ def dwconv2d_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     (top, bottom), (left, right) = pad
     if min(top, bottom, left, right) < 0:
         raise ValueError(f"dwconv: negative padding {pad}")
-    if act not in ACTIVATIONS:
-        raise ValueError(f"dwconv: act must be one of {list(ACTIVATIONS)}, "
+    if act not in _ALL_ACTS:
+        raise ValueError(f"dwconv: act must be one of {list(_ALL_ACTS)}, "
                          f"got {act!r}")
     ho = _out_size(h, k, stride, top, bottom)
     wo = _out_size(wd, k, stride, left, right)

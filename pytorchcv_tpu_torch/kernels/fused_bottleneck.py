@@ -188,11 +188,12 @@ def fused_bottleneck_chain_reference(xq: torch.Tensor,
     for u, (q1, q2, q3) in enumerate(packed["q"]):
         m, c = packed["w1"].shape[1:]
         t = int8_conv_reference(x, packed["w1"][u].view(m, 1, 1, c),
-                                packed["a1"][u], packed["b1"][u], 1, True, q1)
+                                packed["a1"][u], packed["b1"][u], 1, "relu",
+                                q1)
         t = int8_conv_reference(t, packed["w2"][u], packed["a2"][u],
-                                packed["b2"][u], 1, True, q2)
+                                packed["b2"][u], 1, "relu", q2)
         x = int8_conv_reference(t, packed["w3"][u].view(c, 1, 1, m),
-                                packed["a3"][u], packed["b3"][u], 1, False,
+                                packed["a3"][u], packed["b3"][u], 1, None,
                                 q3, residual=x, res_scale=packed["r"][u],
                                 round_res=True)
     return x

@@ -2,14 +2,23 @@
 
 One call is one int8 conv of the int8 ResNet pipeline, with its epilogue:
 
-* ``q`` given, no residual: ``clip(rint(max?(acc*A + B) * q), +-127)`` int8
-  (``_cell`` with ``s_out``; the max only with ``relu``);
-* no ``q``, no residual: ``acc*A + B`` (max with ``relu``) as bf16
-  (``_cell`` without ``s_out``);
+* ``q`` given, no residual: ``clip(rint(act(acc*A + B) * q), +-127)`` int8
+  (``_cell`` with ``s_out``);
+* no ``q``, no residual: ``act(acc*A + B)`` as bf16 (``_cell`` without
+  ``s_out``);
 * residual given (the unit tail): ``t = bf16(acc*A + B)``, ``r`` the
   residual term, ``y = max(t + r, 0)``, int8 via ``q`` or bf16 without it.
   An int8 residual enters as ``f32(res) * res_scale``, rounded to bf16 when
-  ``round_res``; a bf16 residual enters as it is.
+  ``round_res``; a bf16 residual enters as it is;
+* ``linear_res`` (MobileNetV2's project conv, JAX
+  ``quant/mobilenet_int8.py:145-149``): ``y = (acc*A + B) + f32(res) *
+  res_scale`` in f32, no bf16 rounding and no activation, then int8 via
+  ``q``.
+
+``act`` is ``"relu"`` (``max(y, 0)``), ``"relu6"`` (``clip(y, 0, 6)``,
+MobileNetV2's ``_cell6``) or None; the residual tails take the max as
+above. ``out_f32`` writes f32 instead of bf16 where there is no ``q`` (the
+MobileNet final blocks, whose mean the head takes in f32).
 
 With ``bend`` the call also returns the bf16 value of ``y`` before the
 int8 requantization (the stage-3 tap of the segmentation backbone), written
@@ -50,8 +59,9 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from ._build import (LAUNCHES, check, device_of, library,
-                     require_cuda_or_cpu, stream_of)
+from ._build import (ACTS_I8, LAUNCHES, act_code_i8, activate_i8_reference,
+                     check, device_of, library, require_cuda_or_cpu,
+                     stream_of)
 
 __all__ = ["int8_conv", "int8_conv_reference", "plan", "plan_cost",
            "block_tile", "blocks", "smem_bytes", "kernel_info",
@@ -60,7 +70,8 @@ __all__ = ["int8_conv", "int8_conv_reference", "plan", "plan_cost",
            "gconv_window", "gconv_spatial_tiles", "gconv_tables",
            "gconv_issued_ops", "gconv_info"]
 
-_RES_NONE, _RES_I8, _RES_I8_BF16, _RES_BF16 = 0, 1, 2, 3
+_RES_NONE, _RES_I8, _RES_I8_BF16, _RES_BF16, _RES_F32 = 0, 1, 2, 3, 4
+_OUT_BF16, _OUT_I8, _OUT_F32 = 0, 1, 2
 
 # Block tiles (output pixels, output channels) the kernel is built for.
 TILES: Tuple[Tuple[int, int], ...] = ((128, 128), (128, 64), (64, 128),
@@ -342,11 +353,13 @@ def _quant_i8(y: torch.Tensor, q: float) -> torch.Tensor:
 
 def int8_conv_reference(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
                         bias_b: torch.Tensor, stride: int = 1,
-                        relu: bool = True, q: Optional[float] = None,
+                        act: Optional[str] = "relu",
+                        q: Optional[float] = None,
                         residual: Optional[torch.Tensor] = None,
                         res_scale: Optional[float] = None,
                         round_res: bool = False, dilation: int = 1,
-                        bend: bool = False, groups: int = 1
+                        bend: bool = False, groups: int = 1,
+                        linear_res: bool = False, out_f32: bool = False
                         ) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """Plain PyTorch version of K2. The conv runs in float64, which is exact
     (int8 sums stay far below 2**53; float32 is not: they pass 2**24)."""
@@ -358,9 +371,10 @@ def int8_conv_reference(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
     acc = acc.to(torch.int32).permute(0, 2, 3, 1).contiguous()
     y = acc.to(torch.float32) * gain_a + bias_b
     if residual is None:
-        if relu:
-            y = torch.clamp_min(y, 0.0)
-        return _outputs(y, q, bend)
+        return _outputs(activate_i8_reference(y, act), q, bend, out_f32)
+    if linear_res:
+        return _outputs(y + residual.to(torch.float32) * res_scale, q, bend,
+                        out_f32)
     t = y.to(torch.bfloat16).to(torch.float32)
     if residual.dtype == torch.int8:
         r = residual.to(torch.float32) * res_scale
@@ -369,20 +383,25 @@ def int8_conv_reference(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
     else:
         r = residual.to(torch.float32)
     y = torch.clamp_min(t + r, 0.0)
-    return _outputs(y, q, bend)
+    return _outputs(y, q, bend, out_f32)
 
 
-def _outputs(y: torch.Tensor, q: Optional[float], bend: bool):
-    out = y.to(torch.bfloat16) if q is None else _quant_i8(y, q)
+def _outputs(y: torch.Tensor, q: Optional[float], bend: bool,
+             out_f32: bool = False):
+    if q is not None:
+        out = _quant_i8(y, q)
+    else:
+        out = y if out_f32 else y.to(torch.bfloat16)
     return (out, y.to(torch.bfloat16)) if bend else out
 
 
 def int8_conv(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
-              bias_b: torch.Tensor, stride: int = 1, relu: bool = True,
-              q: Optional[float] = None,
+              bias_b: torch.Tensor, stride: int = 1,
+              act: Optional[str] = "relu", q: Optional[float] = None,
               residual: Optional[torch.Tensor] = None,
               res_scale: Optional[float] = None, round_res: bool = False,
-              groups: int = 1, dilation: int = 1, bend: bool = False
+              groups: int = 1, dilation: int = 1, bend: bool = False,
+              linear_res: bool = False, out_f32: bool = False
               ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """K2: ``x`` int8 (B, H, W, Cin) conv ``w`` int8 (Cout, k, k, Cin /
     groups), stride ``stride``, dilation ``dilation``, pad ``dilation * (k
@@ -390,6 +409,16 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
     ``bias_b``: f32 (Cout,). ``q``/``res_scale`` are float32 values. With
     ``bend``, returns ``(out, y_bf16)``. CUDA tensors run the kernel (the
     grouped kernel where ``groups > 1``), CPU tensors the plain version."""
+    act_code_i8("int8_conv", act)
+    if out_f32 and (q is not None or bend):
+        raise ValueError("int8_conv: out_f32 takes no q and no bend")
+    if act == "relu6" and residual is not None:
+        raise ValueError("int8_conv: relu6 applies where there is no "
+                         "residual")
+    if linear_res and (residual is None or residual.dtype != torch.int8
+                       or res_scale is None or round_res):
+        raise ValueError("int8_conv: linear_res takes an int8 residual and "
+                         "its res_scale, unrounded")
     if dilation < 1:
         raise ValueError(f"int8_conv: dilation {dilation} must be >= 1")
     if x.dtype != torch.int8 or x.dim() != 4:
@@ -430,66 +459,72 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
         if residual.dtype == torch.int8:
             if res_scale is None:
                 raise ValueError("int8_conv: int8 residual needs res_scale")
-            res_mode = _RES_I8_BF16 if round_res else _RES_I8
+            res_mode = _RES_F32 if linear_res else (
+                _RES_I8_BF16 if round_res else _RES_I8)
         elif residual.dtype == torch.bfloat16:
             res_mode = _RES_BF16
         else:
             raise ValueError(f"int8_conv: residual dtype {residual.dtype}")
         tensors.append(residual)
     if not require_cuda_or_cpu("int8_conv", *tensors):
-        return int8_conv_reference(x, w, gain_a, bias_b, stride, relu, q,
+        return int8_conv_reference(x, w, gain_a, bias_b, stride, act, q,
                                    residual, res_scale, round_res, dilation,
-                                   bend, groups)
+                                   bend, groups, linear_res, out_f32)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("int8_conv: inputs must be contiguous")
     m = bsz * ho * wo
     if m >= 2 ** 31 or x.numel() >= 2 ** 31:
         raise ValueError(f"int8_conv: {tuple(x.shape)} -> {m} pixels "
                          "exceeds the kernel's indexing")
+    out_mode = _OUT_I8 if q is not None else (_OUT_F32 if out_f32
+                                              else _OUT_BF16)
     if groups > 1:
         if any(t is not None and t.data_ptr() % 16
                for t in (x, w, residual)):
             raise ValueError("int8_conv: a grouped conv's x, w and residual "
                              "must be 16-byte aligned")
-        return _launch_grouped(x, w, gain_a, bias_b, stride, relu, q,
+        return _launch_grouped(x, w, gain_a, bias_b, stride, act, q,
                                residual, res_scale, res_mode, dilation, bend,
-                               groups)
-    return _launch(x, w, gain_a, bias_b, stride, relu, q, residual,
-                   res_scale, res_mode, dilation, bend,
+                               groups, out_mode)
+    return _launch(x, w, gain_a, bias_b, stride, act, q, residual,
+                   res_scale, res_mode, dilation, bend, out_mode,
                    plan(m, cout, cin, k))
 
 
-def _empty_outputs(x, w, stride, pad, dilation, q, bend):
-    """A conv's output (int8 with ``q``, else bf16) and, with ``bend``, its
-    bf16 twin, allocated on x's card."""
+def _empty_outputs(x, w, stride, pad, dilation, bend, out_mode):
+    """A conv's output (int8, bf16 or f32 as ``out_mode`` says) and, with
+    ``bend``, its bf16 twin, allocated on x's card."""
     k = w.shape[1]
     ho = (x.shape[1] + 2 * pad - dilation * (k - 1) - 1) // stride + 1
     wo = (x.shape[2] + 2 * pad - dilation * (k - 1) - 1) // stride + 1
     shape = (x.shape[0], ho, wo, w.shape[0])
-    out = torch.empty(shape, dtype=torch.int8 if q is not None
-                      else torch.bfloat16, device=x.device)
+    dtype = {_OUT_I8: torch.int8, _OUT_F32: torch.float32,
+             _OUT_BF16: torch.bfloat16}[out_mode]
+    out = torch.empty(shape, dtype=dtype, device=x.device)
     out_bf16 = torch.empty(shape, dtype=torch.bfloat16,
                            device=x.device) if bend else None
     return out, out_bf16
 
 
-def _launch(x, w, gain_a, bias_b, stride, relu, q, residual, res_scale,
-            res_mode, dilation, bend, tile):
+def _launch(x, w, gain_a, bias_b, stride, act, q, residual, res_scale,
+            res_mode, dilation, bend, out_mode, tile):
     """K2 on the card in blocks of ``tile`` = (BM, BN) (checked operands;
     :func:`plan`'s tile, or another of :data:`TILES` for the card tests
     and the plans tool)."""
     bsz, h, wd, cin = x.shape
     cout, k = w.shape[0], w.shape[1]
     pad = dilation * (k // 2)
-    out, out_bf16 = _empty_outputs(x, w, stride, pad, dilation, q, bend)
+    out, out_bf16 = _empty_outputs(x, w, stride, pad, dilation, bend,
+                                   out_mode)
     ho, wo = out.shape[1], out.shape[2]
     lib = library()
     with device_of(x):
         check(lib.pcv_int8_conv(
             x.data_ptr(), w.data_ptr(), gain_a.data_ptr(), bias_b.data_ptr(),
             residual.data_ptr() if residual is not None else None,
-            float(res_scale or 0.0), res_mode, int(relu), float(q or 0.0),
-            int(q is not None), out.data_ptr(), bsz, h, wd, cin, ho, wo,
+            float(res_scale or 0.0), res_mode, ACTS_I8[act],
+            float(q or 0.0), out_mode, out.data_ptr(), bsz, h, wd, cin, ho,
+            wo,
             cout, k, k, stride, pad, dilation,
             out_bf16.data_ptr() if bend else None, tile[0], tile[1],
             stream_of(x)), "int8_conv")
@@ -497,15 +532,17 @@ def _launch(x, w, gain_a, bias_b, stride, relu, q, residual, res_scale,
     return (out, out_bf16) if bend else out
 
 
-def _launch_grouped(x, w, gain_a, bias_b, stride, relu, q, residual,
-                    res_scale, res_mode, dilation, bend, groups, tile=None):
+def _launch_grouped(x, w, gain_a, bias_b, stride, act, q, residual,
+                    res_scale, res_mode, dilation, bend, groups, out_mode,
+                    tile=None):
     """The grouped kernel on the card (checked operands) under
     :func:`gconv_plan`'s plan, or under block tile ``tile`` = (bm, bn) of
     :data:`GCONV_TILES` (the card tests and the plans tool)."""
     bsz, h, wd, cin = x.shape
     cout, k = w.shape[0], w.shape[1]
     pad = dilation * (k // 2)
-    out, out_bf16 = _empty_outputs(x, w, stride, pad, dilation, q, bend)
+    out, out_bf16 = _empty_outputs(x, w, stride, pad, dilation, bend,
+                                   out_mode)
     ho, wo = out.shape[1], out.shape[2]
     args = (bsz, h, wd, cin, cout, groups, k, stride, dilation)
     p = gconv_plan(*args) if tile is None else gconv_tile(*args, *tile)
@@ -516,8 +553,8 @@ def _launch_grouped(x, w, gain_a, bias_b, stride, relu, q, residual,
         check(library().pcv_int8_gconv(
             x.data_ptr(), w.data_ptr(), gain_a.data_ptr(), bias_b.data_ptr(),
             residual.data_ptr() if residual is not None else None,
-            float(res_scale or 0.0), res_mode, int(relu), float(q or 0.0),
-            int(q is not None), out.data_ptr(),
+            float(res_scale or 0.0), res_mode, ACTS_I8[act],
+            float(q or 0.0), out_mode, out.data_ptr(),
             out_bf16.data_ptr() if bend else None, bsz, h, wd, cin, ho, wo,
             cout, k, stride, pad, dilation, groups, p.bm, p.bn, p.u, p.imgs,
             p.th, p.tw, p.vec, p.wb, stream_of(x)),

@@ -166,8 +166,8 @@ def _grouped_sweep(name_card: str, rng, times: dict) -> None:
                     continue
                 with torch.inference_mode():
                     ms, _, wall = launch_ms(lambda: k2._launch_grouped(
-                        x, wt, a, bb, st, True, f32(0.7), None, None,
-                        k2._RES_NONE, 1, False, groups, tile),
+                        x, wt, a, bb, st, "relu", f32(0.7), None, None,
+                        k2._RES_NONE, 1, False, groups, k2._OUT_I8, tile),
                         "int8_gconv_kernel")
                 if ms is None:
                     raise RuntimeError("the profiler recorded no grouped K2")
@@ -227,9 +227,10 @@ def main() -> None:
             pick = k2.plan(m, cout, cin, k)
             tile_ms = {}
             for tile in k2.TILES:
-                args = (x, wt, a, bb, st, not res, f32(0.7), r,
-                        f32(0.01) if res else None,
-                        k2._RES_I8 if res else k2._RES_NONE, dil, False, tile)
+                args = (x, wt, a, bb, st, None if res else "relu",
+                        f32(0.7), r, f32(0.01) if res else None,
+                        k2._RES_I8 if res else k2._RES_NONE, dil, False,
+                        k2._OUT_I8, tile)
                 with torch.inference_mode():
                     ms = cuda_ms(lambda: k2._launch(*args))
                 key = (f"{path} k{k} s{st} d{dil} {cin}->{cout} {h}x{w}"

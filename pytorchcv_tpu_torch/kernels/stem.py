@@ -2,10 +2,11 @@
 
 ``stem_conv``: ``x`` planar bf16 (B, 3, H, W) is convolved with a BN-folded
 bf16 kernel (k x k, stride 2, pad k // 2, with k = 7 for the ResNet stem
-and k = 3 for conv1 of the SENet deep stem; bf16 x bf16 products summed in
-f32), the f32 bias is added, ReLU applied and the result quantized to int8
-NHWC with ``clip(rint(y * q), +-127)``. ``maxpool_i8`` is the 3x3/s2/pad-1
-int8 max-pool (pad value -128) that follows it (the ResNet stem) or the
+and k = 3 for conv1 of the SENet deep stem and the MobileNet stems; bf16 x
+bf16 products summed in f32), the f32 bias is added, the activation
+``act`` applied (``"relu"``, or ``"relu6"``, ``clip(y, 0, 6)``:
+MobileNetV2) and the result quantized to int8 NHWC with ``clip(rint(y *
+q), +-127)``. ``maxpool_i8`` is the 3x3/s2/pad-1 int8 max-pool (pad value -128) that follows it (the ResNet stem) or the
 deep stem's int8 conv2 and conv3: a thread takes a channel vector of one
 output column (16 bytes where C and the pointers allow) down a run of
 output rows (:func:`maxpool_plan`). Both run ``csrc/stem.cu``.
@@ -24,8 +25,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ._build import (LAUNCHES, check, device_of, library, no_tf32,
-                     require_cuda_or_cpu, stream_of)
+from ._build import (ACTS_I8, LAUNCHES, act_code_i8, activate_i8_reference,
+                     check, device_of, library, no_tf32, require_cuda_or_cpu,
+                     stream_of)
 
 __all__ = ["stem_conv", "stem_conv_reference", "maxpool_i8",
            "maxpool_i8_reference", "maxpool_plan", "maxpool_info",
@@ -116,24 +118,27 @@ def maxpool_i8_reference(x: torch.Tensor) -> torch.Tensor:
 
 
 def stem_conv_reference(x: torch.Tensor, kf: torch.Tensor,
-                        bias: torch.Tensor, q: float) -> torch.Tensor:
+                        bias: torch.Tensor, q: float,
+                        act: str = "relu") -> torch.Tensor:
     """Plain PyTorch version of K3: an f32 conv (exact products, no TF32)
     and the same epilogue."""
     w = kf.permute(3, 0, 1, 2).to(torch.float32)
     with no_tf32():
         y = F.conv2d(x.to(torch.float32), w, stride=2,
                      padding=kf.shape[1] // 2)
-    y = torch.clamp_min(y + bias[None, :, None, None], 0.0)
+    y = activate_i8_reference(y + bias[None, :, None, None], act)
     yq = torch.clamp(torch.round(y * q), -127.0, 127.0).to(torch.int8)
     return yq.permute(0, 2, 3, 1).contiguous()
 
 
 def stem_conv(x: torch.Tensor, kf: torch.Tensor, bias: torch.Tensor,
-              q: float) -> torch.Tensor:
+              q: float, act: str = "relu") -> torch.Tensor:
     """K3: ``x`` bf16 (B, 3, H, W); ``kf`` bf16 (3, k, k, Cout) with k in
     (3, 7), the folded kernel with input channel first; ``bias`` f32
-    (Cout,); ``q`` the f32 quant factor. Returns int8 NHWC. CUDA tensors
-    run the kernel, CPU tensors the plain version."""
+    (Cout,); ``q`` the f32 quant factor; ``act`` one of ``ACTS_I8``.
+    Returns int8 NHWC. CUDA tensors run the kernel, CPU tensors the plain
+    version."""
+    act_code_i8("stem", act)
     if x.dtype != torch.bfloat16 or x.dim() != 4 or x.shape[1] != 3:
         raise ValueError(f"stem: x must be bf16 (B,3,H,W), got {x.dtype} "
                          f"{tuple(x.shape)}")
@@ -148,7 +153,7 @@ def stem_conv(x: torch.Tensor, kf: torch.Tensor, bias: torch.Tensor,
     if bias.dtype != torch.float32 or tuple(bias.shape) != (cout,):
         raise ValueError(f"stem: bias must be f32 ({cout},)")
     if not require_cuda_or_cpu("stem", x, kf, bias):
-        return stem_conv_reference(x, kf, bias, q)
+        return stem_conv_reference(x, kf, bias, q, act)
     if not all(t.is_contiguous() for t in (x, kf, bias)):
         raise ValueError("stem: inputs must be contiguous")
     bsz, _, h, w = x.shape
@@ -157,10 +162,10 @@ def stem_conv(x: torch.Tensor, kf: torch.Tensor, bias: torch.Tensor,
     if x.numel() >= 2 ** 31 or bsz * ho * wo * cout >= 2 ** 40:
         raise ValueError(f"stem: x {tuple(x.shape)} exceeds the kernel's "
                          f"indexing")
-    return _launch(x, kf, bias, q, stem_plan(bsz, h, w, k))
+    return _launch(x, kf, bias, q, stem_plan(bsz, h, w, k), act)
 
 
-def _launch(x, kf, bias, q, rows):
+def _launch(x, kf, bias, q, rows, act="relu"):
     """K3 on the card in tiles of ``rows`` output rows (checked operands;
     :func:`stem_plan`'s rows, or others for the plans tool)."""
     bsz, _, h, w = x.shape
@@ -170,8 +175,9 @@ def _launch(x, kf, bias, q, rows):
     out = torch.empty((bsz, ho, wo, cout), dtype=torch.int8, device=x.device)
     with torch.cuda.device(x.device):
         check(library().pcv_stem(x.data_ptr(), kf.data_ptr(), bias.data_ptr(),
-                                 float(q), k, out.data_ptr(), bsz, h, w, ho,
-                                 wo, cout, rows, stream_of(x)), "stem")
+                                 float(q), ACTS_I8[act], k,
+                                 out.data_ptr(), bsz, h, w, ho, wo, cout,
+                                 rows, stream_of(x)), "stem")
     LAUNCHES["stem"] += 1
     return out
 

@@ -150,7 +150,7 @@ def _prepared_reference(x, wq, g, bias, s_img, s_out):
     xq = torch.clamp(torch.round(x.to(torch.float32) * f32(127.0 / s_img)),
                      -127, 127).to(torch.int8)
     return int8_conv_reference(xq, wq.permute(3, 0, 1, 2), g,
-                               bias.to(torch.float32), stride=2, relu=True,
+                               bias.to(torch.float32), stride=2, act="relu",
                                q=f32(127.0 / s_out))
 
 

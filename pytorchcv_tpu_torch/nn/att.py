@@ -24,13 +24,18 @@ class SEBlock(nn.Module):
     """Squeeze-and-excitation gate with 1x1 convs (JAX ``nn/att.py:34``,
     ``use_conv=True``): mean over H and W -> 1x1 conv with bias ->
     ``mid_activation`` -> 1x1 conv with bias -> ``out_activation`` -> scale
-    the input. Children ``conv1``, ``activ``, ``conv2``, ``sigmoid``."""
+    the input. Children ``conv1``, ``activ``, ``conv2``, ``sigmoid``. The
+    middle width is ``channels // reduction``, or with ``round_mid``
+    ``round_channels(channels / reduction)`` (MobileNetV3's gates, whose
+    ``out_activation`` is ``lambda_hsigmoid()``)."""
 
     def __init__(self, channels: int, reduction: int = 16,
                  mid_activation: Activation = True,
-                 out_activation: Activation = lambda_sigmoid()):
+                 out_activation: Activation = lambda_sigmoid(),
+                 round_mid: bool = False):
         super().__init__()
-        mid = channels // reduction
+        mid = round_channels(float(channels) / reduction) if round_mid \
+            else channels // reduction
         self.conv1 = conv1x1(channels, mid, bias=True)
         self.activ = create_activation(mid_activation)
         self.conv2 = conv1x1(mid, channels, bias=True)

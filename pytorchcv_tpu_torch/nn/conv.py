@@ -13,18 +13,21 @@ from torch import nn
 
 from ..kernels._build import autograd_records
 from ..kernels.dwconv import dwconv2d_bn_act
-from .activ import Activation, Swish, create_activation
+from .activ import Activation, HSwish, Swish, create_activation
 from .norm import BN_EPS, fold_batchnorm
 
-__all__ = ["ConvBlock", "conv1x1", "conv1x1_block", "conv3x3_block",
-           "conv7x7_block", "dwconv_block", "dwconv3x3_block",
-           "dwconv5x5_block", "unfused_depthwise"]
+__all__ = ["ConvBlock", "DwsConvBlock", "conv1x1", "conv1x1_block",
+           "conv3x3_block", "conv7x7_block", "dwconv_block",
+           "dwconv3x3_block", "dwconv5x5_block", "dwsconv3x3_block",
+           "unfused_depthwise"]
 
 Normalization = Union[bool, Callable[[int], nn.Module]]
 Pad = Tuple[Tuple[int, int], Tuple[int, int]]
 
-# K6's name for each activation module whose arithmetic it repeats.
-_K6_ACTS = {Swish: "swish"}
+# K6's name for each activation module whose arithmetic it repeats
+# (HSwish divides by 6: K6's "hswish_div", not the TPU kernel's "hswish").
+_K6_ACTS = {Swish: "swish", nn.ReLU: "relu", nn.ReLU6: "relu6",
+            HSwish: "hswish_div"}
 
 
 class ConvBlock(nn.Module):
@@ -37,7 +40,8 @@ class ConvBlock(nn.Module):
     ``bn`` child (ProPainter's blocks).
 
     A depthwise block (``groups == in == out`` channels, k in (3, 5, 7),
-    stride 1 or 2, no dilation, no bias) with BN and swish runs in eval
+    stride 1 or 2, no dilation, no bias) with BN and swish, ReLU, ReLU6 or
+    hswish (``_K6_ACTS``) runs in eval
     mode as one K6 launch (``kernels.dwconv``), BN folded on every call.
     It runs conv, BN and activation unfused in training mode, whenever
     autograd records the forward (K6 has no backward yet), and inside
@@ -158,4 +162,35 @@ def dwconv3x3_block(in_channels: int, out_channels: int, stride: int = 1,
 def dwconv5x5_block(in_channels: int, out_channels: int, stride: int = 1,
                     padding: int = 2, **kwargs) -> ConvBlock:
     return dwconv_block(in_channels, out_channels, 5, stride=stride,
+                        padding=padding, **kwargs)
+
+
+class DwsConvBlock(nn.Module):
+    """Depthwise-separable block (JAX ``nn/conv.py:182``): a
+    depthwise k x k :class:`ConvBlock` ``dw_conv`` (BN with ``dw_use_bn``,
+    ``dw_activation``) and a 1x1 :class:`ConvBlock` ``pw_conv`` (BN with
+    ``pw_use_bn``, ``pw_activation``)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, padding: int = 1,
+                 dw_use_bn: bool = True, pw_use_bn: bool = True,
+                 dw_activation: Activation = True,
+                 pw_activation: Activation = True):
+        super().__init__()
+        self.dw_conv = dwconv_block(in_channels, in_channels, kernel_size,
+                                    stride=stride, padding=padding,
+                                    normalization=dw_use_bn,
+                                    activation=dw_activation)
+        self.pw_conv = conv1x1_block(in_channels, out_channels,
+                                     normalization=pw_use_bn,
+                                     activation=pw_activation)
+
+    def forward(self, x):
+        return self.pw_conv(self.dw_conv(x))
+
+
+def dwsconv3x3_block(in_channels: int, out_channels: int, stride: int = 1,
+                     padding: int = 1, **kwargs) -> DwsConvBlock:
+    """3x3 depthwise-separable block (JAX ``nn/conv.py:227``)."""
+    return DwsConvBlock(in_channels, out_channels, 3, stride=stride,
                         padding=padding, **kwargs)

@@ -65,10 +65,15 @@ class InterpolationBlock(nn.Module):
 
 
 class _GlobalAvgPool2d(nn.Module):
+    def __init__(self, keepdim: bool = False):
+        super().__init__()
+        self.keepdim = keepdim
+
     def forward(self, x):
-        return x.mean((2, 3))
+        return x.mean((2, 3), keepdim=self.keepdim)
 
 
-def global_avg_pool2d() -> nn.Module:
-    """Mean over H and W: (B, C, H, W) -> (B, C) (JAX ``nn/ops.py:355``)."""
-    return _GlobalAvgPool2d()
+def global_avg_pool2d(keepdims: bool = False) -> nn.Module:
+    """Mean over H and W: (B, C, H, W) -> (B, C), or (B, C, 1, 1) with
+    ``keepdims`` (JAX ``nn/ops.py:355``)."""
+    return _GlobalAvgPool2d(keepdims)

@@ -7,6 +7,8 @@ from typing import Dict, Iterable
 import torch
 from torch import nn
 
+from ..nn.conv import unfused_depthwise
+
 __all__ = ["calibrate_int8"]
 
 
@@ -16,7 +18,10 @@ def calibrate_int8(model: nn.Module, batches: Iterable) -> Dict[str, float]:
 
     Returns {path: amax}, keyed like the JAX package's scales: the module's
     qualified name with '/' for '.', e.g.
-    ``features/stage1/unit1/body/conv1/conv`` and ``output``."""
+    ``features/stage1/unit1/body/conv1/conv`` and ``output``. The model's
+    depthwise blocks run unfused (``unfused_depthwise``), so their convs'
+    inputs are recorded as the JAX package records every conv's (K6 takes
+    the conv, BN and activation in one call that no hook sees)."""
     scales: Dict[str, float] = {}
     batch_amax: Dict[str, torch.Tensor] = {}
 
@@ -32,7 +37,7 @@ def calibrate_int8(model: nn.Module, batches: Iterable) -> Dict[str, float]:
                for name, m in model.named_modules()
                if isinstance(m, (nn.Conv2d, nn.Linear))]
     try:
-        with torch.inference_mode():
+        with torch.inference_mode(), unfused_depthwise(model):
             for batch in batches:
                 args = batch if isinstance(batch, tuple) else (batch,)
                 batch_amax.clear()

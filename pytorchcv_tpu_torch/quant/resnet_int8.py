@@ -182,13 +182,13 @@ def _conv_step(cell: Dict, s_in: float, relu: bool,
             "b": cell["bias"],
             "stride": cell["stride"] if stride is None else stride,
             "dilation": cell.get("dilation", 1),
-            "groups": cell.get("groups", 1), "relu": relu,
+            "groups": cell.get("groups", 1), "act": "relu" if relu else None,
             "q": None if s_out is None else _f32(127.0 / s_out)}
 
 
 def _run_step(step: Dict, x: torch.Tensor, **tail) -> torch.Tensor:
     return int8_conv(x, step["w"], step["a"], step["b"], stride=step["stride"],
-                     relu=step["relu"], q=step["q"],
+                     act=step["act"], q=step["q"],
                      dilation=step["dilation"], groups=step["groups"],
                      **tail)
 

@@ -11,21 +11,29 @@
 
     serve = make_serving_fn("efficientnet_b0", (256, 256))   # bf16 route
 
-Three routes of the JAX package's ``make_serving_fn``, all on the card by
+    serve = make_serving_fn("mobilenetv2_w1", (256, 256))    # int8 route
+
+Five routes of the JAX package's ``make_serving_fn``, all on the card by
 default:
 
 * ``resnet`` (classification): the eval preprocess (kernel K1, planar bf16
   out), calibration in the preprocessed domain, and the int8 ResNet
   pipeline (kernels K3, ``maxpool_i8``, K2 and the K8 bottleneck chains),
   for ResNets and the BN-less WRN;
+* ``mobilenetv2`` and ``mobilenet_v1`` (classification): the same
+  preprocess and calibration, and the int8 MobileNet pipelines (K3, the
+  int8 depthwise conv K12, K2), for a model whose tree passes the
+  pipeline's check (``quant.mobilenet_int8``); in ``mode="auto"`` a model
+  that fails it (``mobilenetb_*``: no BN on its depthwise convs) is served
+  in bf16, as in the JAX package;
 * ``seg_backbone`` (segmentation): the resize-only preprocess (K1),
   calibration over the whole f32 model, the int8 dilated backbone (K3,
   ``maxpool_i8``, K2) and the model's own head on a bf16 copy, fed through
   ``from_features=True`` (DANet's position attention on K4);
 * bf16 (classification): the eval preprocess (K1, planar bf16 out) and a
   bf16 copy of the model (``as_bfloat16``), for ``mode="bf16"`` and for a
-  family that declares no int8 route in ``mode="auto"`` (EfficientNet,
-  whose depthwise blocks run K6).
+  family that declares no int8 route in ``mode="auto"`` (EfficientNet and
+  MobileNetV3, whose depthwise blocks run K6).
 """
 
 from __future__ import annotations
@@ -43,7 +51,9 @@ from .kernels.preprocess import (classification_preprocess,
 from .model_provider import get_model, resolve_device
 from .models.registry import get_constructor
 from .nn.conv import unfused_depthwise
-from .quant import (calibrate_int8, is_seg_resnetd_backbone,
+from .quant import (calibrate_int8, is_mobilenet_v1_tree,
+                    is_mobilenet_v2_tree, is_seg_resnetd_backbone,
+                    prepare_int8_mobilenet, prepare_int8_mobilenet_v1,
                     prepare_int8_resnet, prepare_int8_seg_backbone)
 
 __all__ = ["make_serving_fn", "declared_int8_route"]
@@ -51,8 +61,9 @@ __all__ = ["make_serving_fn", "declared_int8_route"]
 # The int8 pipeline each model family (the constructor's module) may use,
 # copied from the JAX package's table (serve.py:43-69), where every entry
 # rests on an A/B measurement; a trailing '!' marks pipelines used only when
-# the caller forces mode='int8'. The port has the "resnet" and
-# "seg_backbone" pipelines; the others raise NotImplementedError.
+# the caller forces mode='int8'. The port has the "resnet",
+# "seg_backbone", "mobilenet_v1" and "mobilenetv2" pipelines; the others
+# raise NotImplementedError.
 _INT8_ROUTES = {
     "resnet": "resnet", "seresnet": "resnet", "resnext": "resnet",
     "seresnext": "resnet", "senet": "resnet", "wrn": "resnet",
@@ -68,7 +79,12 @@ _INT8_ROUTES = {
     "centernet": "plain_trunk",
     "mobilenetv3": "mobilenetv3!", "efficientnet": "efficientnet!",
 }
-_TASK_ROUTES = {"classification": "resnet", "segmentation": "seg_backbone"}
+_TASK_ROUTES = {"classification": ("resnet", "mobilenet_v1", "mobilenetv2"),
+                "segmentation": ("seg_backbone",)}
+# The MobileNet pipelines: each one's tree check and prepare.
+_MOBILENET_ROUTES = {
+    "mobilenet_v1": (is_mobilenet_v1_tree, prepare_int8_mobilenet_v1),
+    "mobilenetv2": (is_mobilenet_v2_tree, prepare_int8_mobilenet)}
 
 
 def declared_int8_route(model_name: str, mode: str = "auto") -> Optional[str]:
@@ -134,9 +150,11 @@ def make_serving_fn(model_name: str, source_hw: Tuple[int, int],
     ``mode``: 'auto' serves the family's declared int8 pipeline (the
     measured choice), or bf16 where the family declares none in auto;
     'int8' forces the int8 pipeline; 'bf16' forces bf16 (classification
-    only). Pipelines, families and tasks not yet ported raise
-    ``NotImplementedError``. ``calib_batches``: preprocessed NCHW f32
-    batches for calibration. ``model``: a built module on ``device`` to
+    only). A MobileNet tree that fails its int8 pipeline's check is served
+    in bf16 in 'auto' and raises ``NotImplementedError`` in 'int8' (the
+    generic int8 interception is not ported). Pipelines, families and
+    tasks not yet ported raise ``NotImplementedError``.
+    ``calib_batches``: preprocessed NCHW f32 batches for calibration. ``model``: a built module on ``device`` to
     serve instead of a fresh ``get_model(model_name, device=device,
     **model_kwargs)``. The closure carries ``route`` ("bf16" or the int8
     pipeline's name); ``make_reference_forward()``, the f32 oracle: f32
@@ -157,7 +175,7 @@ def make_serving_fn(model_name: str, source_hw: Tuple[int, int],
         if task != "classification":
             raise NotImplementedError(
                 f"task {task!r} in bf16 is not yet ported")
-    elif route != _TASK_ROUTES[task]:
+    elif route not in _TASK_ROUTES[task]:
         raise NotImplementedError(
             f"{model_name!r}, task {task!r}: int8 route {route!r} is not "
             f"ported (ported: {_TASK_ROUTES[task]!r})")
@@ -168,6 +186,12 @@ def make_serving_fn(model_name: str, source_hw: Tuple[int, int],
     if own.type != device.type:
         raise ValueError(f"model is on {own}, the serving device is {device}")
     device = own
+    if route in _MOBILENET_ROUTES and not _MOBILENET_ROUTES[route][0](model):
+        if mode == "int8":
+            raise NotImplementedError(
+                f"{model_name!r}: the tree fails the {route!r} pipeline's "
+                f"check; the generic int8 interception is not yet ported")
+        route = None
 
     if task == "classification":
         def make_pre(**kw):
@@ -191,7 +215,9 @@ def make_serving_fn(model_name: str, source_hw: Tuple[int, int],
         infer = as_bfloat16(model)
     elif task == "classification":
         scales = _calibrate(model, calib_batches, pre, source_hw, device)
-        run, plan = prepare_int8_resnet(model, scales)
+        prepare = _MOBILENET_ROUTES[route][1] if route in _MOBILENET_ROUTES \
+            else prepare_int8_resnet
+        run, plan = prepare(model, scales)
 
         def infer(x):
             return run(plan, x)

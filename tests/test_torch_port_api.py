@@ -32,7 +32,10 @@ def test_import_leaves_jax_out():
             "pytorchcv_tpu_torch.models.propainter_stream, "
             "pytorchcv_tpu_torch.models.raft, "
             "pytorchcv_tpu_torch.models.raft_stream, "
-            "pytorchcv_tpu_torch.models.inceptionv3; "
+            "pytorchcv_tpu_torch.models.inceptionv3, "
+            "pytorchcv_tpu_torch.models.mobilenetv3, "
+            "pytorchcv_tpu_torch.kernels.dwconv_i8, "
+            "pytorchcv_tpu_torch.quant.mobilenet_int8; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'pytorchcv_tpu')]; "
             "assert not bad, bad")
@@ -42,8 +45,8 @@ def test_import_leaves_jax_out():
 def test_registry_holds_every_jax_resnet_name():
     """Each ported family (resnet, resnetd, danet, propainter_rfc,
     efficientnet, propainter, propainter_ip, wrn, seresnet, resnext,
-    seresnext, senet, raft) registers exactly the JAX package's names of
-    that family, and nothing else."""
+    seresnext, senet, raft, mobilenet, mobilenetv2, mobilenetv3) registers
+    exactly the JAX package's names of that family, and nothing else."""
     def family(names, registry, fam):
         return {n for n in names if registry.get_constructor(
             n).__module__.rsplit(".", 1)[-1] == fam}
@@ -52,7 +55,8 @@ def test_registry_holds_every_jax_resnet_name():
     counts = {}
     for fam in ("resnet", "resnetd", "danet", "propainter_rfc",
                 "efficientnet", "propainter", "propainter_ip", "wrn",
-                "seresnet", "resnext", "seresnext", "senet", "raft"):
+                "seresnet", "resnext", "seresnext", "senet", "raft",
+                "mobilenet", "mobilenetv2", "mobilenetv3"):
         jax_names = family(jax_registry.registered_models(), jax_registry,
                            fam)
         assert family(port_names, port_registry, fam) == jax_names, fam
@@ -61,8 +65,9 @@ def test_registry_holds_every_jax_resnet_name():
                       "propainter_rfc": 1, "efficientnet": 26,
                       "propainter": 1, "propainter_ip": 1, "wrn": 1,
                       "seresnet": 17, "resnext": 10, "seresnext": 3,
-                      "senet": 6, "raft": 2}
-    assert len(port_names) == 94
+                      "senet": 6, "raft": 2, "mobilenet": 12,
+                      "mobilenetv2": 8, "mobilenetv3": 10}
+    assert len(port_names) == 124
 
 
 def test_get_model_is_seeded_and_named():

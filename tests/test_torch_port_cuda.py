@@ -25,7 +25,11 @@ the CPU and its two correlation lookups against each other,
 logits with and without K8 chains, DANet's position-attention gradients
 against the CPU's and a direct f32 forward under torch's TF32 defaults;
 K2 under each of its block tiles at sizes no tile divides, and K3 at the
-paths' stem shapes; no K2, K3, K5, K6, K9 or ``maxpool_i8`` instance
+paths' stem shapes; the int8 MobileNet v1 and v2 routes (launch counts,
+every K12 and K2 call bit-exact, K3 with ReLU6), the int8 depthwise conv
+(K12) under every vector width and row run, K2's ReLU6, linear-residual
+and f32-output epilogues, and K6 at every depthwise call of a bf16
+MobileNetV3-large; no K2, K3, K5, K6, K9, K12 or ``maxpool_i8`` instance
 spills.
 
 Each test carries the ``cuda`` marker, needs a CUDA card and nvcc, and
@@ -95,12 +99,12 @@ def test_int8_conv_kernel_matches_plain(k, stride, cin, cout, hw):
     res_i8 = _i8(rng, (3, ho, ho, cout), dev)
     res_bf = torch.from_numpy(rng.standard_normal((3, ho, ho, cout)).astype(
         np.float32)).to(dev, torch.bfloat16)
-    cases = [dict(relu=True, q=0.7), dict(relu=False, q=0.7),
-             dict(relu=True), dict(relu=False),
-             dict(relu=False, q=0.7, residual=res_i8, res_scale=0.01,
+    cases = [dict(act="relu", q=0.7), dict(act=None, q=0.7),
+             dict(act="relu"), dict(act=None),
+             dict(act=None, q=0.7, residual=res_i8, res_scale=0.01,
                   round_res=True),
-             dict(relu=False, q=0.7, residual=res_i8, res_scale=0.01),
-             dict(relu=False, residual=res_bf)]
+             dict(act=None, q=0.7, residual=res_i8, res_scale=0.01),
+             dict(act=None, residual=res_bf)]
     for kw in cases:
         got = int8_conv(x, w, a, b, stride, **kw)
         ref = int8_conv_reference(x, w, a, b, stride, **kw)
@@ -119,8 +123,8 @@ def test_int8_conv_dilated_kernel_matches_plain(dilation, hw):
                          ).to(dev)
     b = torch.from_numpy(rng.standard_normal(70).astype(np.float32)).to(dev)
     res = _i8(rng, (2, hw, hw + 2, 70), dev)
-    for kw in (dict(relu=True, q=0.7), dict(relu=False),
-               dict(relu=False, q=0.7, residual=res, res_scale=0.01,
+    for kw in (dict(act="relu", q=0.7), dict(act=None),
+               dict(act=None, q=0.7, residual=res, res_scale=0.01,
                     round_res=True, bend=True)):
         got = int8_conv(x, w, a, b, 1, dilation=dilation, **kw)
         ref = int8_conv_reference(x, w, a, b, 1, dilation=dilation, **kw)
@@ -154,17 +158,18 @@ def test_int8_conv_every_tile_matches_plain(tile, cin):
         res_i8 = _i8(rng, shape, dev)
         res_bf = torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(dev, torch.bfloat16)
-        for kw, mode in ((dict(relu=True, q=0.7), k2._RES_NONE),
-                         (dict(relu=False), k2._RES_NONE),
-                         (dict(relu=False, q=0.7, residual=res_i8,
+        for kw, mode in ((dict(act="relu", q=0.7), k2._RES_NONE),
+                         (dict(act=None), k2._RES_NONE),
+                         (dict(act=None, q=0.7, residual=res_i8,
                                res_scale=0.01, round_res=True, bend=True),
                           k2._RES_I8_BF16),
-                         (dict(relu=False, q=0.7, residual=res_i8,
+                         (dict(act=None, q=0.7, residual=res_i8,
                                res_scale=0.01), k2._RES_I8),
-                         (dict(relu=False, residual=res_bf), k2._RES_BF16)):
-            got = k2._launch(x, w, a, b, stride, kw["relu"], kw.get("q"),
+                         (dict(act=None, residual=res_bf), k2._RES_BF16)):
+            out_mode = k2._OUT_BF16 if kw.get("q") is None else k2._OUT_I8
+            got = k2._launch(x, w, a, b, stride, kw["act"], kw.get("q"),
                              kw.get("residual"), kw.get("res_scale"), mode,
-                             1, kw.get("bend", False), tile)
+                             1, kw.get("bend", False), out_mode, tile)
             ref = int8_conv_reference(x, w, a, b, stride, **kw)
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
@@ -411,7 +416,7 @@ def test_int8_pipeline_on_cuda_matches_cpu(name, kw, n_convs, n_chained):
                         "window_attention": 0,
                         "fused_bottleneck": n_chained, "stem_int8": 0,
                         "patch_window_sum": 0, "int8_gconv": 0,
-                        "se_tail": 0}
+                        "se_tail": 0, "dwconv_i8": 0}
     cos = float(torch.nn.functional.cosine_similarity(
         y_gpu.flatten(), y_cpu.flatten(), dim=0))
     assert cos >= 0.9999, cos
@@ -425,12 +430,12 @@ def _k2_modes(rng, shape, dev):
     res_i8 = _i8(rng, shape, dev)
     res_bf = torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to(dev, torch.bfloat16)
-    return [dict(relu=True, q=0.7), dict(relu=False, q=0.7),
-            dict(relu=True), dict(relu=False),
-            dict(relu=False, q=0.7, residual=res_i8, res_scale=0.01,
+    return [dict(act="relu", q=0.7), dict(act=None, q=0.7),
+            dict(act="relu"), dict(act=None),
+            dict(act=None, q=0.7, residual=res_i8, res_scale=0.01,
                  round_res=True, bend=True),
-            dict(relu=False, q=0.7, residual=res_i8, res_scale=0.01),
-            dict(relu=False, residual=res_bf)]
+            dict(act=None, q=0.7, residual=res_i8, res_scale=0.01),
+            dict(act=None, residual=res_bf)]
 
 
 def _grouped_forced(x, w, a, b, stride, groups, tile, **kw):
@@ -441,9 +446,10 @@ def _grouped_forced(x, w, a, b, stride, groups, tile, **kw):
     mode = (k2._RES_NONE if res is None else k2._RES_BF16
             if res.dtype == torch.bfloat16 else k2._RES_I8_BF16
             if kw.get("round_res") else k2._RES_I8)
-    return k2._launch_grouped(x, w, a, b, stride, kw.get("relu", True),
+    out_mode = k2._OUT_BF16 if kw.get("q") is None else k2._OUT_I8
+    return k2._launch_grouped(x, w, a, b, stride, kw.get("act", "relu"),
                               kw.get("q"), res, kw.get("res_scale"), mode, 1,
-                              kw.get("bend", False), groups, tile)
+                              kw.get("bend", False), groups, out_mode, tile)
 
 
 @pytest.mark.parametrize("cg,og,groups,stride,hw,bsz", [
@@ -1419,3 +1425,208 @@ def test_propainter_iterator_on_cuda_matches_cpu():
     y_host = run(dev, host=True)
     for h, d in zip(y_host, y_gpu):
         assert torch.equal(h, d)
+
+
+def _mobilenet_route(name, dev, batch, hw=(256, 256), seed=0):
+    """``make_serving_fn(name)`` on the card at seeded weights with BN
+    statistics drawn from a generator, and one recorded forward of
+    ``batch`` random frames: (serve, raw, calls) with calls by kernel."""
+    import pytorchcv_tpu_torch.kernels.preprocess as pre_mod
+    import pytorchcv_tpu_torch.quant.mobilenet_int8 as mq
+    model = pt.get_model(name, device=dev)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(torch.empty(m.num_features).uniform_(
+                    0.5, 1.5, generator=g))
+                m.running_mean.copy_(torch.empty(m.num_features).normal_(
+                    0.0, 0.5, generator=g))
+                m.running_var.copy_(torch.empty(m.num_features).uniform_(
+                    0.5, 2.0, generator=g))
+    serve = pt.make_serving_fn(name, hw, device=dev, model=model)
+    raw = torch.randint(0, 256, (batch, *hw, 3), generator=g,
+                        dtype=torch.uint8).to(dev)
+    calls = {"preprocess": [], "stem": [], "dwconv_i8": [], "int8_conv": []}
+    saved = [(pre_mod, "preprocess")] + [
+        (mq, n) for n in ("stem_conv", "dwconv_i8", "int8_conv")]
+    origs = [getattr(m, n) for m, n in saved]
+    keys = ["preprocess", "stem", "dwconv_i8", "int8_conv"]
+    for (mod, attr), orig, key in zip(saved, origs, keys):
+        def rec(*a, _o=orig, _k=key, **k):
+            out = _o(*a, **k)
+            calls[_k].append((a, k, out))
+            return out
+        setattr(mod, attr, rec)
+    try:
+        reset_launch_counts()
+        logits = serve(raw)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    finally:
+        for (mod, attr), orig in zip(saved, origs):
+            setattr(mod, attr, orig)
+    return serve, raw, calls, launches, logits
+
+
+@pytest.mark.parametrize("name,gates", [
+    ("mobilenetv2_w1", {"stem": 1, "dwconv_i8": 17, "int8_conv": 35}),
+    ("mobilenet_w1", {"stem": 1, "dwconv_i8": 13, "int8_conv": 13}),
+    ("mobilenetv2_w3d4", {"stem": 1, "dwconv_i8": 17, "int8_conv": 35})])
+def test_mobilenet_int8_route_on_cuda(name, gates):
+    """The int8 MobileNet routes at batch 32 from 256x256 frames: launch
+    counts (K1 1, K3 1, K12 and K2 as read from the model, nothing else),
+    K12 and K2 bit-exact against their plain versions at every distinct
+    call, K3 (ReLU6 on v2) off by at most 1 in at most 0.1 % of its
+    elements, logits at cosine >= 0.99 against the f32 oracle."""
+    from pytorchcv_tpu_torch.kernels.dwconv_i8 import dwconv_i8_reference
+    dev = _cuda()
+    serve, raw, calls, launches, logits = _mobilenet_route(name, dev, 32)
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(preprocess=1, **gates)
+    assert serve.route == ("mobilenet_v1" if name.startswith("mobilenet_")
+                           else "mobilenetv2")
+    assert launches == want, launches
+    with torch.inference_mode():
+        seen = {}
+        for a, k, out in calls["dwconv_i8"]:
+            seen.setdefault((tuple(a[0].shape), a[5], a[6]), (a, k, out))
+        for key, (a, k, out) in seen.items():
+            assert torch.equal(out, dwconv_i8_reference(*a, **k)), key
+        for a, k, out in calls["int8_conv"]:
+            assert torch.equal(out, int8_conv_reference(*a, **k)), (
+                tuple(a[0].shape), tuple(a[1].shape), sorted(k))
+        (a, k, out), = calls["stem"]
+        diff = (out.int() - stem_conv_reference(*a, **k).int()).abs()
+        assert diff.max() <= 1 and float((diff != 0).float().mean()) <= 1e-3
+        ref = serve.make_reference_forward()(raw).float()
+    y = logits.float()
+    assert bool(torch.isfinite(y).all())
+    cos = float((y * ref).sum() / (y.norm() * ref.norm()))
+    assert cos >= 0.99, cos
+
+
+@pytest.mark.parametrize("c", [8, 24, 36, 96, 108, 7])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dwconv_i8_kernel_matches_plain(c, stride):
+    """K12 at odd maps, channel counts down to 1-byte vectors, every
+    vector width and row run the channels allow (forced through
+    ``_launch``), ReLU and ReLU6, and on an unaligned view: bit-exact."""
+    from pytorchcv_tpu_torch.kernels import dwconv_i8 as k12
+    dev = _cuda()
+    rng = np.random.default_rng(c * 10 + stride)
+    x = _i8(rng, (3, 13, 9, c), dev)
+    w = _i8(rng, (3, 3, c), dev)
+    a = torch.from_numpy(rng.uniform(1e-3, 3e-3, c).astype(np.float32)
+                         ).to(dev)
+    b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(dev)
+    for act in ("relu", "relu6"):
+        ref = k12.dwconv_i8_reference(x, w, a, b, 0.9, stride, act)
+        reset_launch_counts()
+        got = k12.dwconv_i8(x, w, a, b, 0.9, stride, act)
+        torch.cuda.synchronize()
+        assert LAUNCHES["dwconv_i8"] == 1 and torch.equal(got, ref)
+        for vb in (16, 8, 4, 1):
+            if c % vb:
+                continue
+            for run in (1, 2, 5):
+                got = k12._launch(x, w, a, b, 0.9, stride, act,
+                                  torch.empty_like(ref), vb, run)
+                torch.cuda.synchronize()
+                assert torch.equal(got, ref), (vb, run, act)
+    base = torch.empty(x.numel() + 1, dtype=torch.int8, device=dev)
+    xu = base[1:].view(x.shape)
+    xu.copy_(x)
+    got = k12.dwconv_i8(xu, w, a, b, 0.9, stride)
+    assert torch.equal(got, k12.dwconv_i8_reference(x, w, a, b, 0.9,
+                                                    stride))
+
+
+def test_dwconv_i8_instances_spill_nothing():
+    from pytorchcv_tpu_torch.kernels.dwconv_i8 import kernel_info
+    _cuda()
+    for vb in (16, 8, 4, 1):
+        assert kernel_info(vb)["spill_bytes"] == 0, vb
+
+
+@pytest.mark.parametrize("groups", [1, 8])
+def test_int8_conv_mobilenet_modes_match_plain(groups):
+    """K2's ReLU6, linear-residual and f32-output epilogues, dense and
+    grouped, at sizes no tile divides: bit-exact."""
+    dev = _cuda()
+    rng = np.random.default_rng(groups)
+    cin, cout, k = (20, 36, 1) if groups == 1 else (64, 48, 3)
+    x = _i8(rng, (3, 11, 7, cin), dev)
+    w = _i8(rng, (cout, k, k, cin // groups), dev)
+    a = torch.from_numpy(rng.uniform(2e-5, 2e-4, cout).astype(np.float32)
+                         ).to(dev)
+    b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(dev)
+    res = _i8(rng, (3, 11, 7, cout), dev)
+    cases = [dict(act="relu6", q=0.7), dict(act="relu6", out_f32=True),
+             dict(act="relu", out_f32=True), dict(act=None, out_f32=True),
+             dict(act=None, q=0.7, residual=res, res_scale=0.01,
+                  linear_res=True)]
+    for kw in cases:
+        got = int8_conv(x, w, a, b, groups=groups, **kw)
+        ref = int8_conv_reference(x, w, a, b, groups=groups, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == ref.dtype and torch.equal(got, ref), sorted(kw)
+
+
+def test_stem_relu6_matches_plain():
+    """K3 with ReLU6 at the MobileNet stems' shape (3x3/s2, 224 -> 112,
+    Cout 32, 24, 16 and 8): at most 0.1 % of elements off by 1."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 3, 224, 224), generator=g).to(dev, torch.bfloat16)
+    for cout in (32, 24, 16, 8):
+        kf = (torch.randn((3, 3, 3, cout), generator=g) * 0.4).to(
+            dev, torch.bfloat16)
+        bias = torch.randn(cout, generator=g).to(dev)
+        for act in ("relu6", "relu"):
+            got = stem_conv(x, kf, bias, 30.0, act)
+            ref = stem_conv_reference(x, kf, bias, 30.0, act)
+            torch.cuda.synchronize()
+            diff = (got.int() - ref.int()).abs()
+            assert diff.max() <= 1, (cout, act)
+            assert float((diff != 0).float().mean()) <= 1e-3, (cout, act)
+
+
+@pytest.mark.parametrize("name,mode,k6,acts", [
+    ("mobilenetv3_large_w1", "auto", 15, {"relu", "hswish_div"}),
+    ("mobilenetv2_w1", "bf16", 17, {"relu6"}),
+    ("mobilenet_w1", "bf16", 13, {"relu"})])
+def test_dwconv_mobilenet_bf16_calls_match_plain(name, mode, k6, acts,
+                                                 monkeypatch):
+    """K6 at every depthwise call of a bf16 MobileNet forward (MobileNetV3-
+    large's auto route: 3x3 and 5x5, ReLU and the dividing hswish; the int8
+    names' ``mode="bf16"`` routes: 3x3, ReLU6 on v2, ReLU on v1; stride 1
+    and 2) and again in f32: f32 bit-exact, bf16 within 1 bf16 ulp; K6
+    once a depthwise block, K1 once, nothing else."""
+    import pytorchcv_tpu_torch.nn.conv as conv_mod
+    dev = _cuda()
+    calls = []
+
+    def rec(*a, **k):
+        out = dwconv2d_bn_act(*a, **k)
+        calls.append((a, out))
+        return out
+    serve = pt.make_serving_fn(name, (256, 256), mode=mode, device=dev)
+    assert serve.route == "bf16"
+    raw = torch.randint(0, 256, (8, 256, 256, 3), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(4)).to(dev)
+    monkeypatch.setattr(conv_mod, "dwconv2d_bn_act", rec)
+    reset_launch_counts()
+    serve(raw)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(preprocess=1, dwconv=k6)
+    assert dict(LAUNCHES) == want
+    assert {a[6] for a, _ in calls} == acts
+    with torch.inference_mode():
+        for a, out in calls:
+            ref = dwconv2d_bn_act_reference(*a)
+            assert float(bf16_ulp_error(out, ref).max()) <= 1, a[6]
+            a32 = (a[0].float(), a[1].float(), *a[2:])
+            assert torch.equal(dwconv2d_bn_act(*a32),
+                               dwconv2d_bn_act_reference(*a32)), a[6]

@@ -144,13 +144,13 @@ def test_gconv_plan_covers_every_output_within_shared_memory(name, bsz):
         assert 256 % (plan.bn // 8 // plan.u * plan.wb // plan.vec) == 0
 
 
-def _k2_epilogue(acc, a, bias, relu, q, residual, res_scale, round_res,
+def _k2_epilogue(acc, a, bias, act, q, residual, res_scale, round_res,
                  bend):
     """The kernel's epilogue per element: f32(acc) * A + B (two roundings),
     ReLU or the unit tail, the bend, then int8 or bf16."""
     y = acc.to(torch.float32) * a + bias
     if residual is None:
-        if relu:
+        if act == "relu":
             y = torch.clamp_min(y, 0.0)
     else:
         if residual.dtype == torch.int8:
@@ -188,12 +188,12 @@ def test_k2_k_walk_emulation_bit_equal_to_plain(k, stride, dilation, cin,
     res_i8 = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8))
     res_bf = torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to(torch.bfloat16)
-    for kw in (dict(relu=True, q=0.7), dict(relu=False),
-               dict(relu=False, q=0.7, residual=res_i8, res_scale=0.01,
+    for kw in (dict(act="relu", q=0.7), dict(act=None),
+               dict(act=None, q=0.7, residual=res_i8, res_scale=0.01,
                     round_res=True, bend=True),
-               dict(relu=False, q=0.7, residual=res_i8, res_scale=0.01),
-               dict(relu=False, residual=res_bf)):
-        full = dict(relu=True, q=None, residual=None, res_scale=None,
+               dict(act=None, q=0.7, residual=res_i8, res_scale=0.01),
+               dict(act=None, residual=res_bf)):
+        full = dict(act="relu", q=None, residual=None, res_scale=None,
                     round_res=False, bend=False)
         full.update(kw)
         got = _k2_epilogue(acc, a, b, **full)

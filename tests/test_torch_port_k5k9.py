@@ -145,7 +145,7 @@ def _k9_card_route(monkeypatch):
         xq = torch.clamp(torch.round(x * f32(127.0 / s_img)), -127,
                          127).to(torch.int8)
         return int8_conv_reference(xq, wq.permute(3, 0, 1, 2), g, bias,
-                                   stride=2, relu=True, q=f32(127.0 / s_out))
+                                   stride=2, act="relu", q=f32(127.0 / s_out))
     monkeypatch.setattr(k9, "require_cuda_or_cpu", lambda *a: True)
     monkeypatch.setattr(k9, "_launch", launch)
 

@@ -200,7 +200,7 @@ def test_int8_conv_unit_tail_bit_exact(residual, out):
     a = pc["gain"] * _f32(s_last / 127.0)
     q = None if s_next is None else _f32(127.0 / s_next)
     got = int8_conv(torch.from_numpy(t_in), pc["wq"], a, pc["bias"], 1,
-                    relu=False, q=q, **tail)
+                    act=None, q=q, **tail)
     np.testing.assert_array_equal(got.to(torch.float32).numpy(), _np(ref))
 
 
@@ -223,7 +223,7 @@ def test_int8_conv_chain_bit_exact_vs_fused_bottleneck_ref():
         t = _cell(t, s2, _port_cell(cells["conv2"]), 1, True, s3)
         c3 = _port_cell(cells["conv3"])
         x = int8_conv(t, c3["wq"], c3["gain"] * _f32(s3 / 127.0), c3["bias"],
-                      1, relu=False, q=_f32(127.0 / s_out), residual=x,
+                      1, act=None, q=_f32(127.0 / s_out), residual=x,
                       res_scale=_f32(s_in / 127.0), round_res=True)
     np.testing.assert_array_equal(x.numpy(), np.asarray(ref))
 

@@ -161,7 +161,7 @@ def test_int8_conv_bend_output_bit_exact():
     pc = _port_cell(last)
     out, bend = int8_conv(torch.from_numpy(t_in), pc["wq"],
                           pc["gain"] * _f32(s_last / 127.0), pc["bias"], 1,
-                          relu=False, q=_f32(127.0 / s_next),
+                          act=None, q=_f32(127.0 / s_next),
                           residual=torch.from_numpy(xq),
                           res_scale=_f32(s_in / 127.0), round_res=True,
                           bend=True)
