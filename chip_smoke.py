@@ -232,17 +232,23 @@ use (one nvcc per source, in parallel). Phases, each ending in
    13 / 13 and nothing else, finite logits at cosine >= 0.99 against the
    f32 oracle (no K6, no TF32);
 29. their timing at batch 128: img/s beside the same model's bf16 route
-   (K6 with ReLU6 / ReLU, its ms a forward on the device), each kernel's
-   ms a forward beside its plain version, bound and library call, K12 at
-   each distinct call on the device (``launch_ms``) beside its bytes bound
+   (K6 with ReLU6 / ReLU, its ms a forward on the device beside cuDNN's
+   bf16 depthwise conv with the affine and the activation, its library
+   call), each kernel's ms a forward beside its plain version, bound and
+   library call (K12's on the device, from a CUDA graph of its calls:
+   through its wrappers they time the host), K12 at each distinct call
+   on the device (a CUDA graph of 20 launches) and its wrapper's host
+   time a call beside its bytes bound, its plan
    and cuDNN's bf16 depthwise conv (a yardstick: not the same function),
    its instances' registers and spills (a spill fails), K2 at each
-   distinct conv as in phase 4, the device's idle share (profiler);
+   distinct conv as in phase 4, the host time to enqueue a forward and
+   K12's and K2's wrappers' share of it, the device's idle share
+   (profiler);
 30. ``mobilenetv3_large_w1`` in bf16 (its route in auto): K6 at every
    distinct call (ReLU and the dividing hswish, 3x3 and 5x5, stride 1 and
    2) in bf16 within 1 bf16 ulp and in f32 bit-exact, launches K1 1 / K6
    15, cosine >= 0.99; img/s, K6 a forward and a call on the device
-   beside its bound, the idle share;
+   beside its bound and its library call, the idle share;
 31. ``mobilenetv2_w3d4`` (18-channel maps that ``prepare`` pads to 20) at
    batch 32 with phase 28's checks and gates.
 
@@ -3453,6 +3459,33 @@ def _busy(card, tag, fn, ms_batch):
           "; ".join(f"{_kernel_name(n_)[:50]} {v:.3f} ms" for n_, v in top))
 
 
+def _cudnn_dw(a):
+    """cuDNN's depthwise conv of the K6 call ``a`` in its type, then the
+    affine and the call's activation: the PyTorch call sequence that
+    computes K6's function (its library yardstick)."""
+    import torch.nn.functional as F
+    from pytorchcv_tpu_torch.kernels.dwconv import (ACTIVATIONS,
+                                                    MODEL_ACTIVATIONS)
+    x, w, scale, shift, stride, pad, act = a
+    y = F.conv2d(x, w, None, stride, (pad[0][0], pad[1][0]), 1, x.shape[1])
+    s_, b_ = (v.to(x.dtype).view(1, -1, 1, 1) for v in (scale, shift))
+    return {**ACTIVATIONS, **MODEL_ACTIVATIONS}[act](y * s_ + b_)
+
+
+def _host_us(fn, reps: int) -> float:
+    """Host time of a call of ``fn`` in us: ``reps`` calls enqueued back to
+    back on the host clock (few enough that the launch queue never fills
+    and blocks them), then a synchronize outside the clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / reps
+
+
 def _mobilenet(card, record) -> None:
     """Phases 28-31: the MobileNet family on the card."""
     import pytorchcv_tpu_torch as pt
@@ -3466,6 +3499,7 @@ def _mobilenet(card, record) -> None:
                                                        dwconv_i8_reference)
     from pytorchcv_tpu_torch.kernels.dwconv_i8 import \
         kernel_info as i8dw_info
+    from pytorchcv_tpu_torch.kernels._parts import graph_ms
     from pytorchcv_tpu_torch.kernels.int8_conv import (int8_conv,
                                                        int8_conv_reference)
     from pytorchcv_tpu_torch.kernels.stem import (stem_conv,
@@ -3493,7 +3527,8 @@ def _mobilenet(card, record) -> None:
                                       for a, k in dws], 10),
                     _cuda_ms(lambda: [dwconv2d_bn_act_reference(*a, **k)
                                       for a, k in dws], 2, warmup=1),
-                    None, _work_dwconv(bf["dwconv"]))
+                    _cuda_ms(lambda: [_cudnn_dw(a) for a, _ in dws], 10),
+                    _work_dwconv(bf["dwconv"]))
             del bf, dws
             k6_fwd, k6_share, _ = _launch_ms(lambda: serve_bf(raw128),
                                              "dwconv_kernel", k6_n, reps=3)
@@ -3506,6 +3541,8 @@ def _mobilenet(card, record) -> None:
                   f"{k6_fwd:.4f} ms a forward on the device (the mean of "
                   f"the {100 * k6_share:.0f} % of launches recorded), "
                   f"{k6_t[0]:.4f} ms back to back, plain {k6_t[1]:.4f} ms, "
+                  f"library (cuDNN bf16 depthwise conv, affine, "
+                  f"ReLU{'6' if 'v2' in name else ''}) {k6_t[2]:.4f} ms, "
                   f"bound {k6_t[3][0]:.4f} ms ({k6_t[3][1]})")
             with _recording(_mobilenet_targets()) as calls:
                 serve(raw128)
@@ -3523,11 +3560,18 @@ def _mobilenet(card, record) -> None:
             del xs
             _stem_info(card, name, sa)
             dws = [(a, k) for a, k, _ in calls["dwconv_i8"]]
-            k12_t = (_cuda_ms(lambda: [dwconv_i8(*a, **k) for a, k in dws],
-                              10),
+
+            def k12_forward():
+                for a, k in dws:
+                    dwconv_i8(*a, **k)
+            # K12's calls of one forward back to back on the device (a
+            # CUDA graph: the wrappers' host time, above most calls'
+            # device time, taken out), and through the wrappers
+            k12_t = (graph_ms(k12_forward),
                      _cuda_ms(lambda: [dwconv_i8_reference(*a, **k)
                                        for a, k in dws], 2, warmup=1),
                      None, _work_dwconv_i8(calls["dwconv_i8"]))
+            k12_wrapped = _cuda_ms(k12_forward, 10)
             # each distinct K12 call on the device beside its bytes bound
             # and cuDNN's bf16 depthwise conv of the same shape (a
             # yardstick: bf16 in and out, no epilogue)
@@ -3537,8 +3581,8 @@ def _mobilenet(card, record) -> None:
                 if key in per:
                     per[key]["count"] += 1
                     continue
-                dev, share, wall = _launch_ms(lambda: dwconv_i8(*a, **k),
-                                              "dwconv_i8_kernel")
+                dev = graph_ms(lambda: dwconv_i8(*a, **k), 20)
+                host = _host_us(lambda: dwconv_i8(*a, **k), 50)
                 xb = a[0].permute(0, 3, 1, 2).to(torch.bfloat16)
                 wb = a[1].permute(2, 0, 1).unsqueeze(1).to(torch.bfloat16)
                 c = a[0].shape[3]
@@ -3546,29 +3590,31 @@ def _mobilenet(card, record) -> None:
                                                   c), 20)
                 x_ = a[0]
                 ptrs = x_.data_ptr() | a[1].data_ptr() | out.data_ptr() | 16
-                per[key] = dict(count=1, dev=dev, share=share, wall=wall,
-                                cudnn=cudnn,
+                per[key] = dict(count=1, dev=dev, host=host, cudnn=cudnn,
                                 bound=_work_dwconv_i8([(a, k, out)]),
                                 plan=dwconv_i8_plan(*x_.shape, a[5],
                                                     ptrs & -ptrs))
                 del xb
             for key, e in sorted(per.items()):
-                vb, run = e["plan"]
+                p_ = e["plan"]
                 print(f"[{card}] {name} K12 x {key[0]} s {key[1]} (x"
                       f"{e['count']} a forward): {e['dev']:.4f} ms on the "
-                      f"device (the mean of the {100 * e['share']:.0f} % of "
-                      f"launches recorded; {e['wall']:.4f} back to back), "
-                      f"bound {e['bound'][0]:.4f} ms ({e['bound'][1]}, "
+                      f"device (20 launches in a CUDA graph), its wrapper's "
+                      f"host time {e['host']:.1f} us a call, bound "
+                      f"{e['bound'][0]:.4f} ms ({e['bound'][1]}, "
                       f"{e['dev'] / e['bound'][0]:.1f}x); cuDNN bf16 "
-                      f"depthwise conv {e['cudnn']:.4f} ms; {vb}-byte "
-                      f"vectors, {run} rows a thread")
-            for vb in sorted({e["plan"][0] for e in per.values()}):
-                info = i8dw_info(vb)
-                print(f"[{card}] {name} K12 {vb}-byte instance: "
-                      f"{info['registers']} registers a thread, "
-                      f"{info['spill_bytes']} bytes spilled")
-                _require(info["spill_bytes"] == 0, f"K12 spills at {vb}")
+                      f"depthwise conv {e['cudnn']:.4f} ms; {p_.cpt} "
+                      f"channels a thread, {p_.rows} rows a thread")
+            for cpt, st_ in sorted({(e["plan"].cpt, key[1])
+                                    for key, e in per.items()}):
+                info = i8dw_info(cpt, st_)
+                print(f"[{card}] {name} K12 instance ({cpt} channels, "
+                      f"stride {st_}): {info['registers']} registers a "
+                      f"thread, {info['spill_bytes']} bytes spilled")
+                _require(info["spill_bytes"] == 0,
+                         f"K12 spills at {(cpt, st_)}")
             k12_dev = sum(e["count"] * e["dev"] for e in per.values())
+            k12_host = sum(e["count"] * e["host"] for e in per.values())
             k12_cudnn = sum(e["count"] * e["cudnn"] for e in per.values())
             convs = [(a, k) for a, k, _ in calls["int8_conv"]]
             k2_lib = _k2_per_shape(card, name, calls["int8_conv"])
@@ -3577,11 +3623,21 @@ def _mobilenet(card, record) -> None:
                     _cuda_ms(lambda: [int8_conv_reference(*a, **k)
                                       for a, k in convs], 2, warmup=1),
                     k2_lib, _work_convs(calls["int8_conv"]))
+            k2_host = _host_us(lambda: [int8_conv(*a, **k)
+                                        for a, k in convs], 5)
+            fwd_host = _host_us(lambda: serve(raw128), 3)
             del calls, dws, convs
             _busy(card, f"{name} int8", lambda: serve(raw128), ms_serve)
+        print(f"[{card}] {name} int8 host time: {fwd_host / 1e3:.3f} ms to "
+              f"enqueue one forward of {ms_serve:.3f} ms a batch; of it "
+              f"K12's wrapper {k12_host / 1e3:.3f} ms ({launches['dwconv_i8']}"
+              f" calls), K2's {k2_host / 1e3:.3f} ms "
+              f"({launches['int8_conv']} calls)")
         print(f"[{card}] {name} K12 per forward: {k12_t[0]:.4f} ms back to "
-              f"back, {k12_dev:.4f} ms on the device from the distinct "
-              f"calls, plain {k12_t[1]:.4f} ms, bound {k12_t[3][0]:.4f} ms "
+              f"back on the device (a CUDA graph), {k12_wrapped:.4f} ms "
+              f"through the wrappers, {k12_dev:.4f} ms from the distinct "
+              f"calls ({k12_host / 1e3:.4f} ms of host time), plain "
+              f"{k12_t[1]:.4f} ms, bound {k12_t[3][0]:.4f} ms "
               f"({k12_t[3][1]}), library none (PyTorch's CUDA convolutions "
               f"take no int8; cuDNN's bf16 depthwise conv on the same "
               f"shapes {k12_cudnn:.4f} ms)")
@@ -3612,7 +3668,7 @@ def _mobilenet(card, record) -> None:
         record.append(_record_entry(
             "dwconv", f"{name} bf16", "dwconv.cu",
             "pytorchcv_tpu/kernels/dwconv.py:124", k6_n, k6_err, k6_t[0],
-            k6_t[1], k6_t[3], None))
+            k6_t[1], k6_t[3], k6_t[2]))
         del serve, serve_bf, model, raw128
         torch.cuda.empty_cache()
         print(f"phases 28-29 ({name}): "
@@ -3678,6 +3734,7 @@ def _mobilenet(card, record) -> None:
                          10)
         plain_dw = _cuda_ms(lambda: [dwconv2d_bn_act_reference(*a, **k)
                                      for a, k in dws], 2, warmup=1)
+        lib_dw = _cuda_ms(lambda: [_cudnn_dw(a) for a, _ in dws], 10)
         dw_bound = _work_dwconv(calls["dwconv"])
         k6_fwd, k6_share, _ = _launch_ms(lambda: serve(raw128),
                                          "dwconv_kernel", MOB_V3_K6, reps=3)
@@ -3701,7 +3758,9 @@ def _mobilenet(card, record) -> None:
           f"img/s; K6 ({MOB_V3_K6} calls) {ms_dw:.4f} ms a forward back to "
           f"back, {k6_fwd:.4f} ms on the device (the mean of the "
           f"{100 * k6_share:.0f} % of launches recorded), plain "
-          f"{plain_dw:.4f} ms, bound {dw_bound[0]:.4f} ms ({dw_bound[1]})")
+          f"{plain_dw:.4f} ms, library (cuDNN bf16 depthwise conv, affine, "
+          f"ReLU or hswish) {lib_dw:.4f} ms, bound {dw_bound[0]:.4f} ms "
+          f"({dw_bound[1]})")
     for key, e in sorted(per.items()):
         print(f"[{card}] {MOB_V3_NAME} K6 x {key[0]} k {key[1]} s {key[2]} "
               f"{key[4]} (x{e['count']}): {e['dev']:.4f} ms on the device "
@@ -3711,7 +3770,7 @@ def _mobilenet(card, record) -> None:
     record.append(_record_entry(
         "dwconv", MOB_V3_NAME, "dwconv.cu",
         "pytorchcv_tpu/kernels/dwconv.py:124", launches["dwconv"],
-        max_err["dwconv"], ms_dw, plain_dw, dw_bound, None))
+        max_err["dwconv"], ms_dw, plain_dw, dw_bound, lib_dw))
     record.append(_record_entry(
         "preprocess", MOB_V3_NAME, "preprocess.cu",
         "pytorchcv_tpu/kernels/preprocess.py:133", launches["preprocess"],

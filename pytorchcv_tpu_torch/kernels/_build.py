@@ -69,7 +69,7 @@ _SIGNATURES = {
     "pcv_patch_window_sum": [_P] * 4 + [_I] * 4 + [_P, _P],
     "pcv_se_tail": [_P, _P, _P, _I, _F, _F, _I, _P, _I, _I, _I, _P],
     "pcv_dwconv_i8": [_P, _P, _P, _P, _F, _I, _P] + [_I] * 9 + [_P],
-    "pcv_dwconv_i8_info": [_I, _P],
+    "pcv_dwconv_i8_info": [_I] * 2 + [_P],
 }
 
 

@@ -1,9 +1,10 @@
 """What the kernels' timing tools share (``flash_attention_parts``,
 ``fused_bottleneck_parts``, ``fused_bottleneck_plans``, ``dwconv_plans``,
-``dwconv_parts``, ``int8_conv_plans``, ``int8_gconv_parts``, and
-``chip_smoke.py``'s grouped K2 phases): the card's name and power limit,
-its memory rate, an nvcc build of variants of a kernel's source, a
-CUDA-event timer and device-time readings. Each needs one CUDA card;
+``dwconv_parts``, ``int8_conv_plans``, ``int8_gconv_parts``,
+``dwconv_i8_parts``, and ``chip_smoke.py``'s grouped K2 and MobileNet
+phases): the card's name and power limit, its memory rate, an nvcc build
+of variants of a kernel's source, a CUDA-event timer and device-time
+readings (the profiler's, or CUDA graphs'). Each needs one CUDA card;
 ``build`` needs nvcc too.
 """
 
@@ -112,3 +113,31 @@ def launch_ms(fn: Callable[[], None], name: str, launches: int = 1,
             return (t / n * launches, n / (reps * launches),
                     ev[0].elapsed_time(ev[1]) / reps)
     return None, 0.0, ev[0].elapsed_time(ev[1]) / reps
+
+
+def graph_ms(fn: Callable[[], None], n: int = 1,
+             reps: int = 10) -> float:
+    """Device ms a call of ``fn`` with the host taken out: ``n`` calls
+    captured into one CUDA graph (the wrappers launch on the capturing
+    stream), the graph replayed ``reps`` times between CUDA events after a
+    warm-up replay. Short kernels launched back to back through their
+    wrappers time the host, and the profiler may record none of a short
+    window's launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * n)
+    del graph
+    return ms

@@ -10,7 +10,9 @@ one forward, back to back); ProPainter RFC's
 completed-flow frames/s over a 160-frame 240x432 clip and K5 a call at
 its shape; the generator chain's (IP -> IT -> IM) frames/s over an
 80-frame clip and K5 at its first call's shape; K9 (the int8 7x7 stem) at
-batch 128:
+batch 128; int8 mobilenetv2_w1 and mobilenet_w1 serving at batch 128 and
+K12 (their 17 and 13 int8 depthwise convs of one forward, back to back
+through the wrappers and on the device as a CUDA graph's replay):
 
     python3 pytorchcv_tpu_torch/kernels/compare_trees.py TREE_A TREE_B [PATH ...]
 
@@ -18,7 +20,8 @@ Each TREE is the root of a checkout of the repository (for example the
 parent commit's ``git archive`` unpacked into a git-ignored directory, and
 ``.``). PATHs pick what to measure, of ``resnet50``, ``wrn50_2``,
 ``danet``, ``resnext50_32x4d``, ``senet16``, ``efficientnet_b0``,
-``rfc``, ``propainter`` and ``stem_int8`` (default: all). The
+``rfc``, ``propainter``, ``stem_int8``, ``mobilenetv2_w1`` and
+``mobilenet_w1`` (default: all). The
 trees run in the order A, B, B, A, each in a process of its own that
 imports ``pytorchcv_tpu_torch`` from that tree and builds its kernels
 there, so the two versions share the card, its clocks and its neighbours;
@@ -37,8 +40,10 @@ from pathlib import Path
 
 SEG = "danet_resnetd50b_cityscapes"
 PATHS = ("resnet50", "wrn50_2", "danet", "resnext50_32x4d", "senet16",
-         "efficientnet_b0", "rfc", "propainter", "stem_int8")
+         "efficientnet_b0", "rfc", "propainter", "stem_int8",
+         "mobilenetv2_w1", "mobilenet_w1")
 GROUPED = {"resnext50_32x4d": 128, "senet16": 32}   # path: batch
+MOBILENETS = ("mobilenetv2_w1", "mobilenet_w1")
 _SMOKE = Path(__file__).resolve().parents[2] / "chip_smoke.py"
 
 
@@ -232,6 +237,48 @@ def _effnet(torch, pt, out: dict) -> None:
                               "k6_ms": k6, "k6_calls": len(calls)}
 
 
+def _mobilenet(torch, pt, out: dict, path: str) -> None:
+    """int8 ``path`` serving at batch 128 (256x256 frames) and its K12
+    calls of one forward, replayed back to back (CUDA events and device
+    time)."""
+    import pytorchcv_tpu_torch.quant.mobilenet_int8 as mq
+    model = pt.get_model(path, rng=0, device="cuda")
+    serve = pt.make_serving_fn(path, (256, 256), device="cuda", model=model)
+    g = torch.Generator().manual_seed(3)
+    raw = torch.randint(0, 256, (128, 256, 256, 3), generator=g,
+                        dtype=torch.uint8).cuda()
+    calls, orig = [], mq.dwconv_i8
+
+    def rec(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+    with torch.inference_mode():
+        mq.dwconv_i8 = rec
+        try:
+            serve(raw)
+        finally:
+            mq.dwconv_i8 = orig
+        torch.cuda.synchronize()
+
+        def k12():
+            for a, k in calls:
+                orig(*a, **k)
+        k12_ms = _cuda_ms(torch, k12, 20)
+        # on the device: the calls captured in a CUDA graph and replayed
+        # (through the wrappers, back to back, they time the host)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            k12()
+        k12_dev = _cuda_ms(torch, graph.replay, 20)
+        del graph
+        ms = _cuda_ms(torch, lambda: serve(raw), 10, warmup=3)
+    out[path] = {"serve_ms": ms, "per_s": 128 * 1000.0 / ms,
+                 "k12_ms": k12_ms, "k12_dev_ms": k12_dev,
+                 "k12_calls": len(calls)}
+    del model, serve, raw, calls
+    torch.cuda.empty_cache()
+
+
 def _measure(tree: str, paths) -> dict:
     """One tree's numbers (run in its own process)."""
     sys.path.insert(0, tree)
@@ -258,6 +305,9 @@ def _measure(tree: str, paths) -> dict:
     for path in GROUPED:
         if path in paths:
             _grouped(torch, pt, rq, out, path)
+    for path in MOBILENETS:
+        if path in paths:
+            _mobilenet(torch, pt, out, path)
     g = torch.Generator().manual_seed(3)
     for name, hw, bsz, task, stem_mod in (
             ("resnet50", (256, 256), 128, "classification", rq),
@@ -346,6 +396,14 @@ def main() -> None:
                   f"({r['gconv_seq_ms']:.4f} by CUDA events), conv by conv "
                   f"{r['gconv_hot_ms']:.4f} launched again and again, "
                   f"{r['gconv_flushed_ms']:.4f} after an L2 flush")
+        for path in MOBILENETS:
+            if path in res:
+                r = res[path]
+                print(f"[{card}] {label} ({trees[label]}) {path} int8: "
+                      f"serving {r['serve_ms']:.3f} ms = {r['per_s']:.1f} "
+                      f"/s, K12 ({r['k12_calls']} calls) {r['k12_ms']:.4f} "
+                      f"ms back to back, {r['k12_dev_ms']:.4f} ms on the "
+                      f"device (a CUDA graph)")
         if "efficientnet_b0" in res:
             r = res["efficientnet_b0"]
             print(f"[{card}] {label} ({trees[label]}) efficientnet_b0: "

@@ -34,7 +34,10 @@ pipeline's bit for bit on the same weights and scales:
   SENet's ``output.fc``).
 
 BN-less cells (the ImageNet WRN family: conv + bias, no norm) fold to gain
-``s_w`` and the conv's bias, as in the JAX package. A unit with other
+``s_w`` and the conv's bias, as in the JAX package. ``is_plain_resnet_tree``
+is the JAX package's check of a tree before this pipeline runs (JAX
+``serve.py:_is_plain_resnet``); ``make_serving_fn`` serves a tree that
+fails it in bf16. A unit with other
 branches than body, identity conv, SE gate and activation, or an SE gate
 with other activations than ReLU and sigmoid, raises
 ``UnsupportedTreeError``; the deep-stem, dilated segmentation trunk has its
@@ -44,7 +47,7 @@ branch and ``int8_resnet_apply_fn``.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Set, Tuple
 
 import torch
 from torch import nn
@@ -57,13 +60,67 @@ from ..kernels.se_tail import se_gate, se_tail
 from ..kernels.stem import maxpool_i8, stem_conv
 from ..nn.conv import ConvBlock
 
-__all__ = ["prepare_int8_resnet", "UnsupportedTreeError"]
+__all__ = ["prepare_int8_resnet", "is_plain_resnet_tree",
+           "UnsupportedTreeError"]
 
 _EPS = 1e-5
 
 
 class UnsupportedTreeError(NotImplementedError):
     """A model whose structure the port's int8 pipeline does not serve."""
+
+
+def _param_children(module: nn.Module) -> Set[str]:
+    """Names of ``module``'s children that hold parameters: the keys of the
+    JAX parameter tree at that node (a layer without parameters, as ReLU or
+    a pool, leaves no key there)."""
+    return {n for n, m in module.named_children()
+            if next(m.parameters(), None) is not None}
+
+
+def is_plain_resnet_tree(model: nn.Module) -> bool:
+    """True when ``model`` has the zoo ResNet layout this pipeline serves,
+    decided branch by branch as JAX ``serve.py:_is_plain_resnet`` decides
+    on the parameter tree: no ``post_activ`` (the pre-activation family);
+    a stem that is ``init_block.conv.conv``, or the deep conv1 / conv2 /
+    conv3 stem with an SE gate in every unit (SENet's); stages whose
+    units hold ``body.conv1.conv`` and no branch but ``body``,
+    ``identity_conv`` and ``se``; SE gates of ``{conv1, conv2}`` or
+    ``{fc1, fc2}``; and a ``Linear`` head at ``output`` or ``output.fc``.
+    On the head it is stricter than JAX's check, which takes any
+    ``kernel`` leaf there (a 1x1-conv head too): the pipeline's head is a
+    matmul of the pooled features, so such a tree is served in bf16."""
+    f = getattr(model, "features", None)
+    if f is None:
+        return False
+    names = _param_children(f)
+    if "post_activ" in names or "init_block" not in names:
+        return False
+    stages = [getattr(f, n) for n in sorted(names) if n.startswith("stage")]
+    units = [getattr(st, u) for st in stages for u in _param_children(st)]
+    stem = _param_children(f.init_block)
+    if "conv" in stem:
+        if "conv" not in _param_children(f.init_block.conv):
+            return False
+    elif stem != {"conv1", "conv2", "conv3"} or not all(
+            "se" in _param_children(u) for u in units):
+        return False
+    if not stages:
+        return False
+    for u in units:
+        branches = _param_children(u)
+        if branches - {"body", "identity_conv", "se"}:
+            return False
+        if "body" not in branches or \
+                "conv1" not in _param_children(u.body) or \
+                "conv" not in _param_children(u.body.conv1):
+            return False
+        if "se" in branches and _param_children(u.se) not in (
+                {"conv1", "conv2"}, {"fc1", "fc2"}):
+            return False
+    out = getattr(model, "output", None)
+    return isinstance(out, nn.Linear) or \
+        isinstance(getattr(out, "fc", None), nn.Linear)
 
 
 def _cell_consts(block: ConvBlock, path: str) -> Dict[str, torch.Tensor]:

@@ -22,10 +22,14 @@ default:
   for ResNets and the BN-less WRN;
 * ``mobilenetv2`` and ``mobilenet_v1`` (classification): the same
   preprocess and calibration, and the int8 MobileNet pipelines (K3, the
-  int8 depthwise conv K12, K2), for a model whose tree passes the
-  pipeline's check (``quant.mobilenet_int8``); in ``mode="auto"`` a model
-  that fails it (``mobilenetb_*``: no BN on its depthwise convs) is served
-  in bf16, as in the JAX package;
+  int8 depthwise conv K12, K2);
+
+  each of these three runs only for a model whose tree passes its
+  pipeline's check (``quant.is_plain_resnet_tree``, the JAX package's
+  ``_is_plain_resnet``; ``quant.mobilenet_int8``'s); in ``mode="auto"`` a
+  model that fails it (``mobilenetb_*``: no BN on its depthwise convs; a
+  ResNet unit with another branch) is served in bf16, as in the JAX
+  package;
 * ``seg_backbone`` (segmentation): the resize-only preprocess (K1),
   calibration over the whole f32 model, the int8 dilated backbone (K3,
   ``maxpool_i8``, K2) and the model's own head on a bf16 copy, fed through
@@ -52,7 +56,8 @@ from .model_provider import get_model, resolve_device
 from .models.registry import get_constructor
 from .nn.conv import unfused_depthwise
 from .quant import (calibrate_int8, is_mobilenet_v1_tree,
-                    is_mobilenet_v2_tree, is_seg_resnetd_backbone,
+                    is_mobilenet_v2_tree, is_plain_resnet_tree,
+                    is_seg_resnetd_backbone,
                     prepare_int8_mobilenet, prepare_int8_mobilenet_v1,
                     prepare_int8_resnet, prepare_int8_seg_backbone)
 
@@ -81,8 +86,9 @@ _INT8_ROUTES = {
 }
 _TASK_ROUTES = {"classification": ("resnet", "mobilenet_v1", "mobilenetv2"),
                 "segmentation": ("seg_backbone",)}
-# The MobileNet pipelines: each one's tree check and prepare.
-_MOBILENET_ROUTES = {
+# The classification pipelines: each one's tree check and prepare.
+_CLASSIFICATION_ROUTES = {
+    "resnet": (is_plain_resnet_tree, prepare_int8_resnet),
     "mobilenet_v1": (is_mobilenet_v1_tree, prepare_int8_mobilenet_v1),
     "mobilenetv2": (is_mobilenet_v2_tree, prepare_int8_mobilenet)}
 
@@ -150,9 +156,9 @@ def make_serving_fn(model_name: str, source_hw: Tuple[int, int],
     ``mode``: 'auto' serves the family's declared int8 pipeline (the
     measured choice), or bf16 where the family declares none in auto;
     'int8' forces the int8 pipeline; 'bf16' forces bf16 (classification
-    only). A MobileNet tree that fails its int8 pipeline's check is served
-    in bf16 in 'auto' and raises ``NotImplementedError`` in 'int8' (the
-    generic int8 interception is not ported). Pipelines, families and
+    only). A classification tree that fails its int8 pipeline's check is
+    served in bf16 in 'auto' and raises ``NotImplementedError`` in 'int8'
+    (the generic int8 interception is not ported). Pipelines, families and
     tasks not yet ported raise ``NotImplementedError``.
     ``calib_batches``: preprocessed NCHW f32 batches for calibration. ``model``: a built module on ``device`` to
     serve instead of a fresh ``get_model(model_name, device=device,
@@ -186,7 +192,8 @@ def make_serving_fn(model_name: str, source_hw: Tuple[int, int],
     if own.type != device.type:
         raise ValueError(f"model is on {own}, the serving device is {device}")
     device = own
-    if route in _MOBILENET_ROUTES and not _MOBILENET_ROUTES[route][0](model):
+    if route in _CLASSIFICATION_ROUTES and \
+            not _CLASSIFICATION_ROUTES[route][0](model):
         if mode == "int8":
             raise NotImplementedError(
                 f"{model_name!r}: the tree fails the {route!r} pipeline's "
@@ -215,9 +222,7 @@ def make_serving_fn(model_name: str, source_hw: Tuple[int, int],
         infer = as_bfloat16(model)
     elif task == "classification":
         scales = _calibrate(model, calib_batches, pre, source_hw, device)
-        prepare = _MOBILENET_ROUTES[route][1] if route in _MOBILENET_ROUTES \
-            else prepare_int8_resnet
-        run, plan = prepare(model, scales)
+        run, plan = _CLASSIFICATION_ROUTES[route][1](model, scales)
 
         def infer(x):
             return run(plan, x)

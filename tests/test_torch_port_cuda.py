@@ -27,8 +27,9 @@ against the CPU's and a direct f32 forward under torch's TF32 defaults;
 K2 under each of its block tiles at sizes no tile divides, and K3 at the
 paths' stem shapes; the int8 MobileNet v1 and v2 routes (launch counts,
 every K12 and K2 call bit-exact, K3 with ReLU6), the int8 depthwise conv
-(K12) under every vector width and row run, K2's ReLU6, linear-residual
-and f32-output epilogues, and K6 at every depthwise call of a bf16
+(K12) at odd shapes, C 20, 6 and 7 and every act under every instance,
+row band and block size, K2's ReLU6, linear-residual and f32-output
+epilogues, and K6 at every depthwise call of a bf16
 MobileNetV3-large; no K2, K3, K5, K6, K9, K12 or ``maxpool_i8`` instance
 spills.
 
@@ -40,6 +41,7 @@ suite's conftest:
 """
 
 import copy
+import itertools
 
 import numpy as np
 import pytest
@@ -1506,12 +1508,14 @@ def test_mobilenet_int8_route_on_cuda(name, gates):
     assert cos >= 0.99, cos
 
 
-@pytest.mark.parametrize("c", [8, 24, 36, 96, 108, 7])
+@pytest.mark.parametrize("c", [8, 24, 36, 96, 108, 20, 6, 7])
 @pytest.mark.parametrize("stride", [1, 2])
 def test_dwconv_i8_kernel_matches_plain(c, stride):
-    """K12 at odd maps, channel counts down to 1-byte vectors, every
-    vector width and row run the channels allow (forced through
-    ``_launch``), ReLU and ReLU6, and on an unaligned view: bit-exact."""
+    """K12 at odd maps (batch 3, 13x9), channel counts down to one channel
+    a thread (C 20, 6, 7), every act, q above, at and below 0 (6 q past
+    +-127 too), the plan and every instance the channels allow under 1, 2,
+    5 and all output rows a thread (forced through ``_launch``), and on an
+    unaligned view: bit-exact."""
     from pytorchcv_tpu_torch.kernels import dwconv_i8 as k12
     dev = _cuda()
     rng = np.random.default_rng(c * 10 + stride)
@@ -1520,20 +1524,23 @@ def test_dwconv_i8_kernel_matches_plain(c, stride):
     a = torch.from_numpy(rng.uniform(1e-3, 3e-3, c).astype(np.float32)
                          ).to(dev)
     b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(dev)
-    for act in ("relu", "relu6"):
-        ref = k12.dwconv_i8_reference(x, w, a, b, 0.9, stride, act)
+    ho = (13 - 1) // stride + 1
+    for act, q in itertools.product((None, "relu", "relu6"),
+                                    (0.9, 90.0, 0.0, -0.9, -90.0)):
+        ref = k12.dwconv_i8_reference(x, w, a, b, q, stride, act)
         reset_launch_counts()
-        got = k12.dwconv_i8(x, w, a, b, 0.9, stride, act)
+        got = k12.dwconv_i8(x, w, a, b, q, stride, act)
         torch.cuda.synchronize()
         assert LAUNCHES["dwconv_i8"] == 1 and torch.equal(got, ref)
-        for vb in (16, 8, 4, 1):
-            if c % vb:
+        for cpt, s in k12.INSTANCES:
+            if s != stride or c % cpt:
                 continue
-            for run in (1, 2, 5):
-                got = k12._launch(x, w, a, b, 0.9, stride, act,
-                                  torch.empty_like(ref), vb, run)
+            for rows in (1, 2, 5, ho):
+                plan = k12.K12Plan(cpt, rows)
+                got = k12._launch(x, w, a, b, q, stride, act,
+                                  torch.empty_like(ref), plan)
                 torch.cuda.synchronize()
-                assert torch.equal(got, ref), (vb, run, act)
+                assert torch.equal(got, ref), (plan, act, q)
     base = torch.empty(x.numel() + 1, dtype=torch.int8, device=dev)
     xu = base[1:].view(x.shape)
     xu.copy_(x)
@@ -1543,10 +1550,11 @@ def test_dwconv_i8_kernel_matches_plain(c, stride):
 
 
 def test_dwconv_i8_instances_spill_nothing():
-    from pytorchcv_tpu_torch.kernels.dwconv_i8 import kernel_info
+    from pytorchcv_tpu_torch.kernels.dwconv_i8 import INSTANCES, kernel_info
     _cuda()
-    for vb in (16, 8, 4, 1):
-        assert kernel_info(vb)["spill_bytes"] == 0, vb
+    for cpt, stride in INSTANCES:
+        info = kernel_info(cpt, stride)
+        assert info["spill_bytes"] == 0, info
 
 
 @pytest.mark.parametrize("groups", [1, 8])
