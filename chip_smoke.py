@@ -7,9 +7,11 @@ window transformer, the mask blend) streaming, int8 WRN-50-2
 classification, int8 SE-ResNeXt-50, ResNeXt-50 and SENet-16
 classification, video inpainting from raw frames through
 ``ProPainterIterator`` (RAFT flow, RFC, image propagation, the generator,
-the blend), and int8 MobileNet v1 / v2 and bf16 MobileNetV3
-classification, on the port's hand-written CUDA kernels, with the int8
-7x7 stem and the window-sum probe on their own entry points.
+the blend), int8 MobileNet v1 / v2 and bf16 MobileNetV3
+classification, int8 PSPNet, DeepLabv3 and FCN-8s(d) (ResNet(D)-101b) VOC
+segmentation, and SimplePose, AlphaPose and CenterNet on the int8 plain
+ResNet trunk, on the port's hand-written CUDA kernels, with the int8 7x7
+stem and the window-sum probe on their own entry points.
 
     python3 chip_smoke.py
 
@@ -197,15 +199,15 @@ use (one nvcc per source, in parallel). Phases, each ending in
    convs, cg = og / 2, 3x3 identity convs), as phase 23 at batch 32: K2
    14 + 4, K11 4;
 26. the pipeline slice: ``ProPainterIterator(TensorSequencer(frames),
-   TensorSequencer(masks), raft, rfc, generator)`` on the card over an
-   80-frame 240x432 clip from raw frames (``_pipe_clip``: seeded uint8
+   TensorSequencer(masks), raft, rfc, generator)`` on the card over a
+   30-frame 240x432 clip from raw frames (``_pipe_clip``: seeded uint8
    frames in [-1, 1] that move 1-3 px a frame, ``_rfc_video``'s moving
    ellipse masks), chunks of 10; ``raft_things`` (``in_normalize=False``,
    20 refinements, windows of 12; ``_tame_raft``), ``propainter_rfc``
    (window 80; ``_tame_rfc``) and ``propainter`` (``_tame_propainter``),
    all seed 0: launch counts K5 = sum over RFC windows of 4 (T_w - 1) plus
    2 (l_t - 1) per generator call, K7 16 per generator call, nothing else
-   (RAFT none); finite (80, 3, 240, 432) frames, equal to the input
+   (RAFT none); finite (30, 3, 240, 432) frames, equal to the input
    outside the masks; the chunks against the same stages run one after
    another without trimming, and a ``host_buffers=True`` run, within 1e-6
    of max |out| (bit-equality printed); the largest length of each stage's
@@ -250,7 +252,50 @@ use (one nvcc per source, in parallel). Phases, each ending in
    15, cosine >= 0.99; img/s, K6 a forward and a call on the device
    beside its bound and its library call, the idle share;
 31. ``mobilenetv2_w3d4`` (18-channel maps that ``prepare`` pads to 20) at
-   batch 32 with phase 28's checks and gates.
+   batch 32 with phase 28's checks and gates;
+32. the segmentation heads: ``make_serving_fn(name, (375, 500),
+   task="segmentation")`` for ``pspnet_resnetd101b_voc``,
+   ``deeplabv3_resnetd101b_voc`` and ``fcn8sd_resnetd101b_voc`` (aux, 21
+   classes, 480x480) in mode auto, each on the first weight draw w
+   (``get_model(rng=w)``, BN from seed w + 1, w < 12) whose f32 main and
+   aux maps on the check frames keep >= 95 % of their pixels decisive (f32
+   top-2 class margin > 2 % of the largest |logit|), so that the flips of
+   the near-ties fit in the agreement gate's budget (the choice looks at
+   the f32 model alone; each draw's shares printed; with none, the run
+   fails); on one batch-2
+   forward each: K1 within 1 bf16 ulp (scaled), every distinct
+   K2 conv bit-exact (the stage-3 bend output included, as the route
+   launches it), K3 (3x3) with at most 0.1 % of elements off by 1,
+   ``maxpool_i8`` bit-exact; launches K1 / K3 / ``maxpool_i8`` 1, K2 105,
+   nothing else; main and aux maps finite, each at cosine >= 0.99 and
+   per-pixel argmax agreement >= 0.97 against the f32 reference forward
+   (no TF32), the gate of tests/test_quant.py:399-400, on every map (the
+   agreement on the pixels whose f32 top-2 class margin is decisive, > 2 %
+   of the largest |logit|, printed beside it). A map below the gate fails
+   the run, after the remaining phases have run (``_gate``);
+   ``chip_seg_agreement.py`` breaks the agreement down (weight draws,
+   frames, margins, the trunk's error, an f32 head, the CPU's route);
+33. each of them in mode bf16 (a bf16 copy, K1 only): cosine >= 0.99 on
+   both maps, the agreement printed; PSPNet's img/s at batch 8;
+34. pose and detection on the plain_trunk route: ``simplepose_resnet50b_
+   coco`` and ``alphapose_fastseresnet101b_coco`` (256x192 from 320x240
+   crops, batch 32), ``centernet_resnet50b_coco`` (512x512 from 480x640
+   frames, batch 2), seed-0 weights, BN from seed 1: every kernel against its plain
+   version as in phase 32 (K3 7x7; AlphaPose's K11 calls bit-exact);
+   launches K1 / K3 / ``maxpool_i8`` 1 and K2 52, K2 103 + K11 4, K2 52;
+   the decoded output (keypoints (B, 17, 3), boxes (B, 40, 6)) finite and
+   equal to the decode of the same tensor on the CPU; with
+   ``return_heatmap`` the pre-decode tensor at cosine >= 0.99 against the
+   f32 reference forward;
+35. timing with CUDA events after warm-up, the seg routes at batch 8, the
+   pose routes at 128, CenterNet at 8: img/s, the device's idle share
+   (profiler), each kernel beside its plain version, bound and library
+   call (K2 beside ``torch._int_mm`` on its 1x1 stride-1 convs, K3 beside
+   cuDNN's f32 conv), K2 at each distinct conv not measured on an earlier
+   dense path (device ms, TOP/s, bound, tile, registers; a spill fails),
+   the bf16 head replayed on the recorded features (NCHW views of the
+   trunk's NHWC output, as served) and on contiguous copies of them, and
+   the decode alone.
 
 The generator's CPU tests are ``tests/test_torch_port_propainter.py`` (the
 port against the JAX package at 96x176). To rehearse phases 15-17 without
@@ -270,8 +315,10 @@ phases 26-27 without a card, exec a copy of this file as for phases 15-17
 window of 14, the pyramid's last level at least 2x2) and
 ``PIPE_RAFT_ITERS`` 3, then call ``_pipeline``.
 
-Any failure raises. The last lines are the card, the kernels' JSON record
-(one entry per kernel and path) and ``{"ok": true, "device": {...}}``.
+Any failure raises; a failed gate on a measured value (``_gate``: the seg
+maps' cosine and agreement) raises after the last phase. The last lines
+are the card, the kernels' JSON record (one entry per kernel and path) and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -359,7 +406,35 @@ MOB_PAD_NAME = "mobilenetv2_w3d4"
 MOB_V3_NAME = "mobilenetv3_large_w1"
 MOB_V3_K6 = 15
 
-PIPE_FRAMES = 80               # phase 15's clip, from raw frames
+# The dense-prediction routes (phases 32-35): the int8 trunks' launches in
+# one forward beside K1, K3 and maxpool_i8 1 each, read from the trees.
+# resnetd101b: 2 deep-stem convs + 33 units x 3 + 4 identity convs; the
+# plain trunks: 50b 16 x 3 + 4, 101b 33 x 3 + 4; AlphaPose's SE units (unit
+# 1 of each stage) run their tails on K11.
+DENSE_SEG = ("pspnet_resnetd101b_voc", "deeplabv3_resnetd101b_voc",
+             "fcn8sd_resnetd101b_voc")
+DENSE_SEG_SOURCE_HW = (375, 500)   # a VOC frame
+DENSE_SEG_LAUNCHES = {"int8_conv": 105}
+# Phase 32's weights: the first draw w < SEG_DRAWS (``_dense_model(name,
+# w)``) whose f32 main and aux maps on the check frames keep at least
+# SEG_DECISIVE of their pixels decisive (``_decisive``). Random weights
+# leave pixels near a tie, whose argmax any rounding may flip, a tied one
+# about half the time: at 5 % of the pixels such flips fit in the
+# agreement gate's budget of 3 %. The choice looks at the f32 model alone.
+SEG_DRAWS = 12
+SEG_DECISIVE = 0.95
+DENSE_POSE_SOURCE_HW = (320, 240)  # a person crop
+DENSE_DET_SOURCE_HW = (480, 640)   # a COCO frame
+# name: (task, source frame, check batch, timing batch, launches)
+DENSE_TRUNKS = {
+    "simplepose_resnet50b_coco": ("pose", DENSE_POSE_SOURCE_HW, 32, 128,
+                                  {"int8_conv": 52}),
+    "alphapose_fastseresnet101b_coco": ("pose", DENSE_POSE_SOURCE_HW, 32, 128,
+                                        {"int8_conv": 103, "se_tail": 4}),
+    "centernet_resnet50b_coco": ("detection", DENSE_DET_SOURCE_HW, 2, 8,
+                                 {"int8_conv": 52})}
+
+PIPE_FRAMES = 30               # 3 chunks: the first, a middle, the last
 PIPE_HW = (240, 432)           # ProPainter's default input
 PIPE_RAFT_ITERS = 20           # RAFTSequencer's default refinements
 PIPE_ITER_TOL = 1e-6           # iterator vs the stages: of max |out|
@@ -388,6 +463,18 @@ def _card() -> str:
 def _require(ok: bool, msg) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+GATES_FAILED = []
+
+
+def _gate(ok: bool, msg) -> None:
+    """A gate on a measured value whose failure leaves the later phases
+    runnable: it is printed now, and ``main`` fails the run after the last
+    phase, without the result line."""
+    if not ok:
+        GATES_FAILED.append(str(msg))
+        print(f"chip_smoke: GATE FAILED: {msg}", flush=True)
 
 
 def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -816,7 +903,7 @@ def _int_mm_library(a):
     return _cuda_ms(lambda: torch._int_mm(xa, wb), 10)
 
 
-def _k2_per_shape(card, tag, calls):
+def _k2_per_shape(card, tag, calls, cache=None):
     """K2 at each distinct conv of a path's recorded calls: its device ms
     (``kernels._parts.launch_ms``: the mean over the launches
     ``torch.profiler`` recorded, with their share of the launches run; a
@@ -826,7 +913,9 @@ def _k2_per_shape(card, tag, calls):
     and shared memory; and ``torch._int_mm`` on the operands of every 1x1
     stride-1 conv, summed over the path's calls of those shapes beside
     K2's device time for the same calls. Returns the library sum (None
-    where torch refused a shape)."""
+    where torch refused a shape). ``cache``: {conv: (ms, library ms)} of
+    convs measured on an earlier path, taken from it, not measured and
+    printed again; the new ones are added to it."""
     from pytorchcv_tpu_torch.kernels._parts import launch_ms
     from pytorchcv_tpu_torch.kernels.int8_conv import int8_conv, kernel_info
     seen = {}
@@ -835,45 +924,60 @@ def _k2_per_shape(card, tag, calls):
         if key not in seen:
             seen[key] = [a, k, out, 0]
         seen[key][3] += 1
-    lib_sum, k2_sum, device_sum = 0.0, 0.0, 0.0
+    lib_sum, k2_sum, device_sum, reused = 0.0, 0.0, 0.0, 0
     for key, (a, k, out, count) in sorted(seen.items()):
-        x, w = a[0], a[1]
-        o = out[0] if isinstance(out, tuple) else out
-        m = o.shape[0] * o.shape[1] * o.shape[2]
-        ms, share, wall = launch_ms(lambda: int8_conv(*a, **k),
-                                    "int8_conv_kernel", 1, 10)
-        if ms is None:
-            print(f"[{card}] {tag} K2: the profiler saw no device time; "
-                  f"CUDA events instead")
-            ms = wall
+        if cache is not None and key in cache:
+            ms, lib = cache[key]
+            reused += 1
+        else:
+            ms, lib = _k2_shape(card, tag, key, a, k, out, count, launch_ms,
+                                int8_conv, kernel_info)
+            if cache is not None:
+                cache[key] = (ms, lib)
         device_sum += count * ms
-        bound = _work_convs([(a, k, out)])
-        ops = 2 * m * w.shape[0] * w.shape[1] * w.shape[2] * w.shape[3]
-        info = kernel_info(m, w.shape[0], x.shape[3], w.shape[1])
-        lib = None
         if key[0] == 1 and key[1] == 1:
-            lib = _int_mm_library(a)
             lib_sum = None if lib is None or lib_sum is None else \
                 lib_sum + count * lib
             k2_sum += count * ms
-        print(f"[{card}] {tag} K2 k={key[0]} s={key[1]} d={key[2]} "
-              f"cin={key[3]} cout={key[4]} h={key[5]} {key[6]} (x{count}): "
-              f"{ms:.4f} ms on the device (the mean of the {100 * share:.0f} "
-              f"% of launches the profiler recorded; {wall:.4f} back to "
-              f"back), "
-              f"{ops / ms / 1e9:.1f} TOP/s, bound "
-              f"{bound[0]:.4f} ms ({bound[1]}), tile {info['bm']}x"
-              f"{info['bn']}, {info['registers']} registers, "
-              f"{info['spill_bytes']} bytes spilled, shared "
-              f"{info['static_smem']} + {info['dynamic_smem']} bytes"
-              + ("" if lib is None else f"; torch._int_mm {lib:.4f} ms"))
-        _require(info["spill_bytes"] == 0, f"{tag} K2 spills at {key}")
     print(f"[{card}] {tag} K2 on the device, the {len(calls)} convs of a "
-          f"forward: {device_sum:.4f} ms")
+          f"forward: {device_sum:.4f} ms ({len(seen)} distinct convs, "
+          f"{reused} of them measured on an earlier path)")
     print(f"[{card}] {tag} K2 library (1x1 s1 products only): "
           f"torch._int_mm {'refused' if lib_sum is None else f'{lib_sum:.4f} ms'}"
           f" against K2 {k2_sum:.4f} ms on the same calls (with epilogues)")
     return lib_sum
+
+
+def _k2_shape(card, tag, key, a, k, out, count, launch_ms, int8_conv,
+              kernel_info):
+    """One distinct conv of ``_k2_per_shape``: (device ms, library ms or
+    None), printed with its TOP/s, bound, tile and resources."""
+    x, w = a[0], a[1]
+    o = out[0] if isinstance(out, tuple) else out
+    m = o.shape[0] * o.shape[1] * o.shape[2]
+    ms, share, wall = launch_ms(lambda: int8_conv(*a, **k),
+                                "int8_conv_kernel", 1, 10)
+    if ms is None:
+        print(f"[{card}] {tag} K2: the profiler saw no device time; "
+              f"CUDA events instead")
+        ms = wall
+    bound = _work_convs([(a, k, out)])
+    ops = 2 * m * w.shape[0] * w.shape[1] * w.shape[2] * w.shape[3]
+    info = kernel_info(m, w.shape[0], x.shape[3], w.shape[1])
+    lib = _int_mm_library(a) if key[0] == 1 and key[1] == 1 else None
+    print(f"[{card}] {tag} K2 k={key[0]} s={key[1]} d={key[2]} "
+          f"cin={key[3]} cout={key[4]} h={key[5]} {key[6]} (x{count}): "
+          f"{ms:.4f} ms on the device (the mean of the {100 * share:.0f} "
+          f"% of launches the profiler recorded; {wall:.4f} back to "
+          f"back), "
+          f"{ops / ms / 1e9:.1f} TOP/s, bound "
+          f"{bound[0]:.4f} ms ({bound[1]}), tile {info['bm']}x"
+          f"{info['bn']}, {info['registers']} registers, "
+          f"{info['spill_bytes']} bytes spilled, shared "
+          f"{info['static_smem']} + {info['dynamic_smem']} bytes"
+          + ("" if lib is None else f"; torch._int_mm {lib:.4f} ms"))
+    _require(info["spill_bytes"] == 0, f"{tag} K2 spills at {key}")
+    return ms, lib
 
 
 def _stem_info(card, tag, a):
@@ -3486,6 +3590,401 @@ def _host_us(fn, reps: int) -> float:
     return 1e6 * t / reps
 
 
+def _dense_targets():
+    import pytorchcv_tpu_torch.kernels.preprocess as pre_mod
+    import pytorchcv_tpu_torch.quant.resnet_int8 as rq
+    import pytorchcv_tpu_torch.quant.seg_backbone_int8 as sq
+    return [(pre_mod, "preprocess", "preprocess"),
+            (rq, "int8_conv", "int8_conv"),
+            (sq, "stem_conv", "stem"),
+            (sq, "maxpool_i8", "maxpool_i8"),
+            (rq, "se_tail", "se_tail")]
+
+
+def _dense_launches(want: dict) -> dict:
+    """A dense int8 route's launches in one forward: K1, K3 and
+    ``maxpool_i8`` once, ``want`` (K2, K11), no other kernel."""
+    from pytorchcv_tpu_torch.kernels import LAUNCHES
+    expected = {k: 0 for k in LAUNCHES}
+    expected.update(preprocess=1, stem=1, maxpool_i8=1, **want)
+    return expected
+
+
+def _dense_model(name: str, draw: int = 0):
+    """Weights from seed ``draw``, BN from seed ``draw + 1``
+    (``_randomize_bn``)."""
+    import pytorchcv_tpu_torch as pt
+    model = pt.get_model(name, rng=draw, device="cuda")
+    _randomize_bn(model, seed=draw + 1)
+    return model
+
+
+def _cosine(y, yf) -> float:
+    y, yf = y.float(), yf.float()
+    return float((y * yf).sum() / (y.norm() * yf.norm()))
+
+
+def _dense_checks(calls, tag) -> dict:
+    """Every kernel of a recorded dense forward against its plain version:
+    K1 within 1 bf16 ulp (scaled), K3 within its tolerance, ``maxpool_i8``,
+    every distinct K2 conv (the bend output included, where the route
+    writes it) and every K11 call bit-exact."""
+    max_err = {}
+    with torch.inference_mode():
+        _check_preprocess(calls["preprocess"], max_err, tag, scaled=True)
+        _check_stem(calls["stem"], max_err, tag)
+        _check_pool(calls["maxpool_i8"], max_err, tag)
+        _check_convs(calls["int8_conv"], max_err, tag)
+        if calls["se_tail"]:
+            _check_se_tail(calls["se_tail"], max_err, tag)
+    return max_err
+
+
+_DENSE_REPLACES = {
+    "preprocess": ("preprocess.cu", "pytorchcv_tpu/kernels/preprocess.py:133"),
+    "maxpool_i8": ("stem.cu", "pytorchcv_tpu/quant/resnet_int8.py:112"),
+    "int8_conv": ("int8_conv.cu", "pytorchcv_tpu/quant/resnet_int8.py:66"),
+    "se_tail": ("se_tail.cu", "pytorchcv_tpu/quant/seg_backbone_int8.py:144")}
+
+
+def _dense_times(card, record, name, serve, batch, hw, launches, max_err,
+                 k2_cache, task=None) -> None:
+    """Phase 35 for one dense route at ``batch``: images/s, the device's
+    busy time and idle share, each kernel of the forward beside its plain
+    version, bound and library call (K1 beside its einsum, K3 beside
+    cuDNN's f32 conv, ``maxpool_i8`` beside ``F.max_pool2d`` where torch
+    takes int8, K2 beside ``torch._int_mm`` on its 1x1 stride-1 convs, K11
+    none), K2 at each distinct conv not measured on an earlier path, the
+    bf16 head (cuDNN convs, upsampling, decode) replayed on the recorded
+    features, and the decode of a pose or detection ``task`` alone on its
+    recorded input."""
+    from pytorchcv_tpu_torch.kernels.int8_conv import (int8_conv,
+                                                       int8_conv_reference)
+    from pytorchcv_tpu_torch.kernels.se_tail import (se_tail,
+                                                     se_tail_reference)
+    raw_t = _raw_batch(batch, seed=3, hw=hw)
+    head_args = []
+    with torch.inference_mode():
+        ms_serve = _cuda_ms(lambda: serve(raw_t), reps=5, warmup=2)
+        print(f"[{card}] serving {name} {serve.route} batch {batch}: "
+              f"{ms_serve:.3f} ms/batch, {batch * 1000.0 / ms_serve:.2f} "
+              f"img/s")
+        _busy(card, f"{name} batch {batch}", lambda: serve(raw_t), ms_serve)
+        hook = serve.head.register_forward_pre_hook(
+            lambda m_, a_, k_: head_args.append((a_, k_)), with_kwargs=True)
+        with _recording(_dense_targets()) as calls, \
+                _decode_calls(serve.head, task) as decoded:
+            serve(raw_t)
+        torch.cuda.synchronize()
+        hook.remove()
+        t = _front_times(card, name, calls)
+        convs = [(a, k) for a, k, _ in calls["int8_conv"]]
+        k2_lib = _k2_per_shape(card, name, calls["int8_conv"], k2_cache)
+        t["int8_conv"] = (
+            _cuda_ms(lambda: [int8_conv(*a, **k) for a, k in convs], 3),
+            _cuda_ms(lambda: [int8_conv_reference(*a, **k)
+                              for a, k in convs], 1, warmup=1),
+            k2_lib, _work_convs(calls["int8_conv"]))
+        del convs
+        se_calls = [(a, k) for a, k, _ in calls["se_tail"]]
+        if se_calls:
+            t["se_tail"] = (
+                _cuda_ms(lambda: [se_tail(*a, **k) for a, k in se_calls],
+                         10),
+                _cuda_ms(lambda: [se_tail_reference(*a, **k)
+                                  for a, k in se_calls], 5),
+                None, _work_se_tail(calls["se_tail"]))
+        del calls, se_calls
+        (ha, hk), = head_args
+        ms_head = _cuda_ms(lambda: serve.head(*ha, **hk), 5)
+        # The features reach the head as NCHW views of the trunk's NHWC
+        # output (channels-last strides); beside them, contiguous copies.
+        feats = ha[0]
+        dense = tuple(None if f is None else f.contiguous() for f in feats) \
+            if isinstance(feats, tuple) else feats.contiguous()
+        ms_head_nchw = _cuda_ms(lambda: serve.head(dense, **hk), 5)
+        del feats, dense
+        ms_decode = None
+        if task is not None:
+            (x, _), = decoded
+            ms_decode = _cuda_ms(lambda: _decode(serve.head, task, x), 10)
+            del x
+        del head_args, ha, hk, decoded
+    for kname, (ms, plain, lib, bound) in t.items():
+        what = {"int8_conv": f"{launches['int8_conv']} convs of one forward; "
+                             f"library: torch._int_mm, 1x1 s1 products only",
+                "se_tail": f"{launches['se_tail']} SE tails of one forward"
+                }.get(kname, "one call")
+        print(f"[{card}] {name} {kname} batch {batch} ({what}): kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, library "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}), share of the batch "
+              f"{100.0 * ms / ms_serve:.1f} %")
+        source, rep = _DENSE_REPLACES.get(kname) or (
+            "stem.cu", "pytorchcv_tpu/quant/seg_backbone_int8.py:"
+            + ("85" if serve.route == "seg_backbone" else "97"))
+        record.append(_record_entry(kname, name, source, rep,
+                                    launches[kname], max_err[kname], ms,
+                                    plain, bound, lib))
+    rest = ms_serve - ms_head - sum(v[0] for v in t.values())
+    print(f"[{card}] {name} bf16 head (cuDNN convs, upsampling"
+          f"{', decode' if task else ''}) replayed on the recorded "
+          f"features, batch {batch}: {ms_head:.4f} ms, share "
+          f"{100.0 * ms_head / ms_serve:.1f} %"
+          + f" (on contiguous NCHW copies of the features {ms_head_nchw:.4f}"
+          f" ms)"
+          + ("" if ms_decode is None else
+             f"; the decode alone {ms_decode:.4f} ms")
+          + f"; the batch less these parts timed alone: {rest:.4f} ms")
+
+
+def _decisive(yf):
+    """The pixels of the f32 map ``yf`` whose top-2 class margin is
+    decisive: > 2 % of the largest |logit| there (``_agreement`` of
+    tests/test_quant.py)."""
+    top2 = yf.topk(2, dim=1).values
+    return (top2[:, 0] - top2[:, 1]) > 0.02 * yf.abs().amax(dim=1)
+
+
+def _agreement(y, yf):
+    """Per-pixel argmax agreement of map ``y`` with the f32 map ``yf``: over
+    every pixel, and over the pixels ``_decisive`` keeps, with their
+    share."""
+    same = y.float().argmax(1) == yf.argmax(1)
+    decisive = _decisive(yf)
+    return (float(same.float().mean()),
+            float(same[decisive].float().mean()),
+            float(decisive.float().mean()))
+
+
+def _decisive_draw(name: str, raw):
+    """Phase 32's weights for ``name``: the first draw w < ``SEG_DRAWS``
+    whose f32 maps, main and aux, on ``raw`` (the f32 preprocess and model
+    of ``make_reference_forward``) keep at least ``SEG_DECISIVE`` of their
+    pixels ``_decisive``; each draw's shares printed. Returns (w, model);
+    with no such draw, a failed gate and draw 0."""
+    from pytorchcv_tpu_torch.kernels._build import no_tf32
+    from pytorchcv_tpu_torch.kernels.preprocess import \
+        segmentation_preprocess
+    for w in range(SEG_DRAWS):
+        model = _dense_model(name, w)
+        pre32 = segmentation_preprocess(
+            tuple(model.in_size), DENSE_SEG_SOURCE_HW, layout="nchw",
+            device="cuda", out_dtype=torch.float32)
+        with torch.inference_mode(), no_tf32():
+            shares = [float(_decisive(m).float().mean())
+                      for m in model(pre32(raw))]
+        print(f"{name} draw {w}: f32 decisive share main "
+              f"{100 * shares[0]:.1f} %, aux {100 * shares[1]:.1f} %")
+        if min(shares) >= SEG_DECISIVE:
+            return w, model
+        del model
+    _gate(False, f"{name}: no draw of {SEG_DRAWS} keeps "
+                 f"{100 * SEG_DECISIVE:.0f} % of its f32 maps decisive")
+    return 0, _dense_model(name)
+
+
+def _dense_seg(card, record, k2_cache) -> None:
+    """Phases 32-33 and 35 for the segmentation heads: each of
+    ``DENSE_SEG`` on its ``_decisive_draw`` served in mode auto from
+    375x500 frames (the seg_backbone route: the int8 dilated ResNet(D)-101b
+    with the bend written where the aux head reads it), every kernel against its plain version on a batch-2
+    forward, the launch counts, main and aux maps finite with cosine >=
+    0.99 and per-pixel argmax agreement >= 0.97 against the f32 reference
+    forward (``_gate``; the agreement on the decisive pixels printed beside
+    it); the same model in mode bf16 (K1 only) at cosine >= 0.99, its
+    agreement printed, timed at batch 8 for the first name; the int8
+    route timed at batch 8 for each."""
+    import pytorchcv_tpu_torch as pt
+    from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    raw = _raw_batch(SEG_BATCH_CHECK, seed=2, hw=DENSE_SEG_SOURCE_HW)
+    raw8 = _raw_batch(SEG_BATCH_TIME, seed=3, hw=DENSE_SEG_SOURCE_HW)
+    for name in DENSE_SEG:
+        t0 = time.perf_counter()
+        draw, model = _decisive_draw(name, raw)
+        print(f"{name}: draw {draw} ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        serve = pt.make_serving_fn(name, DENSE_SEG_SOURCE_HW,
+                                   task="segmentation", device="cuda",
+                                   model=model)
+        torch.cuda.synchronize()
+        print(f"{name} serving fn built (calibrate + quantize): "
+              f"{time.perf_counter() - t0:.3f} s, route {serve.route}")
+        _require(serve.route == "seg_backbone" and model.reads_bend,
+                 f"{name}: route {serve.route}")
+        with _recording(_dense_targets()) as calls:
+            serve(raw)
+        torch.cuda.synchronize()
+        max_err = _dense_checks(calls, name)
+        del calls
+        reset_launch_counts()
+        maps = serve(raw)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        print(f"{name} launches in one forward: {launches}")
+        _require(launches == _dense_launches(DENSE_SEG_LAUNCHES),
+                 f"{name} launches {launches}")
+        ref = serve.make_reference_forward()(raw)
+        torch.cuda.synchronize()
+        _require(len(maps) == len(ref) == 2, f"{name}: {len(maps)} maps")
+        for what, m, r in zip(("main", "aux"), maps, ref):
+            _require(tuple(m.shape) == (SEG_BATCH_CHECK, model.num_classes,
+                                        *model.in_size), m.shape)
+            _require(bool(torch.isfinite(m.float()).all()),
+                     f"{name} non-finite {what} map")
+            cos = _cosine(m, r)
+            every, decisive, share = _agreement(m, r)
+            print(f"{name} {what} map int8 vs f32 reference: cosine "
+                  f"{cos:.6f}, argmax agreement {every:.6f} on every pixel"
+                  f", {decisive:.6f} on the {100 * share:.1f} % decisive "
+                  f"pixels")
+            _gate(cos >= 0.99, f"{name} {what} map cosine {cos} < 0.99")
+            _gate(every >= 0.97,
+                  f"{name} {what} map argmax agreement {every} < 0.97")
+        del maps
+
+        # -- 33. the bf16 route of the same model: a bf16 copy, K1 only
+        serve_bf = pt.make_serving_fn(name, DENSE_SEG_SOURCE_HW,
+                                      mode="bf16", task="segmentation",
+                                      device="cuda", model=model)
+        _require(serve_bf.route == "bf16", serve_bf.route)
+        reset_launch_counts()
+        maps = serve_bf(raw)
+        torch.cuda.synchronize()
+        launches_bf = dict(LAUNCHES)
+        _require(launches_bf == {k: int(k == "preprocess") for k in LAUNCHES},
+                 f"{name} bf16 launches {launches_bf}")
+        for what, m, r in zip(("main", "aux"), maps, ref):
+            cos = _cosine(m, r)
+            every, decisive, share = _agreement(m, r)
+            print(f"{name} bf16 {what} map vs f32 reference: cosine "
+                  f"{cos:.6f}, argmax agreement {every:.6f} on every pixel,"
+                  f" {decisive:.6f} on the {100 * share:.1f} % decisive "
+                  f"pixels")
+            _gate(cos >= 0.99, f"{name} bf16 {what} cosine {cos} < 0.99")
+        del maps, ref
+        if name == DENSE_SEG[0]:
+            with torch.inference_mode():
+                ms_bf = _cuda_ms(lambda: serve_bf(raw8), reps=5, warmup=2)
+            print(f"[{card}] serving {name} bf16 batch {SEG_BATCH_TIME}: "
+                  f"{ms_bf:.3f} ms/batch, "
+                  f"{SEG_BATCH_TIME * 1000.0 / ms_bf:.2f} img/s")
+        del serve_bf
+
+        # -- 35. timing at batch 8
+        _dense_times(card, record, name, serve, SEG_BATCH_TIME,
+                     DENSE_SEG_SOURCE_HW, launches, max_err, k2_cache)
+        del serve, model
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _decode_calls(head, task):
+    """Record the decode's (input, output) pairs in the head's forward: the
+    keypoint block's (pose) or ``centernet_heatmap_max_det``'s
+    (detection)."""
+    import pytorchcv_tpu_torch.models.centernet as cn
+    seen = []
+    if task is None:
+        yield seen
+        return
+    if task == "pose":
+        hook = head.heatmap_max_det.register_forward_hook(
+            lambda m_, a_, out: seen.append((a_[0], out)))
+        try:
+            yield seen
+        finally:
+            hook.remove()
+        return
+    orig = cn.centernet_heatmap_max_det
+
+    def rec(x, *a, **k):
+        out = orig(x, *a, **k)
+        seen.append((x, out))
+        return out
+    cn.centernet_heatmap_max_det = rec
+    try:
+        yield seen
+    finally:
+        cn.centernet_heatmap_max_det = orig
+
+
+def _decode(head, task, x):
+    """The route's decode of the pre-decode tensor ``x``, on x's device."""
+    from pytorchcv_tpu_torch.models.centernet import \
+        centernet_heatmap_max_det
+    if task == "pose":
+        return head.heatmap_max_det(x)
+    return centernet_heatmap_max_det(x, head.topk)
+
+
+def _dense_trunk(card, record, name, k2_cache) -> None:
+    """Phases 34-35 for a pose or detection route of ``DENSE_TRUNKS``:
+    ``make_serving_fn(name, frame, task=...)`` in mode auto (the
+    plain_trunk route: the int8 plain ResNet trunk, AlphaPose's SE units on
+    K11, then the bf16 head and decode); every kernel against its plain
+    version on the check batch; the launch counts; the decoded output
+    finite and equal to the decode of the same tensor on the CPU
+    (keypoints; boxes in order); with ``return_heatmap`` the pre-decode
+    tensor at cosine >= 0.99 against the f32 reference forward; timed at
+    the route's timing batch."""
+    import pytorchcv_tpu_torch as pt
+    from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    task, hw, b_check, b_time, want = DENSE_TRUNKS[name]
+    model = _dense_model(name)
+    t0 = time.perf_counter()
+    serve = pt.make_serving_fn(name, hw, task=task, device="cuda",
+                               model=model)
+    torch.cuda.synchronize()
+    print(f"{name} serving fn built (calibrate + quantize): "
+          f"{time.perf_counter() - t0:.3f} s, route {serve.route}")
+    _require(serve.route == "plain_trunk", f"{name}: route {serve.route}")
+    raw = _raw_batch(b_check, seed=2, hw=hw)
+    with _recording(_dense_targets()) as calls, \
+            _decode_calls(serve.head, task) as decoded:
+        out = serve(raw)
+    torch.cuda.synchronize()
+    max_err = _dense_checks(calls, name)
+    del calls
+    (x, dec), = decoded
+    with torch.inference_mode():
+        plain = _decode(serve.head, task, x.cpu())
+    same = torch.equal(dec.cpu(), plain) and torch.equal(out, dec)
+    print(f"{name} decode of {tuple(x.shape)} {x.dtype} on the card -> "
+          f"{tuple(dec.shape)}: {'equal to' if same else 'DIFFERS from'} "
+          f"the decode of the same tensor on the CPU")
+    _require(same, f"{name} decode on the card differs from the CPU's")
+    del decoded, x, dec, plain
+
+    reset_launch_counts()
+    out = serve(raw)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    print(f"{name} launches in one forward: {launches}")
+    _require(launches == _dense_launches(want), f"{name} launches {launches}")
+    shape = (b_check, model.num_classes, 3) if task == "pose" else \
+        (b_check, model.topk, 6)
+    _require(tuple(out.shape) == shape, out.shape)
+    _require(bool(torch.isfinite(out.float()).all()), f"{name} non-finite")
+    del out
+    for m_ in (serve.head, model):
+        m_.return_heatmap = True
+    try:
+        y = serve(raw)
+        yf = serve.make_reference_forward()(raw)
+        torch.cuda.synchronize()
+    finally:
+        for m_ in (serve.head, model):
+            m_.return_heatmap = False
+    cos = _cosine(y, yf)
+    print(f"{name} pre-decode {tuple(y.shape)} int8 vs f32 reference: cosine "
+          f"{cos:.6f}")
+    _require(cos >= 0.99, f"{name} pre-decode cosine {cos} < 0.99")
+    del y, yf
+    _dense_times(card, record, name, serve, b_time, hw, launches, max_err,
+                 k2_cache, task)
+
+
 def _mobilenet(card, record) -> None:
     """Phases 28-31: the MobileNet family on the card."""
     import pytorchcv_tpu_torch as pt
@@ -3841,9 +4340,20 @@ def main() -> None:
     t0 = time.perf_counter()
     _mobilenet(card, record)
     print(f"mobilenet phases: {time.perf_counter() - t0:.1f} s")
+    k2_cache = {}
+    t0 = time.perf_counter()
+    _dense_seg(card, record, k2_cache)
+    print(f"segmentation head phases: {time.perf_counter() - t0:.1f} s")
+    for name in DENSE_TRUNKS:
+        t0 = time.perf_counter()
+        _dense_trunk(card, record, name, k2_cache)
+        print(f"{name} phases: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": record}))
+    if GATES_FAILED:
+        raise RuntimeError(f"chip_smoke: {len(GATES_FAILED)} gate(s) "
+                           f"failed: " + "; ".join(GATES_FAILED))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,7 +16,7 @@ from .registry import register_model
 from .shell import ImageClassifier
 
 __all__ = ["ResBlock", "ResBottleneck", "ResUnit", "ResInitBlock",
-           "classifier", "get_resnet"]
+           "classifier", "get_resnet", "resnet_stages", "resnet_features"]
 
 
 class ResBlock(nn.Module):
@@ -121,31 +121,58 @@ class ResInitBlock(nn.Module):
         return self.pool(self.conv(x))
 
 
+def resnet_stages(channels: Sequence[Sequence[int]], init_block: nn.Module,
+                  c_in: int, unit, final_pool: bool = True) -> nn.Sequential:
+    """``init_block`` (``c_in`` wide), then ``stage1..``: unit j of stage i
+    (both 0-based) is ``unit(c_in, c_out, stride, i, j)``, stride 2 at the
+    first unit of every stage but the first; with ``final_pool`` the
+    global average pool (the reference's AvgPool2d(7) at 224 input, and
+    shape-robust otherwise)."""
+    layers = [("init_block", init_block)]
+    for i, stage_channels in enumerate(channels):
+        units = []
+        for j, c_out in enumerate(stage_channels):
+            stride = 2 if j == 0 and i != 0 else 1
+            units.append((f"unit{j + 1}", unit(c_in, c_out, stride, i, j)))
+            c_in = c_out
+        layers.append((f"stage{i + 1}", Sequential(units)))
+    if final_pool:
+        layers.append(("final_pool", nn.AdaptiveAvgPool2d(1)))
+    return Sequential(layers)
+
+
 def classifier(channels: Sequence[Sequence[int]], init_block_channels: int,
                unit, in_channels: int = 3,
                in_size: Tuple[int, int] = (224, 224), num_classes: int = 1000,
                init_block=ResInitBlock, output=None) -> ImageClassifier:
     """The residual classifier: ``init_block``, stages of ``unit(c_in,
-    c_out, stride, stage index)`` (stride 2 at the first unit of every
-    stage but the first), global average pool, ``output(c_in, classes)``
-    (default ``nn.Linear``). ResNet, SE-ResNet, ResNeXt, SE-ResNeXt and
-    SENet build on it."""
-    layers = [("init_block", init_block(in_channels, init_block_channels))]
-    c_in = init_block_channels
-    for i, stage_channels in enumerate(channels):
-        units = []
-        for j, c_out in enumerate(stage_channels):
-            stride = 2 if j == 0 and i != 0 else 1
-            units.append((f"unit{j + 1}", unit(c_in, c_out, stride, i)))
-            c_in = c_out
-        layers.append((f"stage{i + 1}", Sequential(units)))
-    # Global average pool: the reference's AvgPool2d(7) at 224 input, and
-    # shape-robust otherwise.
-    layers.append(("final_pool", nn.AdaptiveAvgPool2d(1)))
+    c_out, stride, stage index)`` (``resnet_stages``), global average
+    pool, ``output(c_in, classes)`` (default ``nn.Linear``). ResNet,
+    SE-ResNet, ResNeXt, SE-ResNeXt and SENet build on it."""
+    features = resnet_stages(
+        channels, init_block(in_channels, init_block_channels),
+        init_block_channels,
+        lambda c_in, c_out, stride, i, _j: unit(c_in, c_out, stride, i))
+    c_in = channels[-1][-1]
     head = nn.Linear(c_in, num_classes) if output is None else \
         output(c_in, num_classes)
-    return ImageClassifier(Sequential(layers), head, in_size=in_size,
+    return ImageClassifier(features, head, in_size=in_size,
                            in_channels=in_channels, num_classes=num_classes)
+
+
+def resnet_features(channels: Sequence[Sequence[int]],
+                    init_block_channels: int, bottleneck: bool,
+                    conv1_stride: bool, final_pool: bool = True,
+                    in_channels: int = 3) -> nn.Sequential:
+    """The ResNet trunk (JAX ``models/resnet.py:154``): ``init_block`` and
+    ``stage1..4`` of ``ResUnit`` (``resnet_stages``), with ``final_pool``
+    the global average pool. SimplePose and CenterNet take it without the
+    pool, its children renamed "0".."4"."""
+    return resnet_stages(
+        channels, ResInitBlock(in_channels, init_block_channels),
+        init_block_channels,
+        lambda c_in, c_out, stride, _i, _j: ResUnit(
+            c_in, c_out, stride, bottleneck, conv1_stride), final_pool)
 
 
 def resnet(channels: Sequence[Sequence[int]], init_block_channels: int,

@@ -5,10 +5,11 @@ from __future__ import annotations
 from collections import OrderedDict
 from typing import List, Sequence, Tuple
 
+import torch
 from torch import nn
 
 __all__ = ["Sequential", "MultiOutputSequential", "positional_layers",
-           "IndexedSeq", "Hourglass"]
+           "IndexedSeq", "Hourglass", "Concurrent"]
 
 
 def Sequential(layers: Sequence[Tuple[str, nn.Module]]) -> nn.Sequential:
@@ -42,6 +43,18 @@ class MultiOutputSequential(nn.Sequential):
             if i in self.output_idx:
                 outs.append(x)
         return [x] + outs
+
+
+class Concurrent(nn.Sequential):
+    """Named branches applied to the same input, their outputs concatenated
+    on the channel axis (dim 1, NCHW): JAX ``nn/arch.py:90`` with its
+    default ``cat`` merge (reference arch.py:58)."""
+
+    def __init__(self, layers: Sequence[Tuple[str, nn.Module]]):
+        super().__init__(OrderedDict(layers))
+
+    def forward(self, x):
+        return torch.cat([layer(x) for layer in self], dim=1)
 
 
 class IndexedSeq(nn.Sequential):

@@ -16,10 +16,10 @@ from ..kernels.dwconv import dwconv2d_bn_act
 from .activ import Activation, HSwish, Swish, create_activation
 from .norm import BN_EPS, fold_batchnorm
 
-__all__ = ["ConvBlock", "DwsConvBlock", "conv1x1", "conv1x1_block",
-           "conv3x3_block", "conv7x7_block", "dwconv_block",
-           "dwconv3x3_block", "dwconv5x5_block", "dwsconv3x3_block",
-           "unfused_depthwise"]
+__all__ = ["ConvBlock", "DwsConvBlock", "DeconvBlock", "conv1x1",
+           "conv1x1_block", "conv3x3_block", "conv7x7_block",
+           "dwconv_block", "dwconv3x3_block", "dwconv5x5_block",
+           "dwsconv3x3_block", "unfused_depthwise"]
 
 Normalization = Union[bool, Callable[[int], nn.Module]]
 Pad = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -194,3 +194,22 @@ def dwsconv3x3_block(in_channels: int, out_channels: int, stride: int = 1,
     """3x3 depthwise-separable block (JAX ``nn/conv.py:227``)."""
     return DwsConvBlock(in_channels, out_channels, 3, stride=stride,
                         padding=padding, **kwargs)
+
+
+class DeconvBlock(nn.Module):
+    """4x4/2 transposed conv (padding 1, no bias) + BatchNorm2d + ReLU, the
+    x2 upsampling block of SimplePose and CenterNet (JAX ``nn/conv.py:384``
+    at its defaults; its ``ConvTranspose2d`` at ``:325`` is
+    ``nn.ConvTranspose2d``): children ``conv``, ``bn``, ``activ``. The JAX
+    kernel (kH, kW, O, I) converts to ``nn.ConvTranspose2d``'s
+    (I, O, kH, kW) by the converter's 4-D rule, the rule of every conv."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = nn.ConvTranspose2d(in_channels, out_channels, 4,
+                                       stride=2, padding=1, bias=False)
+        self.bn = nn.BatchNorm2d(out_channels, eps=BN_EPS)
+        self.activ = nn.ReLU()
+
+    def forward(self, x):
+        return self.activ(self.bn(self.conv(x)))

@@ -1,5 +1,5 @@
-"""Resampling, pooling and the hourglass's cut (counterparts in
-``pytorchcv_tpu.nn.ops``)."""
+"""Resampling, pooling, the hourglass's cut, pixel shuffle and the heatmap
+keypoint decode (counterparts in ``pytorchcv_tpu.nn.ops``)."""
 
 from __future__ import annotations
 
@@ -9,8 +9,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .conv import conv3x3_block
+
 __all__ = ["interpolate", "grid_sample", "BreakBlock", "InterpolationBlock",
-           "global_avg_pool2d"]
+           "global_avg_pool2d", "DucBlock", "HeatmapMaxDetBlock"]
 
 
 def interpolate(x, size: Tuple[int, int], mode: str = "bilinear",
@@ -77,3 +79,52 @@ def global_avg_pool2d(keepdims: bool = False) -> nn.Module:
     """Mean over H and W: (B, C, H, W) -> (B, C), or (B, C, 1, 1) with
     ``keepdims`` (JAX ``nn/ops.py:355``)."""
     return _GlobalAvgPool2d(keepdims)
+
+
+class DucBlock(nn.Module):
+    """Dense upsampling convolution: a 3x3 conv block to ``scale_factor^2 *
+    out_channels``, then the pixel shuffle (JAX ``nn/ops.py:245``; its
+    ``pixel_shuffle`` at ``:234`` is ``F.pixel_shuffle`` on NCHW: channel
+    ``c r^2 + i r + j`` goes to pixel (h r + i, w r + j) of channel c)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 scale_factor: int = 2):
+        super().__init__()
+        self.scale_factor = scale_factor
+        self.conv = conv3x3_block(in_channels,
+                                  scale_factor ** 2 * out_channels)
+
+    def forward(self, x):
+        return F.pixel_shuffle(self.conv(x), self.scale_factor)
+
+
+class HeatmapMaxDetBlock(nn.Module):
+    """Keypoints of a heatmap (JAX ``nn/ops.py:260``): (B, K, H, W) ->
+    (B, K, 3) of (x, y, score) in the heatmap's type. Each map's first
+    maximum (the lowest flat index among equal maxima, as ``jnp.argmax``);
+    a maximum not above 0 gives (0, 0); inside the border the position
+    moves 0.25 px toward the larger of its two neighbours on each axis (by
+    the sign of their difference: none on a tie)."""
+
+    def forward(self, heatmap):
+        b, k, h, w = heatmap.shape
+        vec = heatmap.reshape(b, k, h * w)
+        scores, indices = torch.max(vec, dim=2)
+        mask = scores > 0.0
+        zero = torch.zeros_like(indices)
+        px = torch.where(mask, indices % w, zero)
+        py = torch.where(mask, indices // w, zero)
+        inner = (px > 0) & (px < w - 1) & (py > 0) & (py < h - 1)
+        pxc = px.clamp(1, w - 2)
+        pyc = py.clamp(1, h - 2)
+
+        def gather(dy, dx):
+            idx = (pyc + dy) * w + (pxc + dx)
+            return torch.gather(vec, 2, idx[..., None])[..., 0]
+
+        dx_sign = torch.sign(gather(0, 1) - gather(0, -1))
+        dy_sign = torch.sign(gather(1, 0) - gather(-1, 0))
+        none = torch.zeros_like(dx_sign)
+        fx = px.to(heatmap.dtype) + torch.where(inner, dx_sign * 0.25, none)
+        fy = py.to(heatmap.dtype) + torch.where(inner, dy_sign * 0.25, none)
+        return torch.stack([fx, fy, scores], dim=2)

@@ -45,8 +45,11 @@ def test_import_leaves_jax_out():
 def test_registry_holds_every_jax_resnet_name():
     """Each ported family (resnet, resnetd, danet, propainter_rfc,
     efficientnet, propainter, propainter_ip, wrn, seresnet, resnext,
-    seresnext, senet, raft, mobilenet, mobilenetv2, mobilenetv3) registers
-    exactly the JAX package's names of that family, and nothing else."""
+    seresnext, senet, raft, mobilenet, mobilenetv2, mobilenetv3, pspnet,
+    deeplabv3, fcn8sd, centernet, alphapose_coco, fastseresnet) registers
+    exactly the JAX package's names of that family, and nothing else;
+    simplepose_coco its four ResNet variants (the ResNet-A ones are not yet
+    ported)."""
     def family(names, registry, fam):
         return {n for n in names if registry.get_constructor(
             n).__module__.rsplit(".", 1)[-1] == fam}
@@ -56,7 +59,9 @@ def test_registry_holds_every_jax_resnet_name():
     for fam in ("resnet", "resnetd", "danet", "propainter_rfc",
                 "efficientnet", "propainter", "propainter_ip", "wrn",
                 "seresnet", "resnext", "seresnext", "senet", "raft",
-                "mobilenet", "mobilenetv2", "mobilenetv3"):
+                "mobilenet", "mobilenetv2", "mobilenetv3", "pspnet",
+                "deeplabv3", "fcn8sd", "centernet", "alphapose_coco",
+                "fastseresnet"):
         jax_names = family(jax_registry.registered_models(), jax_registry,
                            fam)
         assert family(port_names, port_registry, fam) == jax_names, fam
@@ -66,8 +71,15 @@ def test_registry_holds_every_jax_resnet_name():
                       "propainter": 1, "propainter_ip": 1, "wrn": 1,
                       "seresnet": 17, "resnext": 10, "seresnext": 3,
                       "senet": 6, "raft": 2, "mobilenet": 12,
-                      "mobilenetv2": 8, "mobilenetv3": 10}
-    assert len(port_names) == 124
+                      "mobilenetv2": 8, "mobilenetv3": 10, "pspnet": 8,
+                      "deeplabv3": 10, "fcn8sd": 8, "centernet": 6,
+                      "alphapose_coco": 1, "fastseresnet": 1}
+    simplepose = family(port_names, port_registry, "simplepose_coco")
+    assert simplepose == {n for n in family(
+        jax_registry.registered_models(), jax_registry, "simplepose_coco")
+        if "resneta" not in n}
+    assert len(simplepose) == 4
+    assert len(port_names) == 162
 
 
 def test_get_model_is_seeded_and_named():

@@ -1638,3 +1638,152 @@ def test_dwconv_mobilenet_bf16_calls_match_plain(name, mode, k6, acts,
             a32 = (a[0].float(), a[1].float(), *a[2:])
             assert torch.equal(dwconv2d_bn_act(*a32),
                                dwconv2d_bn_act_reference(*a32)), a[6]
+
+
+# ------------------------------------------------ dense-prediction routes
+
+def test_int8_conv_bend_at_the_seg_backbone_shape():
+    """The bend: stage 3's last conv of ResNet(D)-101b at 480x480 (x 60x60,
+    256 -> 1024, the unit's own int8 input as residual, rounded to bf16)
+    writes int8 at the next scale and the bf16 sum in one launch, both
+    equal to the plain version's, the int8 output also to the launch
+    without the bend."""
+    dev = _cuda()
+    rng = np.random.default_rng(60)
+    x = _i8(rng, (2, 60, 60, 256), dev)
+    w = _i8(rng, (1024, 1, 1, 256), dev)
+    a = torch.from_numpy(rng.uniform(2e-5, 2e-4, 1024).astype(np.float32)
+                         ).to(dev)
+    b = torch.from_numpy(rng.standard_normal(1024).astype(np.float32)).to(dev)
+    kw = dict(act=None, q=0.7, residual=_i8(rng, (2, 60, 60, 1024), dev),
+              res_scale=0.01, round_res=True)
+    reset_launch_counts()
+    got = int8_conv(x, w, a, b, 1, bend=True, **kw)
+    assert LAUNCHES["int8_conv"] == 1
+    ref = int8_conv_reference(x, w, a, b, 1, bend=True, **kw)
+    plain = int8_conv(x, w, a, b, 1, **kw)
+    torch.cuda.synchronize()
+    assert got[1].dtype == torch.bfloat16
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert torch.equal(got[0], plain)
+
+
+@pytest.mark.parametrize("bsz,h,w", [(4, 256, 192), (2, 512, 512)])
+def test_stem_kernel_at_the_pose_and_detection_shapes(bsz, h, w):
+    """K3's 7x7 on the pose crops (256x192, not square) and CenterNet's
+    frames (512x512): within the gate; no spill."""
+    from pytorchcv_tpu_torch.kernels import stem as k3
+    dev = _cuda()
+    rng = np.random.default_rng(h + w)
+    x = torch.from_numpy(rng.standard_normal((bsz, 3, h, w)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    kf = torch.from_numpy((rng.standard_normal((3, 7, 7, 64)) * 0.1)
+                          .astype(np.float32)).to(dev, torch.bfloat16)
+    bias = torch.from_numpy(rng.standard_normal(64).astype(np.float32)
+                            ).to(dev)
+    got = stem_conv(x, kf, bias, 40.0)
+    ref = stem_conv_reference(x, kf, bias, 40.0)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (bsz, h // 2, w // 2, 64)
+    diff = (got.int() - ref.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff != 0).float().mean()) <= 1e-3
+    info = k3.kernel_info(bsz, h, w, 7)
+    assert info["spill_bytes"] == 0 and info["registers"] <= 128, info
+
+
+@pytest.mark.parametrize("hw,c", [((64, 48), 256), ((32, 24), 512),
+                                  ((16, 12), 1024), ((8, 6), 2048)])
+def test_se_tail_kernel_at_alphapose_shapes(hw, c):
+    """K11 at the SE units of AlphaPose's trunk (unit 1 of each stage at
+    256x192, batch 32: an int8 identity conv at the next unit's scale):
+    bit-exact against the plain version handed the same gate."""
+    from pytorchcv_tpu_torch.kernels.se_tail import (se_tail,
+                                                     se_tail_reference)
+    dev = _cuda()
+    rng = np.random.default_rng(c)
+    shape = (32, *hw, c)
+    t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 3
+                         ).to(dev, torch.bfloat16)
+    g = torch.from_numpy(rng.uniform(0, 1, (32, c)).astype(np.float32)
+                         ).to(dev)
+    kw = dict(residual=_i8(rng, shape, dev), res_scale=0.02, q=0.9)
+    got = se_tail(t, g, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, se_tail_reference(t, g, **kw))
+
+
+def _tied(shape, levels, seed, dev, dtype):
+    rng = np.random.default_rng(seed)
+    x = rng.choice(np.float32(levels), shape)
+    return torch.from_numpy(x).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decodes_on_cuda_match_cpu(dtype):
+    """Both decodes on the card equal the same tensor's decode on the CPU,
+    exactly, on maps full of ties: the keypoint block at the pose routes'
+    heatmaps (32, 17, 64, 48) and CenterNet's top-k at its (2, 84, 128,
+    128) tensor (the 80 class maps on four score levels: every slot past
+    the first few is a tie, ranked by the lower flat index)."""
+    from pytorchcv_tpu_torch.models.centernet import \
+        centernet_heatmap_max_det
+    from pytorchcv_tpu_torch.nn import HeatmapMaxDetBlock
+    dev = _cuda()
+    hm = _tied((32, 17, 64, 48), [-0.5, 0.0, 0.25, 0.5, 1.0], 1, dev, dtype)
+    got = HeatmapMaxDetBlock()(hm)
+    assert torch.equal(got.cpu(), HeatmapMaxDetBlock()(hm.cpu()))
+    x = torch.randn((2, 84, 128, 128), generator=torch.Generator()
+                    .manual_seed(2)).to(dev, dtype)
+    x[:, :80] = _tied((2, 80, 128, 128), [0.0, 0.25, 0.5, 1.0], 3, dev,
+                      dtype)
+    got = centernet_heatmap_max_det(x)
+    want = centernet_heatmap_max_det(x.cpu())
+    assert torch.equal(got.cpu(), want)
+    assert bool((got[..., 5] == 1.0).all())        # all 40 are ties at 1.0
+
+
+@pytest.mark.parametrize("name,task,hw,src,tol", [
+    ("pspnet_resnetd50b_voc", "segmentation", (64, 64), (75, 100), 0.999),
+    ("simplepose_resnet18_coco", "pose", (64, 48), (80, 60), 0.999),
+    ("alphapose_fastseresnet101b_coco", "pose", (64, 48), (80, 60), 0.99),
+    ("centernet_resnet18_voc", "detection", (128, 128), (120, 160), 0.999)])
+def test_dense_routes_on_cuda_match_cpu(name, task, hw, src, tol):
+    """The dense int8 routes on the card against the CPU on the same
+    weights and calibration: the pre-decode outputs at cosine >= 0.999 (a
+    K3 element off by 1 moves a few requantized values a step), AlphaPose's
+    at 0.99, the routes' gate against the f32 oracle (its SE gates' f32
+    mean and products sum in another order on the card, a gate one ulp
+    apart moves a requantized value a step, and its 101-layer trunk
+    carries such steps on: 0.9958 on the H100); launches K1 / K3 /
+    ``maxpool_i8`` 1 and K2 (+ K11) as the plan counts them."""
+    dev = _cuda()
+    kw = {"return_heatmap": True} if task != "segmentation" else {}
+    model = pt.get_model(name, in_size=hw, device="cpu", **kw)
+    raw = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, (2, *src, 3), dtype=np.uint8))
+    from pytorchcv_tpu_torch.kernels.preprocess import \
+        segmentation_preprocess
+    calib = segmentation_preprocess(hw, src, layout="nchw", device="cpu")(
+        raw).float()
+    serve_cpu = pt.make_serving_fn(name, src, task=task, device="cpu",
+                                   model=model, calib_batches=[calib])
+    serve_gpu = pt.make_serving_fn(name, src, task=task, device=dev,
+                                   model=copy.deepcopy(model).to(dev),
+                                   calib_batches=[calib.to(dev)])
+    y_cpu = serve_cpu(raw)
+    reset_launch_counts()
+    y_gpu = serve_gpu(raw.to(dev))
+    torch.cuda.synchronize()
+    units = [m for m in model.backbone.modules() if hasattr(m, "body")]
+    n_k2 = sum(len(list(u.body.children())) + (u.identity_conv is not None)
+               for u in units) + (2 if task == "segmentation" else 0)
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(preprocess=1, stem=1, maxpool_i8=1, int8_conv=n_k2,
+                se_tail=sum(getattr(u, "se", None) is not None
+                            for u in units))
+    assert dict(LAUNCHES) == want
+    for a, b in zip(*(y if isinstance(y, tuple) else (y,)
+                      for y in (y_cpu, y_gpu))):
+        cos = float(torch.nn.functional.cosine_similarity(
+            a.float().flatten(), b.float().cpu().flatten(), dim=0))
+        assert cos >= tol, cos

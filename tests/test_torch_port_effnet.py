@@ -338,8 +338,9 @@ def test_efficientnet_matches_jax(effnet):
 
 def test_serving_routes_on_cpu():
     """auto on EfficientNet and mode='bf16' on a ResNet serve bf16 against
-    their f32 oracle, which runs no K6; int8 on EfficientNet and bf16
-    segmentation are not ported."""
+    their f32 oracle, which runs no K6; int8 on EfficientNet is not ported,
+    bf16 segmentation serves a bf16 copy of the whole model, and a task the
+    JAX package does not serve raises."""
     raw = np.random.default_rng(0).integers(0, 256, (2, 74, 74, 3),
                                             dtype=np.uint8)
     effnet = pt.get_model("efficientnet_b0", device="cpu")
@@ -380,6 +381,9 @@ def test_serving_routes_on_cpu():
     with pytest.raises(NotImplementedError, match="int8 route"):
         pt.make_serving_fn("efficientnet_b0", (74, 74), mode="int8",
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        pt.make_serving_fn("danet_resnetd50b_cityscapes", (72, 96),
-                           mode="bf16", task="segmentation", device="cpu")
+    serve = pt.make_serving_fn("danet_resnetd50b_cityscapes", (72, 96),
+                               mode="bf16", task="segmentation",
+                               device="cpu", in_size=(64, 64))
+    assert serve.route == "bf16" and serve.head is None
+    with pytest.raises(NotImplementedError, match="task 'depth'"):
+        pt.make_serving_fn("resnet10", (74, 74), task="depth", device="cpu")

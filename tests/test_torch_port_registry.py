@@ -2,7 +2,9 @@
 parameter count equals the zoo registry's ``params`` (the JAX model's count
 for a name without a metainfo row, ``efficientnet_b8``), the output shape
 follows the JAX model's declared input size and class count (for a video
-model, the JAX model's output shapes on its own example inputs), and the
+model, the JAX model's output shapes on its own example inputs; for a
+segmentation model its aux maps too; for a pose model its keypoints, for
+CenterNet its top-k boxes), and the
 int8 serving route is the one the JAX package declares for that name.
 
 Models are built and run under ``FakeTensorMode``: shapes propagate through
@@ -24,6 +26,7 @@ from pytorchcv_tpu_torch.serve import declared_int8_route
 torch.set_num_threads(1)
 
 _NAMES = sorted(pt.registered_models())
+_SEG_FAMILIES = ("pspnet", "deeplabv3", "fcn8sd", "danet")
 
 
 @pytest.mark.parametrize("name", _NAMES)
@@ -73,10 +76,18 @@ def test_output_shape_matches_jax_declaration(name):
         x = torch.empty(2, ref.in_channels, *ref.in_size)
         with torch.no_grad():
             out = model(x)
-    if get_model_metainfo_dict().get(name, {}).get("dataset") == "cs":
-        assert isinstance(out, tuple) and len(out) == 3   # main + 2 aux
+    family = get_constructor(name).__module__.rsplit(".", 1)[-1]
+    if family in _SEG_FAMILIES:
+        # main map + the aux maps of the default aux=True: DANet's two
+        # branch maps, the stage-3 map of the other heads
+        assert isinstance(out, tuple)
+        assert len(out) == (3 if family == "danet" else 2)
         for o in out:
             assert tuple(o.shape) == (2, ref.num_classes, *ref.in_size)
+    elif hasattr(ref.module, "keypoints"):       # (x, y, score) a keypoint
+        assert tuple(out.shape) == (2, ref.module.keypoints, 3)
+    elif family == "centernet":                  # (x1, y1, x2, y2, class,
+        assert tuple(out.shape) == (2, ref.module.topk, 6)    # score)
     else:
         assert tuple(out.shape) == (2, ref.num_classes)
 

@@ -316,7 +316,7 @@ def test_int8_backbone_bit_exact_vs_jax(danet):
     # JAX and the K2 tests): fused, the bend rounds differently.
     ref4, ref3 = jax.jit(fn).lower(qtree, jnp.asarray(x)).compile(
         {"xla_disable_hlo_passes": "fusion"})(qtree, jnp.asarray(x))
-    infer, plan = prepare_int8_seg_backbone(tm, scales)
+    infer, plan = prepare_int8_seg_backbone(tm, scales, bend=True)
     got4, got3 = infer(plan, torch.from_numpy(x).permute(0, 3, 1, 2))
     assert tuple(got4.shape) == ref4.shape == (2, 8, 8, 2048)
     assert tuple(got3.shape) == ref3.shape == (2, 8, 8, 1024)
