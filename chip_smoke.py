@@ -9,9 +9,11 @@ classification, video inpainting from raw frames through
 ``ProPainterIterator`` (RAFT flow, RFC, image propagation, the generator,
 the blend), int8 MobileNet v1 / v2 and bf16 MobileNetV3
 classification, int8 PSPNet, DeepLabv3 and FCN-8s(d) (ResNet(D)-101b) VOC
-segmentation, and SimplePose, AlphaPose and CenterNet on the int8 plain
-ResNet trunk, on the port's hand-written CUDA kernels, with the int8 7x7
-stem and the window-sum probe on their own entry points.
+segmentation, SimplePose, AlphaPose and CenterNet on the int8 plain
+ResNet trunk, and int8 VGG-16, DarkNet-53 and PreResNet-50 /
+SE-PreResNet-50 classification, on the port's hand-written CUDA kernels,
+with the int8 7x7 stem and the window-sum probe on their own entry
+points.
 
     python3 chip_smoke.py
 
@@ -295,7 +297,28 @@ use (one nvcc per source, in parallel). Phases, each ending in
    dense path (device ms, TOP/s, bound, tile, registers; a spill fails),
    the bf16 head replayed on the recorded features (NCHW views of the
    trunk's NHWC output, as served) and on contiguous copies of them, and
-   the decode alone.
+   the decode alone;
+36. the remaining int8 classification routes: ``make_serving_fn(name,
+   (256, 256))`` in mode auto for ``vgg16`` and ``bn_vgg16`` (route
+   "vgg"), ``darknet53`` ("darknet"), ``preresnet50`` and
+   ``sepreresnet50`` ("preresnet") on seed-0 weights, BN from seed 1, conv
+   biases from seed 2, SE gates tamed as in phase 23; one batch of 32: K1
+   within 1 bf16 ulp, K3 (3x3 at stride 1 with ReLU or the leaky ReLU;
+   PreResNet's 7x7/s2 with its gain and bf16 output) within its tolerance
+   and bit-exact on exact operands at the path's shape, every distinct K2
+   conv (the leaky act, the act-then-residual, the pre-activation
+   epilogue, VGG's fc layers as 1x1 convs), every 2x2 ``maxpool_i8`` and
+   every distinct K13 call (the stream step: with and without gate, add
+   and pre-activation) bit-exact; launches K1 / K3 1 and K2 15 +
+   ``maxpool_i8`` 5, K2 51, K2 52 + K13 17, nothing else; finite logits at
+   cosine >= 0.99 against the f32 reference forward;
+37. their timing at batch 128: img/s beside the same model's bf16 route,
+   the device's idle share, each kernel's ms a forward beside its plain
+   version, bound and library call (K3 beside cuDNN's f32 conv, K2 beside
+   ``torch._int_mm`` on its 1x1 stride-1 convs: the fc layers and 1x1
+   convs; K13 none), K2 at each distinct conv not measured before, K3's,
+   the pool's and K13's resources, PreResNet's bf16 stem pool
+   (``F.max_pool2d``) alone.
 
 The generator's CPU tests are ``tests/test_torch_port_propainter.py`` (the
 port against the JAX package at 96x176). To rehearse phases 15-17 without
@@ -359,7 +382,7 @@ SEG_LAUNCHES = {"preprocess": 1, "stem": 1, "maxpool_i8": 1, "int8_conv": 54,
                 "flash_attention": 1, "deform_sample": 0, "dwconv": 0,
                 "window_attention": 0, "fused_bottleneck": 0, "stem_int8": 0,
                 "patch_window_sum": 0, "int8_gconv": 0,
-                "se_tail": 0, "dwconv_i8": 0}
+                "se_tail": 0, "dwconv_i8": 0, "preact": 0}
 ATTN_F32_RTOL = 1e-4           # K4 f32: max |err| / max |plain|
 
 RFC_HW = (240, 432)            # ProPainter's default input
@@ -377,7 +400,7 @@ EFF_LAUNCHES = {"preprocess": 1, "stem": 0, "maxpool_i8": 0, "int8_conv": 0,
                 "flash_attention": 0, "deform_sample": 0, "dwconv": 16,
                 "window_attention": 0, "fused_bottleneck": 0, "stem_int8": 0,
                 "patch_window_sum": 0, "int8_gconv": 0,
-                "se_tail": 0, "dwconv_i8": 0}
+                "se_tail": 0, "dwconv_i8": 0, "preact": 0}
 DW_EXACT_ACTS = ("none", "relu", "relu6", "hswish", "hsigmoid",
                  "hswish_div")
 DW_F32_RTOL = 1e-6             # K6 f32 sigmoid/swish: max |err| / max |plain|
@@ -433,6 +456,22 @@ DENSE_TRUNKS = {
                                         {"int8_conv": 103, "se_tail": 4}),
     "centernet_resnet50b_coco": ("detection", DENSE_DET_SOURCE_HW, 2, 8,
                                  {"int8_conv": 52})}
+
+# The remaining int8 classification routes (phases 36-37): each name's
+# route and its launches in one forward beside K1's 1, read from the trees.
+# vgg16: conv1_1 on K3, 12 convs and the 3 fc layers on K2, the 5 stage
+# ends on maxpool_i8's 2x2 window; darknet53: the init block on K3, 5
+# downsample convs and 23 units x 2 on K2; preresnet50, sepreresnet50: the
+# stem on K3 (its bf16 pool is F.max_pool2d), 16 units x 3 + 4 identity
+# convs on K2, K13 once a unit and once before unit 1.
+CLASSIC = {
+    "vgg16": ("vgg", {"stem": 1, "int8_conv": 15, "maxpool_i8": 5}),
+    "bn_vgg16": ("vgg", {"stem": 1, "int8_conv": 15, "maxpool_i8": 5}),
+    "darknet53": ("darknet", {"stem": 1, "int8_conv": 51}),
+    "preresnet50": ("preresnet", {"stem": 1, "int8_conv": 52,
+                                  "preact": 17}),
+    "sepreresnet50": ("preresnet", {"stem": 1, "int8_conv": 52,
+                                    "preact": 17})}
 
 PIPE_FRAMES = 30               # 3 chunks: the first, a middle, the last
 PIPE_HW = (240, 432)           # ProPainter's default input
@@ -567,12 +606,15 @@ def _conv_key(a, k):
     x, w = a[0], a[1]
     res = k.get("residual")
     groups = k.get("groups", 1)
-    mode = ("int8" if k["q"] is not None else
+    mode = ("int8" if k.get("q") is not None else
             "f32" if k.get("out_f32") else "bf16",
             k.get("act", "relu") or "linear",
             "no-res" if res is None else
             f"res-{str(res.dtype)[6:]}{'-bf16round' if k.get('round_res') else ''}"
-            f"{'-linear' if k.get('linear_res') else ''}")
+            f"{'-linear' if k.get('linear_res') else ''}"
+            f"{'-after-act' if k.get('res_after_act') else ''}")
+    if k.get("pre_gain") is not None:
+        mode += ("pre-activation",)
     if k.get("bend"):
         mode += ("bend",)
     if groups > 1:
@@ -638,15 +680,20 @@ def _work_preprocess(a, out):
 
 def _work_stem(a, k, out):
     x, kf = a[0], a[1]
-    bsz, _, h, w = x.shape
-    ks, cout = kf.shape[1], kf.shape[3]
-    ho, wo = (h + 2 * (ks // 2) - ks) // 2 + 1, (w + 2 * (ks // 2) - ks) // 2 + 1
-    ops = 2 * bsz * ho * wo * cout * 3 * ks * ks
-    return _bound(_nbytes(x, kf, a[2], out), ops, "bf16")
+    ks = kf.shape[1]
+    ops = 2 * out.shape[0] * out.shape[1] * out.shape[2] * out.shape[3] * \
+        3 * ks * ks
+    return _bound(_nbytes(x, kf, a[2], k.get("gain"), out), ops, "bf16")
 
 
-def _work_pool(a, out):
-    return _bound(_nbytes(a[0], out), 9 * out.numel(), "int8")
+def _work_pool(calls):
+    """Each map read once, each pooled map written; a max a window tap."""
+    nbytes = ops = 0
+    for a, _, out in calls:
+        window = a[1] if len(a) > 1 else 3
+        nbytes += _nbytes(a[0], out)
+        ops += window * window * out.numel()
+    return _bound(nbytes, ops, "int8")
 
 
 def _pool_info(card, tag, x):
@@ -667,7 +714,8 @@ def _work_convs(calls):
     for a, k, out in calls:
         x, w = a[0], a[1]
         outs = out if isinstance(out, tuple) else (out,)
-        nbytes += _nbytes(x, w, a[2], a[3], k.get("residual"), *outs)
+        nbytes += _nbytes(x, w, a[2], a[3], k.get("residual"),
+                          k.get("pre_gain"), *outs)
         o = outs[0]
         ops += 2 * o.shape[0] * o.shape[1] * o.shape[2] * o.shape[3] * \
             w.shape[1] * w.shape[2] * w.shape[3]
@@ -702,27 +750,48 @@ def _check_preprocess(calls, max_err, tag, scaled=False):
 
 
 def _check_stem(calls, max_err, tag):
+    """K3 against its plain version: at most STEM_TOLERANCE of the int8
+    elements off by 1, or of the bf16 ones (PreResNet's stem) by 1 bf16
+    ulp (``bf16_ulp_error``: the ulp no finer than at 1/256 of the largest
+    value, as K1's scaled check: where y * g + b cancels to near zero the
+    order of the f32 sums exceeds an ulp of the tiny result); the f32 sums
+    run in another order."""
+    from pytorchcv_tpu_torch.kernels.preprocess import bf16_ulp_error
     from pytorchcv_tpu_torch.kernels.stem import stem_conv_reference
     (a, k, out), = calls
     ref = stem_conv_reference(*a, **k)
-    diff = (out.int() - ref.int()).abs()
+    if out.dtype == torch.bfloat16:
+        diff = bf16_ulp_error(out, ref).ceil()
+        unit = "bf16 ulp (scaled)"
+        max_err["stem"] = float((out.float() - ref.float()).abs().max())
+    else:
+        diff = (out.int() - ref.int()).abs()
+        unit = "int8 step"
+        max_err["stem"] = float(diff.max())
     share = float((diff != 0).float().mean())
-    max_err["stem"] = float(diff.max())
-    print(f"{tag} K3 stem {tuple(a[1].shape[1:3])} {tuple(a[0].shape)} -> "
-          f"{tuple(out.shape)}: {share:.6f} of elements differ, max diff "
-          f"{max_err['stem']}")
-    _require(max_err["stem"] <= 1 and share <= STEM_TOLERANCE,
-             f"{tag} K3 off by {max_err['stem']} on a share {share}")
+    print(f"{tag} K3 stem {tuple(a[1].shape[1:3])} s {k.get('stride', 2)} "
+          f"{tuple(a[0].shape)} -> {tuple(out.shape)} {out.dtype}: "
+          f"{share:.6f} of elements differ, by at most {int(diff.max())} "
+          f"{unit}")
+    _require(int(diff.max()) <= 1 and share <= STEM_TOLERANCE,
+             f"{tag} K3 off by {int(diff.max())} {unit} on a share {share}")
 
 
 def _check_pool(calls, max_err, tag):
+    """``maxpool_i8`` bit-exact at every distinct call."""
     from pytorchcv_tpu_torch.kernels.stem import maxpool_i8_reference
-    (a, k, out), = calls
-    ref = maxpool_i8_reference(*a, **k)
-    max_err["maxpool_i8"] = float((out.float() - ref.float()).abs().max())
-    print(f"{tag} maxpool_i8 {tuple(a[0].shape)} -> {tuple(out.shape)}: "
-          f"{'bit-exact' if torch.equal(out, ref) else 'DIFFERS'}")
-    _require(torch.equal(out, ref), f"{tag} maxpool_i8 not bit-exact")
+    seen = {}
+    for a, k, out in calls:
+        seen.setdefault((tuple(a[0].shape), a[1:]), (a, k, out))
+    max_err["maxpool_i8"] = 0.0
+    for key, (a, k, out) in sorted(seen.items()):
+        ref = maxpool_i8_reference(*a, **k)
+        max_err["maxpool_i8"] = max(max_err["maxpool_i8"], float(
+            (out.float() - ref.float()).abs().max()))
+        print(f"{tag} maxpool_i8 {key[0]} window {a[1] if len(a) > 1 else 3}"
+              f" -> {tuple(out.shape)}: "
+              f"{'bit-exact' if torch.equal(out, ref) else 'DIFFERS'}")
+        _require(torch.equal(out, ref), f"{tag} maxpool_i8 not bit-exact")
 
 
 def _check_convs(calls, max_err, tag):
@@ -865,22 +934,23 @@ def _work_chains(calls):
     return _bound(nbytes, ops, "int8")
 
 
-def _int8_max_pool_library(card, name, x, out):
+def _int8_max_pool_library(card, name, x, out, window=3):
     """The one PyTorch call for ``maxpool_i8``'s function, if torch has it:
-    ``F.max_pool2d`` (3x3, stride 2, padding 1) on the int8 map as an NCHW
-    view. Its ms where it runs and equals the kernel's output; else None,
-    with torch's refusal printed."""
+    ``F.max_pool2d`` (3x3, stride 2, padding 1; or 2x2, stride 2) on the
+    int8 map as an NCHW view. Its ms where it runs and equals the kernel's
+    output; else None, with torch's refusal printed."""
     import torch.nn.functional as F
     xn = x.permute(0, 3, 1, 2)
+    pad = 1 if window == 3 else 0
     try:
-        y = F.max_pool2d(xn, 3, 2, 1)
+        y = F.max_pool2d(xn, window, 2, pad)
     except RuntimeError as err:
         print(f"[{card}] {name} F.max_pool2d on an int8 CUDA tensor: "
               f"refused ({str(err).splitlines()[0]}): no library call")
         return None
     _require(torch.equal(y.permute(0, 2, 3, 1), out),
              f"{name} F.max_pool2d differs from maxpool_i8")
-    ms = _cuda_ms(lambda: F.max_pool2d(xn, 3, 2, 1), 20)
+    ms = _cuda_ms(lambda: F.max_pool2d(xn, window, 2, pad), 20)
     print(f"[{card}] {name} F.max_pool2d on the int8 CUDA tensor: equal to "
           f"maxpool_i8's output, {ms:.4f} ms")
     return ms
@@ -980,23 +1050,25 @@ def _k2_shape(card, tag, key, a, k, out, count, launch_ms, int8_conv,
     return ms, lib
 
 
-def _stem_info(card, tag, a):
+def _stem_info(card, tag, a, k=None):
     """K3's registers, spills (any fails the run) and shared memory at a
     recorded call's shape, with its plan's rows a tile."""
     from pytorchcv_tpu_torch.kernels.stem import kernel_info
     x, kf = a[0], a[1]
-    info = kernel_info(x.shape[0], x.shape[2], x.shape[3], kf.shape[1])
+    stride = (k or {}).get("stride", 2)
+    info = kernel_info(x.shape[0], x.shape[2], x.shape[3], kf.shape[1],
+                       stride)
     print(f"[{card}] {tag} K3 tiles of {info['rows']} output rows")
     _print_info(card, f"{tag} K3 stem", info)
     _require(info["spill_bytes"] == 0, f"{tag} K3 spills")
 
 
 def _front_times(card, name, calls) -> dict:
-    """K1, K3 and ``maxpool_i8`` of a recorded int8-route forward, each
-    (kernel ms, plain ms, library ms, bound): K1 beside its einsum, K3
-    beside cuDNN's f32 conv of the same image, the pool beside
-    ``F.max_pool2d`` where torch takes int8; K3's and the pool's plans and
-    resources."""
+    """K1, K3 and ``maxpool_i8`` (where the route launches it) of a
+    recorded int8-route forward, each (kernel ms, plain ms, library ms,
+    bound): K1 beside its einsum, K3 beside cuDNN's f32 conv of the same
+    image, the pools beside ``F.max_pool2d`` where torch takes int8; K3's
+    and the pool's plans and resources."""
     import torch.nn.functional as F
     from pytorchcv_tpu_torch.kernels.stem import (maxpool_i8,
                                                   maxpool_i8_reference,
@@ -1008,21 +1080,27 @@ def _front_times(card, name, calls) -> dict:
     (a, k, out), = calls["stem"]
     xs = a[0].float()
     ws = a[1].permute(3, 0, 1, 2).float()
+    stride = k.get("stride", 2)
     t["stem"] = (
         _cuda_ms(lambda: stem_conv(*a, **k), 20),
         _cuda_ms(lambda: stem_conv_reference(*a, **k), 5),
-        _cuda_ms(lambda: F.conv2d(xs, ws, stride=2,
+        _cuda_ms(lambda: F.conv2d(xs, ws, stride=stride,
                                   padding=ws.shape[2] // 2), 20),
         _work_stem(a, k, out))
     del xs
-    _stem_info(card, name, a)
-    (a, k, out), = calls["maxpool_i8"]
-    t["maxpool_i8"] = (
-        _cuda_ms(lambda: maxpool_i8(*a, **k), 20),
-        _cuda_ms(lambda: maxpool_i8_reference(*a, **k), 20),
-        _int8_max_pool_library(card, name, a[0], out),
-        _work_pool(a, out))
-    _pool_info(card, name, a[0])
+    _stem_info(card, name, a, k)
+    pools = calls.get("maxpool_i8", [])
+    if pools:
+        lib = 0.0
+        for a, _, out in pools:
+            one = _int8_max_pool_library(card, name, a[0], out, *a[1:])
+            lib = None if one is None or lib is None else lib + one
+        t["maxpool_i8"] = (
+            _cuda_ms(lambda: [maxpool_i8(*a, **k) for a, k, _ in pools], 20),
+            _cuda_ms(lambda: [maxpool_i8_reference(*a, **k)
+                              for a, k, _ in pools], 20),
+            lib, _work_pool(pools))
+        _pool_info(card, name, pools[0][0][0])
     return t
 
 
@@ -1767,7 +1845,7 @@ def _danet(card, record) -> None:
         t["maxpool_i8"] = (
             _cuda_ms(lambda: maxpool_i8(*a, **k), 20),
             _cuda_ms(lambda: maxpool_i8_reference(*a, **k), 20), None,
-            _work_pool(a, out))
+            _work_pool(calls8["maxpool_i8"]))
         _pool_info(card, "danet", a[0])
         (a, k, out), = calls8["flash_attention"]
         qa, ka, va = a[:3]
@@ -4285,6 +4363,280 @@ def _mobilenet(card, record) -> None:
     print(f"phase 31: {time.perf_counter() - t_phase:.1f} s")
 
 
+def _classic_targets(route: str):
+    """The wrappers a classic int8 route calls, by kernel: K1, K3, K2, and
+    the 2x2 ``maxpool_i8`` (VGG) or K13 (PreResNet)."""
+    import importlib
+    import pytorchcv_tpu_torch.kernels.preprocess as pre_mod
+    mod = importlib.import_module(f"pytorchcv_tpu_torch.quant.{route}_int8")
+    targets = [(pre_mod, "preprocess", "preprocess"),
+               (mod, "stem_conv", "stem"), (mod, "int8_conv", "int8_conv")]
+    if route == "vgg":
+        targets.append((mod, "maxpool_i8", "maxpool_i8"))
+    if route == "preresnet":
+        targets.append((mod, "preact", "preact"))
+    return targets
+
+
+def _classic_model(name: str):
+    """Seed-0 weights, BN from seed 1, conv biases from seed 2 (the init's
+    zero biases would leave VGG's bias fold untested), SE gates tamed as in
+    phase 23 (``_tame_se_gates``)."""
+    import pytorchcv_tpu_torch as pt
+    model = pt.get_model(name, rng=0, device="cuda")
+    _randomize_bn(model, seed=1)
+    _randomize_biases(model, seed=2)
+    _tame_se_gates(model)
+    return model
+
+
+def _preact_key(a, k):
+    t, ident = a[0], (a[1] if len(a) > 1 else None)
+    gate = a[2] if len(a) > 2 else None
+    bn = a[3] if len(a) > 3 else k.get("bn")
+    return (tuple(t.shape), str(t.dtype)[6:],
+            "no-id" if ident is None else str(ident.dtype)[6:],
+            "gate" if gate is not None else "-",
+            "pre" if bn is not None else "-")
+
+
+def _check_preacts(calls, max_err, tag):
+    """K13 against its plain version, bit-exact, at every distinct call."""
+    from pytorchcv_tpu_torch.kernels.preact import preact_reference
+    seen = {}
+    for a, k, out in calls:
+        seen.setdefault(_preact_key(a, k), (a, k, out))
+    max_err["preact"] = 0.0
+    for key, (a, k, out) in sorted(seen.items()):
+        ref = preact_reference(*a, **k)
+        same = True
+        for o, r in zip(out, ref):
+            _require((o is None) == (r is None), f"{tag} K13 outputs {key}")
+            if o is not None:
+                same = same and torch.equal(o, r)
+                max_err["preact"] = max(max_err["preact"], float(
+                    (o.float() - r.float()).abs().max()))
+        print(f"{tag} K13 t {key[0]} {key[1]}, identity {key[2]}, {key[3]}, "
+              f"{key[4]}: {'bit-exact' if same else 'DIFFERS'}")
+        _require(same, f"{tag} K13 not bit-exact at {key}")
+    print(f"{tag} K13: {len(seen)} distinct calls of {len(calls)} bit-exact")
+
+
+def _work_preact(calls):
+    """Bytes: t, the identity, the gate, g and b read once, r and pre
+    written once; at most 6 f32 operations an element."""
+    nbytes = ops = 0
+    for a, k, out in calls:
+        bn = a[3] if len(a) > 3 else k.get("bn")
+        nbytes += _nbytes(*a[:3], *(bn or ()), *out)
+        ops += 6 * a[0].numel()
+    return _bound(nbytes, ops, "f32")
+
+
+def _check_stem_exact(a, k, tag) -> None:
+    """K3 at a recorded call's shape and mode on exact operands (a 1/4-grid
+    image, kernel entries k/64: the f32 sums are exact in any order, so the
+    kernel and its plain version agree bit for bit)."""
+    from pytorchcv_tpu_torch.kernels.stem import stem_conv, stem_conv_reference
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = (torch.randint(-8, 9, a[0].shape, generator=g, device="cuda") / 4.0
+         ).to(torch.bfloat16)
+    kf = (torch.randint(-16, 17, a[1].shape, generator=g, device="cuda") /
+          64.0).to(torch.bfloat16)
+    ae = (x, kf, *a[2:])
+    got, ref = stem_conv(*ae, **k), stem_conv_reference(*ae, **k)
+    same = torch.equal(got, ref)
+    print(f"{tag} K3 stem on exact operands {tuple(x.shape)} -> "
+          f"{tuple(got.shape)} {got.dtype}: "
+          f"{'bit-exact' if same else 'DIFFERS'}")
+    _require(same, f"{tag} K3 not bit-exact on exact operands")
+
+
+def _classic_check(name: str):
+    """Phase 36 for one route: ``make_serving_fn(name)`` at batch 32 on
+    ``_classic_model``'s weights: K1 within 1 bf16 ulp, K3 within its
+    tolerance and bit-exact on exact operands at the path's shape, every
+    distinct K2 conv, ``maxpool_i8`` and K13 call bit-exact, the launch
+    counts, finite logits at cosine >= 0.99 against the f32 oracle.
+    Returns (serve, model, max_err, launches)."""
+    import pytorchcv_tpu_torch as pt
+    from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    route, gates = CLASSIC[name]
+    model = _classic_model(name)
+    t0 = time.perf_counter()
+    serve = pt.make_serving_fn(name, SOURCE_HW, device="cuda", model=model)
+    torch.cuda.synchronize()
+    print(f"{name} serving fn built (calibrate + quantize): "
+          f"{time.perf_counter() - t0:.3f} s, route {serve.route}")
+    _require(serve.route == route, f"{name} route {serve.route}")
+    raw = _raw_batch(BATCH_CHECK, seed=2)
+    reset_launch_counts()
+    with _recording(_classic_targets(route)) as calls:
+        logits = serve(raw)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    max_err = {}
+    with torch.inference_mode():
+        _check_preprocess(calls["preprocess"], max_err, name)
+        _check_stem(calls["stem"], max_err, name)
+        (sa, sk, _), = calls["stem"]
+        _check_stem_exact(sa, sk, name)
+        _check_convs(calls["int8_conv"], max_err, name)
+        if "maxpool_i8" in calls:
+            _check_pool(calls["maxpool_i8"], max_err, name)
+        if "preact" in calls:
+            _check_preacts(calls["preact"], max_err, name)
+    del calls
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(preprocess=1, **gates)
+    print(f"{name} launches in one forward: {launches}")
+    _require(launches == want, f"{name} launches {launches}, want {want}")
+    _require(tuple(logits.shape) == (BATCH_CHECK, 1000) and
+             logits.dtype == torch.bfloat16, (logits.shape, logits.dtype))
+    y = logits.float()
+    _require(bool(torch.isfinite(y).all()), f"{name} non-finite logits")
+    reset_launch_counts()
+    yf = serve.make_reference_forward()(raw).float()
+    torch.cuda.synchronize()
+    _require(all(v == 0 for k, v in LAUNCHES.items() if k != "preprocess"),
+             f"the f32 oracle launched {dict(LAUNCHES)}")
+    cos = _cosine(y, yf)
+    top1 = float((y.argmax(1) == yf.argmax(1)).float().mean())
+    print(f"{name} int8 vs f32 reference (no TF32): cosine {cos:.6f}, top-1 "
+          f"agreement {top1}, max |f32 logit| {float(yf.abs().max()):.4g}")
+    _require(cos >= 0.99, f"{name} cosine {cos} < 0.99")
+    return serve, model, max_err, launches
+
+
+def _classic_times(card, record, name, serve, model, max_err, launches,
+                   k2_cache) -> None:
+    """Phase 37 for one route at batch 128: img/s beside the same model's
+    bf16 route (K1 only, checked), the device's idle share, each kernel of
+    the forward beside its plain version, bound and library call (K1
+    beside its einsum, K3 beside cuDNN's f32 conv of the same image, K2
+    beside ``torch._int_mm`` on its 1x1 stride-1 convs: the VGG fc layers,
+    DarkNet's and the bottlenecks' 1x1 convs; ``maxpool_i8`` beside
+    ``F.max_pool2d`` where torch takes int8; K13 none), K2 at each distinct
+    conv not measured on an earlier path, K3's, the pool's and K13's
+    resources, and PreResNet's bf16 max-pool (``F.max_pool2d``) alone."""
+    import pytorchcv_tpu_torch as pt
+    import torch.nn.functional as F
+    from pytorchcv_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from pytorchcv_tpu_torch.kernels.int8_conv import (int8_conv,
+                                                       int8_conv_reference)
+    from pytorchcv_tpu_torch.kernels.preact import (kernel_info as k13_info,
+                                                    preact, preact_reference)
+    route = serve.route
+    serve_bf = pt.make_serving_fn(name, SOURCE_HW, mode="bf16", device="cuda",
+                                  model=model)
+    raw128 = _raw_batch(BATCH_TIME, seed=3)
+    with torch.inference_mode():
+        reset_launch_counts()
+        serve_bf(raw128)
+        torch.cuda.synchronize()
+        _require(LAUNCHES["preprocess"] == 1 and sum(LAUNCHES.values()) == 1,
+                 f"{name} bf16 route launched {dict(LAUNCHES)}")
+        ms_serve = _cuda_ms(lambda: serve(raw128), reps=5, warmup=2)
+        ms_bf = _cuda_ms(lambda: serve_bf(raw128), reps=5, warmup=2)
+        print(f"[{card}] serving {name} int8 ({route}) batch {BATCH_TIME}: "
+              f"{ms_serve:.3f} ms/batch, {BATCH_TIME * 1000.0 / ms_serve:.1f}"
+              f" img/s; the bf16 route {ms_bf:.3f} ms/batch, "
+              f"{BATCH_TIME * 1000.0 / ms_bf:.1f} img/s (int8 / bf16 "
+              f"{ms_bf / ms_serve:.3f}x)")
+        _busy(card, f"{name} int8", lambda: serve(raw128), ms_serve)
+        del serve_bf
+        with _recording(_classic_targets(route)) as calls:
+            serve(raw128)
+        torch.cuda.synchronize()
+        t = _front_times(card, name, calls)
+        if route == "preresnet":
+            (_, _, out), = calls["stem"]
+            ms_pool = _cuda_ms(lambda: F.max_pool2d(
+                out.permute(0, 3, 1, 2), 3, 2, 1), 20)
+            pooled = F.max_pool2d(out.permute(0, 3, 1, 2), 3, 2, 1)
+            print(f"[{card}] {name} the stem's bf16 3x3/s2 max-pool "
+                  f"(F.max_pool2d on the channels-last map) "
+                  f"{tuple(out.shape)}: {ms_pool:.4f} ms, bound "
+                  f"{_bound(_nbytes(out, pooled), 0, 'f32')[0]:.4f} ms "
+                  f"(bytes)")
+            del pooled
+        convs = [(a, k) for a, k, _ in calls["int8_conv"]]
+        k2_lib = _k2_per_shape(card, name, calls["int8_conv"], k2_cache)
+        t["int8_conv"] = (
+            _cuda_ms(lambda: [int8_conv(*a, **k) for a, k in convs], 3),
+            _cuda_ms(lambda: [int8_conv_reference(*a, **k)
+                              for a, k in convs], 1, warmup=1),
+            k2_lib, _work_convs(calls["int8_conv"]))
+        del convs
+        if route == "preresnet":
+            steps = [(a, k) for a, k, _ in calls["preact"]]
+            t["preact"] = (
+                _cuda_ms(lambda: [preact(*a, **k) for a, k in steps], 20),
+                _cuda_ms(lambda: [preact_reference(*a, **k)
+                                  for a, k in steps], 5),
+                None, _work_preact(calls["preact"]))
+            k13_fwd, k13_share, _ = _launch_ms(
+                lambda: serve(raw128), "preact_", launches["preact"], reps=3)
+            for vec in (True, False):
+                info = k13_info(vec)
+                kind = "8-channel" if vec else "one-element"
+                print(f"[{card}] {name} K13 {kind} instance: "
+                      f"{info['registers']} registers a thread, "
+                      f"{info['spill_bytes']} bytes spilled")
+                _require(info["spill_bytes"] == 0, "K13 spills")
+            print(f"[{card}] {name} K13 in the forward on the device: "
+                  f"{k13_fwd:.4f} ms (the mean of the {100 * k13_share:.0f} "
+                  f"% of launches recorded, times {launches['preact']})")
+            del steps
+        del calls
+    kernels_ms = sum(v[0] for v in t.values())
+    print(f"[{card}] {name} the kernels' calls of one forward replayed back "
+          f"to back: {kernels_ms:.4f} ms of the {ms_serve:.3f} ms batch; "
+          f"the rest (torch ops: the head, the bf16 pool, SE squeezes; and "
+          f"idle) {100.0 * max(ms_serve - kernels_ms, 0.0) / ms_serve:.1f} "
+          f"% (the profiler's idle share above counts only the launches it "
+          f"recorded)")
+    for kname, (ms, plain, lib, bound) in t.items():
+        print(f"[{card}] {name} {kname} batch {BATCH_TIME} "
+              f"({launches[kname]} calls a forward): kernel {ms:.4f} ms "
+              f"({100.0 * ms / ms_serve:.1f} % of the batch), plain "
+              f"{plain:.4f} ms, library "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}, {ms / bound[0]:.1f}x)")
+        source, rep = _CLASSIC_REPLACES[route][kname]
+        record.append(_record_entry(kname, name, source, rep,
+                                    launches[kname], max_err[kname], ms,
+                                    plain, bound, lib))
+
+
+_CLASSIC_REPLACES = {
+    route: {"preprocess": ("preprocess.cu",
+                           "pytorchcv_tpu/kernels/preprocess.py:133"),
+            "stem": ("stem.cu", f"pytorchcv_tpu/quant/{route}_int8.py:{s}"),
+            "int8_conv": ("int8_conv.cu",
+                          f"pytorchcv_tpu/quant/{route}_int8.py:{c}"),
+            "maxpool_i8": ("stem.cu", "pytorchcv_tpu/quant/vgg_int8.py:120"),
+            "preact": ("preact.cu",
+                       "pytorchcv_tpu/quant/preresnet_int8.py:181")}
+    for route, s, c in (("vgg", 137, 152), ("darknet", 92, 78),
+                        ("preresnet", 123, 162))}
+
+
+def _classic(card, record) -> None:
+    """Phases 36-37: the VGG, DarkNet-53 and PreResNet int8 routes."""
+    k2_cache = {}
+    for name in CLASSIC:
+        t_phase = time.perf_counter()
+        serve, model, max_err, launches = _classic_check(name)
+        print(f"phase 36 ({name}): {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        _classic_times(card, record, name, serve, model, max_err, launches,
+                       k2_cache)
+        del serve, model
+        torch.cuda.empty_cache()
+        print(f"phase 37 ({name}): {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is False; "
@@ -4348,6 +4700,10 @@ def main() -> None:
         t0 = time.perf_counter()
         _dense_trunk(card, record, name, k2_cache)
         print(f"{name} phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _classic(card, record)
+    print(f"vgg, darknet and preresnet phases: "
+          f"{time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": record}))

@@ -20,10 +20,13 @@ __device__ __forceinline__ int8_t quant_i8(float v, float q) {
 }
 
 // The int8 routes' activation codes (K2, K3, K12): 0 none, 1 ReLU
-// (max(y, 0)), 2 ReLU6 (clip(y, 0, 6): jnp.clip is min(max(y, 0), 6)).
+// (max(y, 0)), 2 ReLU6 (clip(y, 0, 6): jnp.clip is min(max(y, 0), 6)),
+// 3 DarkNet's leaky ReLU, max(y, 0) + 0.1 min(y, 0), two roundings as
+// pytorchcv_tpu/quant/darknet_int8.py:_leaky spells it (K2, K3 only).
 __device__ __forceinline__ float activate_i8(float v, int act) {
   if (act == 1) return fmaxf(v, 0.f);
   if (act == 2) return fminf(fmaxf(v, 0.f), 6.f);
+  if (act == 3) return __fadd_rn(fmaxf(v, 0.f), __fmul_rn(0.1f, fminf(v, 0.f)));
   return v;
 }
 

@@ -12,7 +12,13 @@
 //   value that the last stage-3 unit writes beside its int8 output; and the
 //   1x1 convs of the int8 MobileNet routes (pytorchcv_tpu/quant/
 //   mobilenet_int8.py:_cell6, cell_relu): ReLU6, the projection's linear
-//   residual in f32, the final block's f32 output.
+//   residual in f32, the final block's f32 output; the convs of the VGG,
+//   DarkNet-53 and PreResNet routes (quant/vgg_int8.py:_cell, _fc_i8, the
+//   fc layers as 1x1 convs over a (B, 1, 1, K) map; quant/darknet_int8.py:
+//   _cell_lk with the leaky ReLU, and the DarkUnit's conv2, whose linear
+//   residual comes after the activation; quant/preresnet_int8.py's body
+//   convs, whose epilogue t = acc * A is followed by the next conv's
+//   pre-activation, quant(max(t * G + B, 0)), the gains G per channel).
 //
 // Bound on the H100: ResNet-50's 19 K2 convs are 0.401 T int8 operations at
 //   batch 128 (0.20 ms at the int8 tensor-core peak) against 1.26 GB of
@@ -63,7 +69,7 @@ constexpr int kStages = 4;     // ring slots
 constexpr int kKS = 64;        // K bytes a ring stage
 
 // Dynamic shared bytes of a BM x BN block: the ring or, over it, the
-// epilogue's int32 tile (rows padded by 8), then A and B per channel.
+// epilogue's int32 tile (rows padded by 8), then A, B and G per channel.
 __host__ __device__ constexpr int ring_bytes(int bm, int bn) {
   return kStages * (bm + bn) * kKS;
 }
@@ -74,7 +80,7 @@ __host__ __device__ constexpr int smem_bytes(int bm, int bn) {
   return (ring_bytes(bm, bn) > stage_tile_bytes(bm, bn)
               ? ring_bytes(bm, bn)
               : stage_tile_bytes(bm, bn)) +
-         8 * bn;
+         12 * bn;
 }
 
 // A 64-byte row's 16-byte chunk, swizzled by row / 2.
@@ -100,6 +106,7 @@ template <int BM, int BN, bool VEC16>
 __global__ void __launch_bounds__(kThreads, 2) int8_conv_kernel(
     const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     const float* __restrict__ gain_a, const float* __restrict__ bias_b,
+    const float* __restrict__ gain_g,
     const void* __restrict__ res, float res_scale, int res_mode, int act,
     float q, int out_mode, void* __restrict__ out,
     __nv_bfloat16* __restrict__ out_bf16, int vec_out, int H, int W,
@@ -112,9 +119,10 @@ __global__ void __launch_bounds__(kThreads, 2) int8_conv_kernel(
   constexpr int kSlot = (BM + BN) * kKS;
   constexpr int SP = BN + 8;          // epilogue tile's row pitch (int32)
   extern __shared__ __align__(128) int8_t smem[];
-  constexpr int kMain = smem_bytes(BM, BN) - 8 * BN;
+  constexpr int kMain = smem_bytes(BM, BN) - 12 * BN;
   float* s_a = reinterpret_cast<float*>(smem + kMain);
   float* s_b = s_a + BN;
+  float* s_g = s_b + BN;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -125,6 +133,7 @@ __global__ void __launch_bounds__(kThreads, 2) int8_conv_kernel(
     const int n = n0 + i;
     s_a[i] = n < Cout ? gain_a[n] : 0.f;
     s_b[i] = n < Cout ? bias_b[n] : 0.f;
+    if (gain_g != nullptr) s_g[i] = n < Cout ? gain_g[n] : 0.f;
   }
 
   // ---- the loader: thread tid fills chunk tid % 4 of A rows tid / 4 (+ 64)
@@ -278,6 +287,9 @@ __global__ void __launch_bounds__(kThreads, 2) int8_conv_kernel(
     const float4* sa = reinterpret_cast<const float4*>(s_a + cg * 8);
     const float4* sb = reinterpret_cast<const float4*>(s_b + cg * 8);
     pcv::epilogue8(sw ? h1 : h0, sw ? h0 : h1, sa[0], sa[1], sb[0], sb[1],
+                   gain_g != nullptr
+                       ? reinterpret_cast<const float4*>(s_g + cg * 8)
+                       : nullptr,
                    idx, cnt, vec, res, res_scale, res_mode, act, q, out_mode,
                    out, out_bf16);
   }
@@ -321,15 +333,18 @@ bool aligned16(const void* p) {
 // One conv in tiles of bm x bn (the plan's: 128 or 64 each); copies are
 // 16 bytes where Cin % 16 == 0 and x and w are 16-byte aligned, and the
 // epilogue's accesses 8 channels wide where Cout % 8 == 0 and every
-// output and the residual are 16-byte aligned.
+// output and the residual are 16-byte aligned. gain_g: null, or the
+// pre-activation gains G (Cout,).
 extern "C" int pcv_int8_conv(const void* x, const void* w, const void* gain_a,
-                             const void* bias_b, const void* res,
+                             const void* bias_b, const void* gain_g,
+                             const void* res,
                              float res_scale, int res_mode, int act, float q,
                              int out_mode, void* out, int N, int H, int W,
                              int Cin, int Ho, int Wo, int Cout, int KH, int KW,
                              int stride, int pad, int dilation, void* out_bf16,
                              int bm, int bn, void* stream) {
-  if (KH != KW || Cin % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (KH != KW || Cin % 4 != 0 || res_mode < 0 || res_mode > 5)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool vec16 = Cin % 16 == 0 && aligned16(x) && aligned16(w);
   Kernel kernel;
   int smem;
@@ -347,7 +362,8 @@ extern "C" int pcv_int8_conv(const void* x, const void* w, const void* gain_a,
   kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(gain_a), static_cast<const float*>(bias_b),
-      res, res_scale, res_mode, act, q, out_mode, out,
+      static_cast<const float*>(gain_g), res, res_scale, res_mode, act, q,
+      out_mode, out,
       static_cast<__nv_bfloat16*>(out_bf16), vec_out, H, W, Cin, Ho, Wo,
       Cout, KH, stride, pad, dilation, M);
   return static_cast<int>(cudaGetLastError());

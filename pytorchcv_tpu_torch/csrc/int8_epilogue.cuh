@@ -3,8 +3,9 @@
 // sums to the int8, bf16 or f32 output (and the bend), each step rounded
 // in the JAX reference's f32 order (pytorchcv_tpu/quant/resnet_int8.py:
 // _cell and the unit tail of _forward; quant/mobilenet_int8.py:_cell6 and
-// MobileNetV2's linear residual): __fmul_rn, __fadd_rn, round_bf16,
-// quant_i8.
+// MobileNetV2's linear residual; quant/darknet_int8.py:_cell_lk and the
+// DarkUnit's add; quant/preresnet_int8.py's conv epilogue followed by the
+// next conv's _pre_quant): __fmul_rn, __fadd_rn, round_bf16, quant_i8.
 #pragma once
 
 #include "common.cuh"
@@ -12,34 +13,51 @@
 namespace pcv {
 
 // Residual operand of the unit tail: the ResNet tails (bf16 conv term,
-// add, ReLU), or kResF32, MobileNetV2's linear one (f32 conv term plus
-// f32(res) * res_scale, no rounding to bf16, no activation).
+// add, ReLU), kResF32, MobileNetV2's linear one (f32 conv term plus
+// f32(res) * res_scale, no rounding to bf16, no activation), or
+// kResActF32, DarkNet's (the activation first, then + f32(res) *
+// res_scale in f32).
 enum ResMode { kNoRes = 0, kResI8 = 1, kResI8RoundBf16 = 2, kResBf16 = 3,
-               kResF32 = 4 };
+               kResF32 = 4, kResActF32 = 5 };
 // The output: bf16, int8 (quantized by q) or f32.
 enum OutMode { kOutBf16 = 0, kOutI8 = 1, kOutF32 = 2 };
 
 // Channels [n, n + cnt) of output pixel m (idx = m * Cout + n), their sums
 // in lo (channels 0-3) and hi (4-7), A and B of the 8 channels in the same
 // halves. vec: 8 channels, each access 8, 16 or 32 bytes and aligned. act:
-// activate_i8's code, applied where there is no residual.
+// activate_i8's code, applied where there is no residual and before
+// kResActF32's. gp: null, or the 8 channels' pre-activation gains G (the
+// PreResNet body: y = (f32(acc) * A) * G + B, three roundings).
 __device__ __forceinline__ void epilogue8(
     int4 lo, int4 hi, float4 alo, float4 ahi, float4 blo, float4 bhi,
-    size_t idx, int cnt, bool vec, const void* __restrict__ res,
-    float res_scale, int res_mode, int act, float q, int out_mode,
-    void* __restrict__ out, __nv_bfloat16* __restrict__ out_bf16) {
+    const float4* gp, size_t idx, int cnt, bool vec,
+    const void* __restrict__ res, float res_scale, int res_mode, int act,
+    float q, int out_mode, void* __restrict__ out,
+    __nv_bfloat16* __restrict__ out_bf16) {
   const int v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
   const float a[8] = {alo.x, alo.y, alo.z, alo.w, ahi.x, ahi.y, ahi.z, ahi.w};
   const float b[8] = {blo.x, blo.y, blo.z, blo.w, bhi.x, bhi.y, bhi.z, bhi.w};
   float y[8];
+  if (gp != nullptr) {
+    const float4 glo = gp[0], ghi = gp[1];
+    const float g[8] = {glo.x, glo.y, glo.z, glo.w,
+                        ghi.x, ghi.y, ghi.z, ghi.w};
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    // _cell: y = f32(acc) * A + B, two roundings.
-    y[j] = __fadd_rn(__fmul_rn(__int2float_rn(v[j]), a[j]), b[j]);
-  if (res_mode == kNoRes) {
+    for (int j = 0; j < 8; ++j)
+      // t = f32(acc) * A, then the next conv's bn: t * G + B.
+      y[j] = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v[j]), a[j]), g[j]),
+                       b[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      // _cell: y = f32(acc) * A + B, two roundings.
+      y[j] = __fadd_rn(__fmul_rn(__int2float_rn(v[j]), a[j]), b[j]);
+  }
+  if (res_mode == kNoRes || res_mode == kResActF32) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) y[j] = activate_i8(y[j], act);
-  } else {
+  }
+  if (res_mode != kNoRes) {
     // Unit tail: bf16 conv term + residual, add and ReLU in f32.
     float rv[8];
     if (res_mode == kResBf16) {
@@ -75,7 +93,7 @@ __device__ __forceinline__ void epilogue8(
         if (res_mode == kResI8RoundBf16) rv[j] = round_bf16(rv[j]);
       }
     }
-    if (res_mode == kResF32) {
+    if (res_mode == kResF32 || res_mode == kResActF32) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) y[j] = __fadd_rn(y[j], rv[j]);
     } else {

@@ -352,9 +352,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       const size_t idx = (mbase + row.x) * p.Cout + n;
       const int4* src = reinterpret_cast<const int4*>(tile + r * SP + cb * 8);
       const int4 h0 = src[sw], h1 = src[sw ^ 1];
-      pcv::epilogue8(sw ? h1 : h0, sw ? h0 : h1, a0, a1, b0, b1, idx, cnt,
-                     p.vec_out && cnt == 8, p.res, p.res_scale, p.res_mode,
-                     p.act, p.q, p.out_mode, p.out, p.out_bf16);
+      pcv::epilogue8(sw ? h1 : h0, sw ? h0 : h1, a0, a1, b0, b1, nullptr,
+                     idx, cnt, p.vec_out && cnt == 8, p.res, p.res_scale,
+                     p.res_mode, p.act, p.q, p.out_mode, p.out, p.out_bf16);
     }
     __syncthreads();
   }

@@ -36,7 +36,8 @@ LAUNCHES: Dict[str, int] = {"preprocess": 0, "int8_conv": 0, "stem": 0,
                             "deform_sample": 0, "dwconv": 0,
                             "window_attention": 0, "fused_bottleneck": 0,
                             "stem_int8": 0, "patch_window_sum": 0,
-                            "int8_gconv": 0, "se_tail": 0, "dwconv_i8": 0}
+                            "int8_gconv": 0, "se_tail": 0, "dwconv_i8": 0,
+                            "preact": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -44,15 +45,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "pcv_preprocess": [_P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
     "pcv_preprocess_info": [_I, _I, _I, _P],
-    "pcv_int8_conv": [_P, _P, _P, _P, _P, _F, _I, _I, _F, _I, _P]
+    "pcv_int8_conv": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _F, _I, _P]
     + [_I] * 12 + [_P, _I, _I, _P],
     "pcv_int8_conv_info": [_I, _I, _I, _P],
     "pcv_int8_gconv": [_P, _P, _P, _P, _P, _F, _I, _I, _F, _I, _P, _P]
     + [_I] * 20 + [_P],
     "pcv_int8_gconv_info": [_I, _I, _I, _I, _P],
-    "pcv_stem": [_P, _P, _P, _F, _I, _I, _P] + [_I] * 7 + [_P],
-    "pcv_stem_info": [_I] * 4 + [_P],
-    "pcv_maxpool_i8": [_P, _P] + [_I] * 8 + [_P],
+    "pcv_stem": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P] + [_I] * 7 + [_P],
+    "pcv_stem_info": [_I] * 5 + [_P],
+    "pcv_maxpool_i8": [_P, _P] + [_I] * 9 + [_P],
     "pcv_maxpool_i8_info": [_I, _P],
     "pcv_flash_attention": [_P, _P, _P, _P] + [_I] * 5 + [_F, _I, _P],
     "pcv_flash_attention_info": [_I, _I, _P],
@@ -70,6 +71,8 @@ _SIGNATURES = {
     "pcv_se_tail": [_P, _P, _P, _I, _F, _F, _I, _P, _I, _I, _I, _P],
     "pcv_dwconv_i8": [_P, _P, _P, _P, _F, _I, _P] + [_I] * 9 + [_P],
     "pcv_dwconv_i8_info": [_I] * 2 + [_P],
+    "pcv_preact": [_P, _I, _P, _P, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P],
+    "pcv_preact_info": [_I, _P],
 }
 
 
@@ -99,22 +102,28 @@ def div6(x):
 
 
 # The int8 epilogues' activations (K2, K3, K12) and their codes
-# (``activate_i8`` in ``csrc/common.cuh``).
-ACTS_I8 = {None: 0, "relu": 1, "relu6": 2}
+# (``activate_i8`` in ``csrc/common.cuh``); "leaky" is DarkNet's slope-0.1
+# leaky ReLU (K2 and K3 only).
+ACTS_I8 = {None: 0, "relu": 1, "relu6": 2, "leaky": 3}
 
 
-def act_code_i8(name: str, act) -> int:
-    """``act``'s code in ``ACTS_I8``; raise for another activation."""
-    if act not in ACTS_I8:
+def act_code_i8(name: str, act, allowed=tuple(ACTS_I8)) -> int:
+    """``act``'s code in ``ACTS_I8``; raise for an activation outside
+    ``allowed`` (every one of ``ACTS_I8`` by default)."""
+    if act not in allowed:
         raise ValueError(f"{name}: act {act!r} is not one of "
-                         f"{tuple(ACTS_I8)}")
+                         f"{tuple(allowed)}")
     return ACTS_I8[act]
 
 
 def activate_i8_reference(y, act):
-    """``activate_i8`` in torch: none, ``max(y, 0)`` or ``clip(y, 0, 6)``."""
+    """``activate_i8`` in torch: none, ``max(y, 0)``, ``clip(y, 0, 6)`` or
+    ``max(y, 0) + 0.1 min(y, 0)`` (JAX ``darknet_int8._leaky``, two
+    roundings)."""
     if act == "relu6":
         return y.clamp(0.0, 6.0)
+    if act == "leaky":
+        return y.clamp_min(0.0) + 0.1 * y.clamp_max(0.0)
     return y.clamp_min(0.0) if act == "relu" else y
 
 

@@ -100,10 +100,10 @@ def dwconv_i8(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
               act: str = "relu") -> torch.Tensor:
     """K12: ``x`` contiguous int8 (B, H, W, C), ``w`` contiguous int8 (3, 3,
     C), ``gain_a``/``bias_b`` f32 (C,), ``q`` the f32 quant factor (finite
-    as f32), ``stride`` 1 or 2, ``act`` one of ``ACTS_I8``. Returns int8
-    (B, Ho, Wo, C). CUDA tensors run the kernel under
+    as f32), ``stride`` 1 or 2, ``act`` None, ``"relu"`` or ``"relu6"``.
+    Returns int8 (B, Ho, Wo, C). CUDA tensors run the kernel under
     :func:`dwconv_i8_plan`, CPU tensors the plain version."""
-    act_code_i8("dwconv_i8", act)
+    act_code_i8("dwconv_i8", act, (None, "relu", "relu6"))
     if not math.isfinite(ctypes.c_float(q).value):
         raise ValueError(f"dwconv_i8: q must be finite as f32, got {q}")
     if x.dtype != torch.int8 or x.dim() != 4:

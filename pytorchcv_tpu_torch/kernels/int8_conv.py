@@ -13,11 +13,19 @@ One call is one int8 conv of the int8 ResNet pipeline, with its epilogue:
 * ``linear_res`` (MobileNetV2's project conv, JAX
   ``quant/mobilenet_int8.py:145-149``): ``y = (acc*A + B) + f32(res) *
   res_scale`` in f32, no bf16 rounding and no activation, then int8 via
-  ``q``.
+  ``q``;
+* ``res_after_act`` (DarkNet-53's DarkUnit conv2, JAX
+  ``quant/darknet_int8.py:123-133``): ``y = act(acc*A + B) + f32(res) *
+  res_scale`` in f32, then int8 via ``q`` or f32 with ``out_f32``;
+* ``pre_gain`` ``G`` (the PreResNet body, JAX
+  ``quant/preresnet_int8.py:160-168``): ``y = (acc*A) * G + B``, three
+  roundings (the conv's ``t = acc*A``, then the next conv's BN), then the
+  activation and int8 via ``q``.
 
 ``act`` is ``"relu"`` (``max(y, 0)``), ``"relu6"`` (``clip(y, 0, 6)``,
-MobileNetV2's ``_cell6``) or None; the residual tails take the max as
-above. ``out_f32`` writes f32 instead of bf16 where there is no ``q`` (the
+MobileNetV2's ``_cell6``), ``"leaky"`` (``max(y, 0) + 0.1 min(y, 0)``,
+DarkNet's) or None; the bf16 residual tails take the max as above.
+``out_f32`` writes f32 instead of bf16 where there is no ``q`` (the
 MobileNet final blocks, whose mean the head takes in f32).
 
 With ``bend`` the call also returns the bf16 value of ``y`` before the
@@ -70,7 +78,8 @@ __all__ = ["int8_conv", "int8_conv_reference", "plan", "plan_cost",
            "gconv_window", "gconv_spatial_tiles", "gconv_tables",
            "gconv_issued_ops", "gconv_info"]
 
-_RES_NONE, _RES_I8, _RES_I8_BF16, _RES_BF16, _RES_F32 = 0, 1, 2, 3, 4
+_RES_NONE, _RES_I8, _RES_I8_BF16, _RES_BF16, _RES_F32, _RES_ACT_F32 = \
+    0, 1, 2, 3, 4, 5
 _OUT_BF16, _OUT_I8, _OUT_F32 = 0, 1, 2
 
 # Block tiles (output pixels, output channels) the kernel is built for.
@@ -92,9 +101,9 @@ _EPI_CLK = 2000
 def smem_bytes(bm: int, bn: int) -> int:
     """Dynamic shared bytes of a ``bm`` x ``bn`` block: the 4-stage ring of
     (bm + bn) 64-byte rows, or over it the epilogue's int32 tile (rows
-    padded by 8 words), then A and B per channel (``smem_bytes`` in
+    padded by 8 words), then A, B and G per channel (``smem_bytes`` in
     ``csrc/int8_conv.cu``)."""
-    return max(_STAGES * (bm + bn) * _KS, bm * (bn + 8) * 4) + 8 * bn
+    return max(_STAGES * (bm + bn) * _KS, bm * (bn + 8) * 4) + 12 * bn
 
 
 def plan_cost(m: int, cout: int, cin: int, k: int, bm: int, bn: int) -> float:
@@ -359,7 +368,9 @@ def int8_conv_reference(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
                         res_scale: Optional[float] = None,
                         round_res: bool = False, dilation: int = 1,
                         bend: bool = False, groups: int = 1,
-                        linear_res: bool = False, out_f32: bool = False
+                        linear_res: bool = False, out_f32: bool = False,
+                        res_after_act: bool = False,
+                        pre_gain: Optional[torch.Tensor] = None
                         ) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """Plain PyTorch version of K2. The conv runs in float64, which is exact
     (int8 sums stay far below 2**53; float32 is not: they pass 2**24)."""
@@ -369,9 +380,16 @@ def int8_conv_reference(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
                    stride=stride, padding=dilation * (k // 2),
                    dilation=dilation, groups=groups)
     acc = acc.to(torch.int32).permute(0, 2, 3, 1).contiguous()
-    y = acc.to(torch.float32) * gain_a + bias_b
+    if pre_gain is None:
+        y = acc.to(torch.float32) * gain_a + bias_b
+    else:
+        y = acc.to(torch.float32) * gain_a * pre_gain + bias_b
     if residual is None:
         return _outputs(activate_i8_reference(y, act), q, bend, out_f32)
+    if res_after_act:
+        return _outputs(activate_i8_reference(y, act) +
+                        residual.to(torch.float32) * res_scale, q, bend,
+                        out_f32)
     if linear_res:
         return _outputs(y + residual.to(torch.float32) * res_scale, q, bend,
                         out_f32)
@@ -401,24 +419,35 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
               residual: Optional[torch.Tensor] = None,
               res_scale: Optional[float] = None, round_res: bool = False,
               groups: int = 1, dilation: int = 1, bend: bool = False,
-              linear_res: bool = False, out_f32: bool = False
+              linear_res: bool = False, out_f32: bool = False,
+              res_after_act: bool = False,
+              pre_gain: Optional[torch.Tensor] = None
               ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """K2: ``x`` int8 (B, H, W, Cin) conv ``w`` int8 (Cout, k, k, Cin /
     groups), stride ``stride``, dilation ``dilation``, pad ``dilation * (k
     // 2)``, then the epilogue in the module docstring. ``gain_a``/
-    ``bias_b``: f32 (Cout,). ``q``/``res_scale`` are float32 values. With
-    ``bend``, returns ``(out, y_bf16)``. CUDA tensors run the kernel (the
-    grouped kernel where ``groups > 1``), CPU tensors the plain version."""
+    ``bias_b`` (and ``pre_gain``): f32 (Cout,). ``q``/``res_scale`` are
+    float32 values. With ``bend``, returns ``(out, y_bf16)``. CUDA tensors
+    run the kernel (the grouped kernel where ``groups > 1``), CPU tensors
+    the plain version."""
     act_code_i8("int8_conv", act)
     if out_f32 and (q is not None or bend):
         raise ValueError("int8_conv: out_f32 takes no q and no bend")
-    if act == "relu6" and residual is not None:
-        raise ValueError("int8_conv: relu6 applies where there is no "
-                         "residual")
-    if linear_res and (residual is None or residual.dtype != torch.int8
-                       or res_scale is None or round_res):
-        raise ValueError("int8_conv: linear_res takes an int8 residual and "
-                         "its res_scale, unrounded")
+    if act is not None and act != "relu" and residual is not None and \
+            not res_after_act:
+        raise ValueError(f"int8_conv: {act} applies where there is no "
+                         f"residual, or before res_after_act's")
+    if (linear_res or res_after_act) and (
+            linear_res == res_after_act or residual is None or
+            residual.dtype != torch.int8 or res_scale is None or round_res):
+        raise ValueError("int8_conv: linear_res or res_after_act (not both) "
+                         "takes an int8 residual and its res_scale, "
+                         "unrounded")
+    if pre_gain is not None and (residual is not None or groups != 1 or
+                                 pre_gain.dtype != torch.float32 or
+                                 tuple(pre_gain.shape) != (w.shape[0],)):
+        raise ValueError(f"int8_conv: pre_gain takes f32 ({w.shape[0]},) "
+                         f"gains, no residual and no groups")
     if dilation < 1:
         raise ValueError(f"int8_conv: dilation {dilation} must be >= 1")
     if x.dtype != torch.int8 or x.dim() != 4:
@@ -459,17 +488,20 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
         if residual.dtype == torch.int8:
             if res_scale is None:
                 raise ValueError("int8_conv: int8 residual needs res_scale")
-            res_mode = _RES_F32 if linear_res else (
-                _RES_I8_BF16 if round_res else _RES_I8)
+            res_mode = _RES_F32 if linear_res else _RES_ACT_F32 if \
+                res_after_act else (_RES_I8_BF16 if round_res else _RES_I8)
         elif residual.dtype == torch.bfloat16:
             res_mode = _RES_BF16
         else:
             raise ValueError(f"int8_conv: residual dtype {residual.dtype}")
         tensors.append(residual)
+    if pre_gain is not None:
+        tensors.append(pre_gain)
     if not require_cuda_or_cpu("int8_conv", *tensors):
         return int8_conv_reference(x, w, gain_a, bias_b, stride, act, q,
                                    residual, res_scale, round_res, dilation,
-                                   bend, groups, linear_res, out_f32)
+                                   bend, groups, linear_res, out_f32,
+                                   res_after_act, pre_gain)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("int8_conv: inputs must be contiguous")
     m = bsz * ho * wo
@@ -488,7 +520,7 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, gain_a: torch.Tensor,
                                groups, out_mode)
     return _launch(x, w, gain_a, bias_b, stride, act, q, residual,
                    res_scale, res_mode, dilation, bend, out_mode,
-                   plan(m, cout, cin, k))
+                   plan(m, cout, cin, k), pre_gain)
 
 
 def _empty_outputs(x, w, stride, pad, dilation, bend, out_mode):
@@ -507,7 +539,7 @@ def _empty_outputs(x, w, stride, pad, dilation, bend, out_mode):
 
 
 def _launch(x, w, gain_a, bias_b, stride, act, q, residual, res_scale,
-            res_mode, dilation, bend, out_mode, tile):
+            res_mode, dilation, bend, out_mode, tile, pre_gain=None):
     """K2 on the card in blocks of ``tile`` = (BM, BN) (checked operands;
     :func:`plan`'s tile, or another of :data:`TILES` for the card tests
     and the plans tool)."""
@@ -521,6 +553,7 @@ def _launch(x, w, gain_a, bias_b, stride, act, q, residual, res_scale,
     with device_of(x):
         check(lib.pcv_int8_conv(
             x.data_ptr(), w.data_ptr(), gain_a.data_ptr(), bias_b.data_ptr(),
+            pre_gain.data_ptr() if pre_gain is not None else None,
             residual.data_ptr() if residual is not None else None,
             float(res_scale or 0.0), res_mode, ACTS_I8[act],
             float(q or 0.0), out_mode, out.data_ptr(), bsz, h, wd, cin, ho,

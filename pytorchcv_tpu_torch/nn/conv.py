@@ -16,10 +16,11 @@ from ..kernels.dwconv import dwconv2d_bn_act
 from .activ import Activation, HSwish, Swish, create_activation
 from .norm import BN_EPS, fold_batchnorm
 
-__all__ = ["ConvBlock", "DwsConvBlock", "DeconvBlock", "conv1x1",
-           "conv1x1_block", "conv3x3_block", "conv7x7_block",
+__all__ = ["ConvBlock", "DwsConvBlock", "DeconvBlock", "PreConvBlock",
+           "conv1x1", "conv1x1_block", "conv3x3_block", "conv7x7_block",
            "dwconv_block", "dwconv3x3_block", "dwconv5x5_block",
-           "dwsconv3x3_block", "unfused_depthwise"]
+           "dwsconv3x3_block", "pre_conv1x1_block", "pre_conv3x3_block",
+           "unfused_depthwise"]
 
 Normalization = Union[bool, Callable[[int], nn.Module]]
 Pad = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -213,3 +214,45 @@ class DeconvBlock(nn.Module):
 
     def forward(self, x):
         return self.activ(self.bn(self.conv(x)))
+
+
+class PreConvBlock(nn.Module):
+    """Pre-activation block: BatchNorm2d -> ReLU -> conv (JAX
+    ``nn/conv.py:232``), children ``bn`` (with ``use_bn``), ``activ`` (with
+    ``activate``) and ``conv``. With ``return_preact`` it also returns the
+    pre-activated input (the PreResNet identity conv's operand)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 bias: bool = False, use_bn: bool = True,
+                 return_preact: bool = False, activate: bool = True):
+        super().__init__()
+        self.return_preact = return_preact
+        self.bn = nn.BatchNorm2d(in_channels, eps=BN_EPS) if use_bn else None
+        self.activ = nn.ReLU() if activate else None
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
+                              stride=stride, padding=padding,
+                              dilation=dilation, bias=bias)
+
+    def forward(self, x):
+        if self.bn is not None:
+            x = self.bn(x)
+        if self.activ is not None:
+            x = self.activ(x)
+        pre = x
+        x = self.conv(x)
+        return (x, pre) if self.return_preact else x
+
+
+def pre_conv1x1_block(in_channels: int, out_channels: int, stride: int = 1,
+                      **kwargs) -> PreConvBlock:
+    """1x1 pre-activation block (JAX ``nn/conv.py:266``)."""
+    return PreConvBlock(in_channels, out_channels, 1, stride=stride,
+                        padding=0, **kwargs)
+
+
+def pre_conv3x3_block(in_channels: int, out_channels: int, stride: int = 1,
+                      **kwargs) -> PreConvBlock:
+    """3x3 pre-activation block, pad 1 (JAX ``nn/conv.py:271``)."""
+    return PreConvBlock(in_channels, out_channels, 3, stride=stride,
+                        padding=1, **kwargs)

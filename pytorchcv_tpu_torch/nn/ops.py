@@ -9,10 +9,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .activ import Activation, create_activation
 from .conv import conv3x3_block
+from .norm import BN_EPS
 
 __all__ = ["interpolate", "grid_sample", "BreakBlock", "InterpolationBlock",
-           "global_avg_pool2d", "DucBlock", "HeatmapMaxDetBlock"]
+           "global_avg_pool2d", "DucBlock", "HeatmapMaxDetBlock",
+           "NormActivation"]
 
 
 def interpolate(x, size: Tuple[int, int], mode: str = "bilinear",
@@ -128,3 +131,17 @@ class HeatmapMaxDetBlock(nn.Module):
         fx = px.to(heatmap.dtype) + torch.where(inner, dx_sign * 0.25, none)
         fy = py.to(heatmap.dtype) + torch.where(inner, dy_sign * 0.25, none)
         return torch.stack([fx, fy, scores], dim=2)
+
+
+class NormActivation(nn.Module):
+    """BatchNorm2d -> activation (ReLU by default): the final block of
+    PreResNet (JAX ``nn/ops.py:102``), children ``bn`` and ``activ``."""
+
+    def __init__(self, in_channels: int, activation: Activation = True):
+        super().__init__()
+        self.bn = nn.BatchNorm2d(in_channels, eps=BN_EPS)
+        self.activ = create_activation(activation)
+
+    def forward(self, x):
+        x = self.bn(x)
+        return x if self.activ is None else self.activ(x)

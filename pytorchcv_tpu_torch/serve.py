@@ -21,7 +21,10 @@
 
     serve = make_serving_fn("mobilenetv2_w1", (256, 256))    # int8 route
 
-Six routes of the JAX package's ``make_serving_fn``, all on the card by
+    serve = make_serving_fn("vgg16", (256, 256))    # also darknet53,
+                                                    # preresnet50, ...
+
+Nine routes of the JAX package's ``make_serving_fn``, all on the card by
 default:
 
 * ``resnet`` (classification): the eval preprocess (kernel K1, planar bf16
@@ -31,6 +34,15 @@ default:
 * ``mobilenetv2`` and ``mobilenet_v1`` (classification): the same
   preprocess and calibration, and the int8 MobileNet pipelines (K3, the
   int8 depthwise conv K12, K2);
+* ``vgg`` (classification, the 12 VGGs): the same preprocess and
+  calibration, and the int8 VGG pipeline (K3 at stride 1, K2 for the
+  convs and the fc layers, ``maxpool_i8``'s 2x2 window);
+* ``darknet`` (classification, DarkNet-53): the int8 DarkNet pipeline (K3
+  at stride 1 with the leaky ReLU, K2 with the leaky ReLU and its
+  act-then-residual epilogue);
+* ``preresnet`` (classification, PreResNet and SE-PreResNet): the int8
+  pre-activation pipeline (K3's bf16 stem with its gain, K2's
+  pre-activation epilogue, the stream step K13, the SE gate);
 * ``seg_backbone`` (segmentation: PSPNet, DeepLabv3, FCN-8s(d), DANet): the
   resize-only preprocess (K1), calibration over the whole f32 model, the
   int8 dilated backbone (K3, ``maxpool_i8``, K2; the stage-3 bend written
@@ -42,9 +54,10 @@ default:
   trunk (K3 7x7, ``maxpool_i8``, K2; AlphaPose's SE units on K11) and the
   bf16 head and decode, fed through ``from_features=True``;
 
-  each of these five runs only for a model whose tree passes its
+  each of these eight runs only for a model whose tree passes its
   pipeline's check (``quant.is_plain_resnet_tree``, the JAX package's
-  ``_is_plain_resnet``; ``quant.mobilenet_int8``'s;
+  ``_is_plain_resnet``; ``quant.mobilenet_int8``'s; ``quant.is_plain_vgg``,
+  ``quant.is_darknet53_tree``, ``quant.is_plain_preresnet_tree``;
   ``quant.is_seg_resnetd_backbone`` and ``quant.is_plain_resnet_trunk``,
   with a head whose forward takes ``from_features``); in ``mode="auto"`` a
   model that fails it (``mobilenetb_*``: no BN on its depthwise convs; a
@@ -72,12 +85,14 @@ from .kernels.preprocess import (classification_preprocess,
 from .model_provider import get_model, resolve_device
 from .models.registry import get_constructor
 from .nn.conv import unfused_depthwise
-from .quant import (calibrate_int8, is_mobilenet_v1_tree,
-                    is_mobilenet_v2_tree, is_plain_resnet_tree,
-                    is_plain_resnet_trunk, is_seg_resnetd_backbone,
-                    prepare_int8_mobilenet, prepare_int8_mobilenet_v1,
-                    prepare_int8_plain_trunk, prepare_int8_resnet,
-                    prepare_int8_seg_backbone)
+from .quant import (calibrate_int8, is_darknet53_tree, is_mobilenet_v1_tree,
+                    is_mobilenet_v2_tree, is_plain_preresnet_tree,
+                    is_plain_resnet_tree, is_plain_resnet_trunk,
+                    is_plain_vgg, is_seg_resnetd_backbone,
+                    prepare_int8_darknet, prepare_int8_mobilenet,
+                    prepare_int8_mobilenet_v1, prepare_int8_plain_trunk,
+                    prepare_int8_preresnet, prepare_int8_resnet,
+                    prepare_int8_seg_backbone, prepare_int8_vgg)
 
 __all__ = ["make_serving_fn", "declared_int8_route"]
 
@@ -85,8 +100,9 @@ __all__ = ["make_serving_fn", "declared_int8_route"]
 # copied from the JAX package's table (serve.py:43-69), where every entry
 # rests on an A/B measurement; a trailing '!' marks pipelines used only when
 # the caller forces mode='int8'. The port has the "resnet",
-# "seg_backbone", "plain_trunk", "mobilenet_v1" and "mobilenetv2"
-# pipelines; the others raise NotImplementedError.
+# "seg_backbone", "plain_trunk", "mobilenet_v1", "mobilenetv2", "vgg",
+# "darknet" and "preresnet" pipelines; the others raise
+# NotImplementedError.
 _INT8_ROUTES = {
     "resnet": "resnet", "seresnet": "resnet", "resnext": "resnet",
     "seresnext": "resnet", "senet": "resnet", "wrn": "resnet",
@@ -102,7 +118,8 @@ _INT8_ROUTES = {
     "centernet": "plain_trunk",
     "mobilenetv3": "mobilenetv3!", "efficientnet": "efficientnet!",
 }
-_TASK_ROUTES = {"classification": ("resnet", "mobilenet_v1", "mobilenetv2"),
+_TASK_ROUTES = {"classification": ("resnet", "mobilenet_v1", "mobilenetv2",
+                                   "vgg", "darknet", "preresnet"),
                 "segmentation": ("seg_backbone",),
                 "pose": ("plain_trunk",), "detection": ("plain_trunk",)}
 
@@ -118,6 +135,9 @@ _ROUTES = {
     "resnet": (is_plain_resnet_tree, prepare_int8_resnet),
     "mobilenet_v1": (is_mobilenet_v1_tree, prepare_int8_mobilenet_v1),
     "mobilenetv2": (is_mobilenet_v2_tree, prepare_int8_mobilenet),
+    "vgg": (is_plain_vgg, prepare_int8_vgg),
+    "darknet": (is_darknet53_tree, prepare_int8_darknet),
+    "preresnet": (is_plain_preresnet_tree, prepare_int8_preresnet),
     "seg_backbone": (lambda m: _takes_features(m) and
                      is_seg_resnetd_backbone(m), prepare_int8_seg_backbone),
     "plain_trunk": (lambda m: _takes_features(m) and is_plain_resnet_trunk(m),

@@ -46,7 +46,8 @@ def test_registry_holds_every_jax_resnet_name():
     """Each ported family (resnet, resnetd, danet, propainter_rfc,
     efficientnet, propainter, propainter_ip, wrn, seresnet, resnext,
     seresnext, senet, raft, mobilenet, mobilenetv2, mobilenetv3, pspnet,
-    deeplabv3, fcn8sd, centernet, alphapose_coco, fastseresnet) registers
+    deeplabv3, fcn8sd, centernet, alphapose_coco, fastseresnet, vgg,
+    darknet53, preresnet, sepreresnet) registers
     exactly the JAX package's names of that family, and nothing else;
     simplepose_coco its four ResNet variants (the ResNet-A ones are not yet
     ported)."""
@@ -61,7 +62,8 @@ def test_registry_holds_every_jax_resnet_name():
                 "seresnet", "resnext", "seresnext", "senet", "raft",
                 "mobilenet", "mobilenetv2", "mobilenetv3", "pspnet",
                 "deeplabv3", "fcn8sd", "centernet", "alphapose_coco",
-                "fastseresnet"):
+                "fastseresnet", "vgg", "darknet53", "preresnet",
+                "sepreresnet"):
         jax_names = family(jax_registry.registered_models(), jax_registry,
                            fam)
         assert family(port_names, port_registry, fam) == jax_names, fam
@@ -73,13 +75,14 @@ def test_registry_holds_every_jax_resnet_name():
                       "senet": 6, "raft": 2, "mobilenet": 12,
                       "mobilenetv2": 8, "mobilenetv3": 10, "pspnet": 8,
                       "deeplabv3": 10, "fcn8sd": 8, "centernet": 6,
-                      "alphapose_coco": 1, "fastseresnet": 1}
+                      "alphapose_coco": 1, "fastseresnet": 1, "vgg": 12,
+                      "darknet53": 1, "preresnet": 22, "sepreresnet": 17}
     simplepose = family(port_names, port_registry, "simplepose_coco")
     assert simplepose == {n for n in family(
         jax_registry.registered_models(), jax_registry, "simplepose_coco")
         if "resneta" not in n}
     assert len(simplepose) == 4
-    assert len(port_names) == 162
+    assert len(port_names) == 214
 
 
 def test_get_model_is_seeded_and_named():

@@ -30,8 +30,12 @@ every K12 and K2 call bit-exact, K3 with ReLU6), the int8 depthwise conv
 (K12) at odd shapes, C 20, 6 and 7 and every act under every instance,
 row band and block size, K2's ReLU6, linear-residual and f32-output
 epilogues, and K6 at every depthwise call of a bf16
-MobileNetV3-large; no K2, K3, K5, K6, K9, K12 or ``maxpool_i8`` instance
-spills.
+MobileNetV3-large; K2's leaky act, act-then-residual and pre-activation
+epilogues under every tile and VGG's fc layers as 1x1 convs, K3 at stride
+1 and with its gain and bf16 output (bit-exact on exact operands), the
+2x2 ``maxpool_i8``, K13 in every mode and on an unaligned view, and the
+int8 VGG, DarkNet and PreResNet routes against the CPU; no K2, K3, K5,
+K6, K9, K12, K13 or ``maxpool_i8`` instance spills.
 
 Each test carries the ``cuda`` marker, needs a CUDA card and nvcc, and
 skips without a card. On a machine without JAX, run them without the
@@ -418,7 +422,7 @@ def test_int8_pipeline_on_cuda_matches_cpu(name, kw, n_convs, n_chained):
                         "window_attention": 0,
                         "fused_bottleneck": n_chained, "stem_int8": 0,
                         "patch_window_sum": 0, "int8_gconv": 0,
-                        "se_tail": 0, "dwconv_i8": 0}
+                        "se_tail": 0, "dwconv_i8": 0, "preact": 0}
     cos = float(torch.nn.functional.cosine_similarity(
         y_gpu.flatten(), y_cpu.flatten(), dim=0))
     assert cos >= 0.9999, cos
@@ -1787,3 +1791,255 @@ def test_dense_routes_on_cuda_match_cpu(name, task, hw, src, tol):
         cos = float(torch.nn.functional.cosine_similarity(
             a.float().flatten(), b.float().cpu().flatten(), dim=0))
         assert cos >= tol, cos
+
+
+# ------------------------------------------------ VGG, DarkNet, PreResNet
+
+@pytest.mark.parametrize("cin", [32, 20])
+@pytest.mark.parametrize("tile", [(128, 128), (128, 64), (64, 128),
+                                  (64, 64)])
+def test_int8_conv_new_epilogues_match_plain(tile, cin):
+    """K2's leaky act (to int8 and bf16), its act-then-residual (DarkUnit
+    conv2, to int8 and f32) and its pre-activation epilogue (PreResNet
+    bodies) under each forced tile, at M and Cout no tile divides, 16- and
+    4-byte copies: bit-exact against the plain version."""
+    from pytorchcv_tpu_torch.kernels import int8_conv as k2
+    dev = _cuda()
+    rng = np.random.default_rng(tile[0] * 3 + tile[1] + cin)
+    cout = 200
+    a = torch.from_numpy(rng.uniform(2e-5, 2e-4, cout).astype(np.float32)
+                         ).to(dev)
+    b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.uniform(0.5, 2.0, cout).astype(np.float32)
+                         ).to(dev)
+    for k, stride, hw in ((3, 1, (11, 13)), (1, 2, (21, 25))):
+        x = _i8(rng, (3, *hw, cin), dev)
+        w = _i8(rng, (cout, k, k, cin), dev)
+        res = _i8(rng, (3, 11, 13, cout), dev)
+        cases = (
+            (dict(act="leaky", q=0.7), k2._RES_NONE, None),
+            (dict(act="leaky"), k2._RES_NONE, None),
+            (dict(act="leaky", q=0.7, residual=res, res_scale=0.01,
+                  res_after_act=True), k2._RES_ACT_F32, None),
+            (dict(act="leaky", residual=res, res_scale=0.01,
+                  res_after_act=True, out_f32=True), k2._RES_ACT_F32, None),
+            (dict(act="relu", q=0.7, pre_gain=g), k2._RES_NONE, g))
+        for kw, mode, pre in cases:
+            out_mode = k2._OUT_I8 if kw.get("q") is not None else \
+                k2._OUT_F32 if kw.get("out_f32") else k2._OUT_BF16
+            got = k2._launch(x, w, a, b, stride, kw["act"], kw.get("q"),
+                             kw.get("residual"), kw.get("res_scale"), mode,
+                             1, False, out_mode, tile, pre)
+            ref = int8_conv_reference(x, w, a, b, stride, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (k, kw.keys(), (
+                got.float() - ref.float()).abs().max())
+
+
+def test_int8_conv_fc_layers_as_1x1_convs_match_plain():
+    """VGG's fc layers as K2 1x1 convs over a (B, 1, 1, K) map at the
+    route's widths (K 25088 -> 4096 at batch 128 and 3): bit-exact."""
+    dev = _cuda()
+    rng = np.random.default_rng(31)
+    w = _i8(rng, (4096, 1, 1, 25088), dev)
+    a = torch.from_numpy(rng.uniform(1e-6, 1e-5, 4096).astype(np.float32)
+                         ).to(dev)
+    b = torch.from_numpy(rng.standard_normal(4096).astype(np.float32)).to(dev)
+    for bsz in (128, 3):
+        x = _i8(rng, (bsz, 1, 1, 25088), dev)
+        for kw in (dict(act="relu", q=0.5), dict(act=None)):
+            got = int8_conv(x, w, a, b, 1, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, int8_conv_reference(x, w, a, b, 1, **kw))
+
+
+def _grid_planar(rng, shape, dev):
+    return (torch.from_numpy(rng.integers(-8, 9, shape) / 4.0)
+            .to(dev, torch.bfloat16))
+
+
+@pytest.mark.parametrize("act,cout,hw,bsz", [
+    ("relu", 64, (224, 224), 2), ("leaky", 32, (224, 224), 2),
+    ("relu", 16, (37, 45), 3), ("leaky", 24, (9, 50), 1)])
+def test_stem_kernel_stride1_matches_plain(act, cout, hw, bsz):
+    """K3's 3x3 stride-1 instance (VGG's conv1_1, DarkNet's init block) at
+    the paths' 224x224 and at odd sizes (W % 8 != 0: element copies):
+    within the gate on random operands, bit-exact on exact ones (a
+    1/4-grid image, kernel k/64)."""
+    dev = _cuda()
+    rng = np.random.default_rng(cout + hw[1])
+    x = torch.from_numpy(rng.standard_normal((bsz, 3, *hw)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    kf = torch.from_numpy((rng.standard_normal((3, 3, 3, cout)) * 0.1)
+                          .astype(np.float32)).to(dev, torch.bfloat16)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)
+                            ).to(dev)
+    got = stem_conv(x, kf, bias, 40.0, act, stride=1)
+    ref = stem_conv_reference(x, kf, bias, 40.0, act, stride=1)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (bsz, *hw, cout)
+    diff = (got.int() - ref.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff != 0).float().mean()) <= 1e-3
+    xe = _grid_planar(rng, (bsz, 3, *hw), dev)
+    ke = (torch.from_numpy(rng.integers(-16, 17, (3, 3, 3, cout)) / 64.0)
+          .to(dev, torch.bfloat16))
+    assert torch.equal(stem_conv(xe, ke, bias, 40.0, act, stride=1),
+                       stem_conv_reference(xe, ke, bias, 40.0, act,
+                                           stride=1))
+
+
+@pytest.mark.parametrize("cout,hw,bsz", [(64, (224, 224), 2),
+                                         (16, (224, 224), 2),
+                                         (24, (41, 35), 3)])
+def test_stem_kernel_gain_bf16_output_matches_plain(cout, hw, bsz):
+    """K3's 7x7/s2 with the per-channel gain and the bf16 output
+    (PreResNet's stem, ``preresnet18_wd4``'s 16 channels): within 1 bf16
+    ulp (``bf16_ulp_error``: where ``y * g + b`` cancels to near zero the
+    f32 sums' order exceeds a bf16 ulp of the tiny result) on 0.1 % of
+    elements on random operands, bit-exact on exact ones."""
+    from pytorchcv_tpu_torch.kernels.preprocess import bf16_ulp_error
+    dev = _cuda()
+    rng = np.random.default_rng(cout * 7 + hw[1])
+    x = torch.from_numpy(rng.standard_normal((bsz, 3, *hw)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    kf = torch.from_numpy((rng.standard_normal((3, 7, 7, cout)) * 0.1)
+                          .astype(np.float32)).to(dev, torch.bfloat16)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)
+                            ).to(dev)
+    gain = torch.from_numpy(rng.uniform(0.5, 2, cout).astype(np.float32)
+                            ).to(dev)
+    got = stem_conv(x, kf, bias, None, "relu", gain=gain)
+    ref = stem_conv_reference(x, kf, bias, None, "relu", gain=gain)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape
+    ulps = bf16_ulp_error(got, ref)
+    assert float(ulps.max()) <= 1 and \
+        float((ulps != 0).float().mean()) <= 1e-3
+    xe = _grid_planar(rng, (bsz, 3, *hw), dev)
+    ke = (torch.from_numpy(rng.integers(-16, 17, (3, 7, 7, cout)) / 64.0)
+          .to(dev, torch.bfloat16))
+    assert torch.equal(stem_conv(xe, ke, bias, None, "relu", gain=gain),
+                       stem_conv_reference(xe, ke, bias, None, "relu",
+                                           gain=gain))
+
+
+def test_new_stem_instances_spill_nothing():
+    from pytorchcv_tpu_torch.kernels import stem as k3
+    _cuda()
+    for w in (224, 50):
+        info = k3.kernel_info(2, w, w, 3, stride=1)
+        assert info["spill_bytes"] == 0 and info["registers"] <= 128, info
+        assert info["dynamic_smem"] == k3.stem_smem(3, info["rows"], w, 1)
+
+
+@pytest.mark.parametrize("shape", [(8, 224, 224, 64), (2, 14, 14, 512),
+                                   (1, 7, 9, 24), (3, 5, 4, 3)])
+def test_maxpool_i8_2x2_bit_exact_under_every_vector_and_run(shape):
+    """The 2x2/s2 window (VGG's stage ends, odd sizes floor): its plan and
+    every vector width that divides C under runs of 1, 2 and 3 rows."""
+    from pytorchcv_tpu_torch.kernels.stem import _pool_launch
+    dev = _cuda()
+    x = _i8(np.random.default_rng(shape[1] + 1), shape, dev)
+    ref = maxpool_i8_reference(x, 2)
+    reset_launch_counts()
+    assert torch.equal(maxpool_i8(x, 2), ref) and LAUNCHES["maxpool_i8"] == 1
+    for vb in (16, 8, 4, 1):
+        if shape[3] % vb:
+            continue
+        for run in (1, 2, 3):
+            got = _pool_launch(x, torch.empty_like(ref), vb, run, window=2)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (vb, run)
+
+
+@pytest.mark.parametrize("c", [256, 20])
+@pytest.mark.parametrize("t_dtype,id_dtype,gated,with_pre", [
+    (torch.float32, torch.bfloat16, False, True),
+    (torch.float32, torch.float32, False, True),
+    (torch.bfloat16, torch.bfloat16, True, True),
+    (torch.bfloat16, torch.float32, True, False),
+    (torch.float32, torch.bfloat16, False, False),
+    (torch.bfloat16, None, False, True)])
+def test_preact_kernel_matches_plain(c, t_dtype, id_dtype, gated, with_pre):
+    """K13 in every mode (gate, identity bf16 or f32 or none, pre or not),
+    8-channel vectors (C 256) and single elements (C 20): bit-exact."""
+    from pytorchcv_tpu_torch.kernels.preact import preact, preact_reference
+    dev = _cuda()
+    rng = np.random.default_rng(c)
+    shape = (3, 9, 7, c)
+    t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 3
+                         ).to(dev, t_dtype)
+    ident = None if id_dtype is None else torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dev, id_dtype)
+    gate = torch.from_numpy(rng.uniform(0, 1, (3, c)).astype(np.float32)
+                            ).to(dev) if gated else None
+    bn = (torch.from_numpy(rng.uniform(0.5, 2, c).astype(np.float32)).to(dev),
+          torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(dev)
+          ) if with_pre else None
+    q = 37.5 if with_pre else None
+    reset_launch_counts()
+    got = preact(t, ident, gate, bn, q)
+    ref = preact_reference(t, ident, gate, bn, q)
+    torch.cuda.synchronize()
+    assert LAUNCHES["preact"] == 1
+    for g_, r_ in zip(got, ref):
+        assert (g_ is None) == (r_ is None)
+        if g_ is not None:
+            assert torch.equal(g_, r_)
+
+
+def test_preact_kernel_on_an_unaligned_view_and_instances():
+    """K13 on a t 8 bytes off a 16-byte boundary (single elements) equals
+    its plain version; neither instance spills."""
+    from pytorchcv_tpu_torch.kernels.preact import (kernel_info, preact,
+                                                    preact_reference)
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    shape = (2, 5, 5, 64)
+    buf = torch.empty(2 * 5 * 5 * 64 + 2, device=dev)
+    t = buf[2:].view(shape)
+    t.copy_(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)))
+    ident = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(dev, torch.bfloat16)
+    bn = (torch.ones(64, device=dev), torch.zeros(64, device=dev))
+    got = preact(t, ident, None, bn, 20.0)
+    ref = preact_reference(t, ident, None, bn, 20.0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g_, r_) for g_, r_ in zip(got, ref))
+    for vec in (True, False):
+        assert kernel_info(vec)["spill_bytes"] == 0
+
+
+@pytest.mark.parametrize("name", ["vgg11", "darknet53", "preresnet18",
+                                  "sepreresnet16", "preresnet18_wd4"])
+def test_classic_pipelines_on_cuda_match_cpu(name):
+    """The int8 VGG, DarkNet and PreResNet routes at 64x64 on the card
+    against the same plan on the CPU (the plain versions): logits within
+    cosine 0.9999 (K3 and the SE gate's mean sum in other orders), and
+    the launches of one forward."""
+    from pytorchcv_tpu_torch import quant
+    dev = _cuda()
+    model = pt.get_model(name, in_size=(64, 64), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+                m.running_mean.normal_(0.0, 0.5, generator=gen)
+    x = torch.randn(2, 3, 64, 64, generator=gen)
+    scales = quant.calibrate_int8(model, [x])
+    prep = {"vgg11": quant.prepare_int8_vgg,
+            "darknet53": quant.prepare_int8_darknet}.get(
+                name, quant.prepare_int8_preresnet)
+    run, plan = prep(model, scales)
+    with torch.inference_mode():
+        want = run(plan, x).float()
+    model_c = copy.deepcopy(model).to(dev)
+    run, plan = prep(model_c, scales)
+    reset_launch_counts()
+    with torch.inference_mode():
+        got = run(plan, x.to(dev)).float().cpu()
+    torch.cuda.synchronize()
+    assert LAUNCHES["stem"] == 1 and LAUNCHES["int8_conv"] > 0
+    cos = float((got * want).sum() / (got.norm() * want.norm()))
+    assert cos >= 0.9999, cos

@@ -445,9 +445,9 @@ def test_bidirectional_flows_match_jax(rafts):
 
 
 def test_registry_counts_match_jax():
-    """162 names; raft_things and raft_small with the JAX models' parameter
+    """214 names; raft_things and raft_small with the JAX models' parameter
     counts (docs/MODEL_TABLE.md:492-493)."""
-    assert len(pt.registered_models()) == 162
+    assert len(pt.registered_models()) == 214
     for name, n in (("raft_things", 5257536), ("raft_small", 990162)):
         model = get_constructor(name)()
         assert sum(p.numel() for p in model.parameters()) == n
